@@ -3,18 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from textboost_torch/csrc/, holds each against its
-plain PyTorch version at the shapes the sd15 sampling path gives it, runs
-one sd15 UNet forward with the kernels and with plain math, then drives the
-port's main path once through its entry point: `textboost_torch.inference.
-generate` on a model dir written by the port's exporters (sd15 at full
-width with seeded random weights, 512 px, bf16, DPM-Solver++ 25 steps,
-CFG 7.5, seeds 0-3).  It checks the images and that the main path launched
-each kernel exactly as often as the model spec says, then prints the card
-(name and power limit from nvidia-smi), one JSON line of per-kernel
-numbers, and as its last line {"ok": true, "device": {...}}.  Any failed
-phase raises and the script exits non-zero with no result line.  Without
-CUDA, or without the repo beside it, it fails the same way.
+Builds the CUDA kernels from textboost_torch/csrc/ (four: flash-attention
+forward and backward, GroupNorm forward and input-gradient backward) and
+holds each against its plain PyTorch version at the shapes sd15 gives it.
+Then it drives the port's two main paths through their entry points, each
+with the launch counts set to 0 just before and read just after:
+
+  * sampling: `textboost_torch.inference.generate` on a model dir written
+    by the port's exporters (sd15 at full width with seeded random weights,
+    512 px, bf16, DPM-Solver++ 25 steps, CFG 7.5, seeds 0-3);
+  * training: `textboost_torch.train.main` for 10 steps (sd15, 512 px,
+    batch 8, bf16, LoRA r=4, KPL 0.1, --augment none) on a synthetic
+    instance image; its exported model dir then samples through
+    `textboost_torch.inference.generate`.
+
+Before them: one sd15 UNet forward and one sd15 train step (batch 2) with
+the kernels and with plain math.  It checks the outputs, that each path
+launched each kernel exactly as often as the model spec says, then prints
+the card (name and power limit from nvidia-smi), one JSON line of
+per-kernel numbers, and as its last line {"ok": true, "device": {...}}.
+Any failed phase raises and the script exits non-zero with no result line.
+Without CUDA, or without the repo beside it, it fails the same way.
 
 fp32 matmuls and convolutions are held to full fp32 (TF32 off) so that the
 plain references are what they say.
@@ -22,7 +31,10 @@ plain references are what they say.
 from __future__ import annotations
 
 import collections
+import gc
 import json
+import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -41,6 +53,24 @@ FLASH_LSE_ATOL = 1e-3  # lse: fp32 on both sides
 GN_RTOL, GN_ATOL = 2.0**-7, 1e-3  # y: one bf16 ulp where the two fp32 results round apart
 GN_STAT_RTOL = 1e-4  # mean/rstd: fp32 sums in another order
 UNET_REL_L2 = 5e-2  # sd15 UNet output, kernels vs math, bf16 through ~100 layers
+# Flash backward: dq, dk and dv (bf16) against fp32 autograd of plain
+# attention, relative L2 overall and over the worst (b, n, h) row.  P and dS
+# rounded to bf16 as tensor-core operands cost ~2.4e-3 overall and ~5e-3 in
+# the worst row (measured at sd15's shapes on an H100); a wrong kernel that
+# skips the first 64-key tile costs 0.13-0.32 overall and ~1 in the worst
+# row, and must fail both limits.
+FLASH_BWD_REL_L2 = 5e-3
+FLASH_BWD_ROW_REL_L2 = 2e-2
+# GroupNorm backward: dx in bf16 against the plain version from the same
+# inputs: one bf16 ulp where two fp32 results round apart.
+GN_BWD_RTOL, GN_BWD_ATOL = 2.0**-7, 1e-3
+# One sd15 train step (batch 2), kernels vs math: relative difference of
+# the loss and relative L2 of the LoRA and added-embedding gradients, bf16
+# through the UNet's forward and backward.  The control, a GroupNorm
+# backward that drops the SiLU's derivative, must exceed the bound.
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_REL_L2 = 5e-2
+TRAIN_STEPS = 10
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (H100 SXM)
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
@@ -118,6 +148,346 @@ def expected_launches(spec, steps: int):
                               torch.bfloat16, False, False))
     gn_vae = 2 * (2 + levels * (v.layers_per_block + 1)) + 1 + 1
     return flash * steps + vae_flash, gn_unet * steps + gn_vae
+
+
+def expected_train_launches(spec):
+    """(flash fwd, flash bwd, group norm fwd, group norm bwd) launches of one
+    sd15-family train step with the 'auto' rule.  Forward: every UNet GN and
+    self-attention the rule sends to flash, and the VAE encoder's (no_grad).
+    Backward: all of those downstream of the first cross-attention, i.e. all
+    but down-block 0's first resnet (2 GNs) and its first Transformer2D (the
+    GN before proj_in and the self-attention before attn2), which do not
+    depend on the text."""
+    import torch
+
+    from textboost_torch.ops.attention import use_flash
+
+    u, v = spec.unet, spec.vae
+    levels = len(u.block_out_channels)
+    flash = gn_resnets = attns = 0
+    for level, ch in enumerate(u.block_out_channels):
+        n = (u.sample_size // 2**level) ** 2
+        blocks = 2 * u.layers_per_block + 1  # down + up resnets at this level
+        gn_resnets += blocks
+        if u.cross_attention_levels[level]:
+            attns += blocks
+            d = ch // u.num_attention_heads[level]
+            if use_flash("cuda", n, n, d, torch.bfloat16, False, False):
+                flash += blocks * u.transformer_layers_per_block
+    gn_unet = 2 * (gn_resnets + 2) + attns + 1 + 1  # resnets (+2 mid), attns (+mid), out
+    n_mid = (spec.resolution // 8) ** 2  # the VAE mid block runs at latent resolution
+    vae_flash = int(use_flash("cuda", n_mid, n_mid, v.block_out_channels[-1],
+                              torch.bfloat16, False, False))
+    gn_encoder = 2 * levels * v.layers_per_block + 2 * 2 + 1 + 1  # resnets, mid, attn, out
+    text_free_flash = int(flash > 0 and u.cross_attention_levels[0]
+                          and use_flash("cuda", u.sample_size**2, u.sample_size**2,
+                                        u.block_out_channels[0] // u.num_attention_heads[0],
+                                        torch.bfloat16, False, False))
+    text_free_gn = 2 + int(bool(u.cross_attention_levels[0]))
+    return (flash + vae_flash, flash - text_free_flash, gn_unet + gn_encoder,
+            gn_unet - text_free_gn)
+
+
+def attention_grads_fp32(q, k, v, do, scale: float, kv_len: int, skip_keys: int = 0):
+    """(dq, dk, dv) fp32 of plain softmax attention by autograd, one sample
+    at a time, over keys [skip_keys, kv_len) (the others get zero
+    gradients): the reference of the flash backward check, and with
+    skip_keys=64 its wrong-kernel control."""
+    import torch
+
+    dq = torch.zeros(q.shape, device=q.device)
+    dk, dv = torch.zeros(k.shape, device=q.device), torch.zeros(v.shape, device=q.device)
+    for i in range(q.shape[0]):
+        qi = q[i].float().requires_grad_()
+        ki = k[i, skip_keys:kv_len].float().requires_grad_()
+        vi = v[i, skip_keys:kv_len].float().requires_grad_()
+        s = torch.einsum("nhd,mhd->hnm", qi, ki) * scale
+        o = torch.einsum("hnm,mhd->nhd", torch.softmax(s, dim=-1), vi)
+        o.backward(do[i].float())
+        dq[i], dk[i, skip_keys:kv_len], dv[i, skip_keys:kv_len] = qi.grad, ki.grad, vi.grad
+        del s, o, qi, ki, vi
+    return dq, dk, dv
+
+
+def grad_errors(g, ref):
+    """(relative L2 of g against ref, worst over the rows whose reference is
+    not zero)."""
+    diff = g.float() - ref
+    rn, dn = ref.norm(dim=-1), diff.norm(dim=-1)
+    live = rn > 0
+    return (diff.norm() / ref.norm()).item(), (dn[live] / rn[live]).max().item()
+
+
+def rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def write_instance_image(path: str, seed: int) -> None:
+    """A 512x512 RGB PNG: smooth colour ramps plus noise, from a seed."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:512, 0:512] / 511.0
+    img = np.stack([xx, yy, 1.0 - xx * yy], axis=-1) * 200 + rng.normal(0, 20, (512, 512, 3))
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path)
+
+def train_flags(instance_dir: str, output_dir: str, batch: int, steps: int):
+    """CLI flags of the training main path: sd15 at 512 px, bf16, LoRA r=4,
+    KPL 0.1 (cos), no augmentation, no checkpoints."""
+    return ["--model_preset", "sd15", "--instance_data_dir", instance_dir,
+            "--output_dir", output_dir, "--placeholder_token", "<v*>",
+            "--initializer_token", "dog", "--resolution", "512",
+            "--train_batch_size", str(batch), "--max_train_steps", str(steps),
+            "--mixed_precision", "bf16", "--lora_rank", "4", "--kpl_weight", "0.1",
+            "--augment", "none", "--checkpointing_steps", "0", "--report_to", "none",
+            "--seed", "0"]
+
+
+def check_flash_backward(gen) -> float:
+    """K2 against fp32 autograd of plain attention at sd15's two training
+    shapes and one masked KV tail; returns the largest |error|."""
+    import torch
+
+    from textboost_torch.ops import flash_attention as fa
+
+    dev, bf16 = gen.device, torch.bfloat16
+    worst = 0.0
+    for b, n, h, d, m, kv in ((8, 4096, 8, 40, 4096, 4096), (8, 1024, 8, 80, 1024, 1024),
+                              (2, 1024, 8, 64, 1024, 700)):
+        q, do = (torch.randn(b, n, h, d, generator=gen, device=dev).to(bf16) for _ in range(2))
+        k, v = (torch.randn(b, m, h, d, generator=gen, device=dev).to(bf16) for _ in range(2))
+        o, lse = fa.flash_attention_forward(q, k, v, scale=d**-0.5, kv_len=kv)
+        grads = fa.flash_attention_backward(q, k, v, o, lse, do, scale=d**-0.5, kv_len=kv)
+        torch.cuda.synchronize()
+        ref = attention_grads_fp32(q, k, v, do, d**-0.5, kv)
+        control = attention_grads_fp32(q, k, v, do, d**-0.5, kv, skip_keys=64)
+        report = []
+        for name, g, r, c in zip(("dq", "dk", "dv"), grads, ref, control):
+            rel, row = grad_errors(g, r)
+            crel, crow = grad_errors(c.to(bf16), r)
+            report.append(f"{name} {rel:.3g} / {row:.3g} (control {crel:.3g} / {crow:.3g})")
+            if not (crel > FLASH_BWD_REL_L2 and crow > FLASH_BWD_ROW_REL_L2):
+                raise AssertionError(f"the flash backward limits would pass a kernel that "
+                                     f"skips a key tile ({name} at {b, n, h, d, m, kv})")
+            if not (rel <= FLASH_BWD_REL_L2 and row <= FLASH_BWD_ROW_REL_L2):
+                raise AssertionError(f"flash backward {name} disagrees with fp32 autograd "
+                                     f"at {b, n, h, d, m, kv}")
+            worst = max(worst, (g.float() - r).abs().max().item())
+        print(f"[flash_bwd] B,N,H,D,M,kv_len={b},{n},{h},{d},{m},{kv}: rel L2 / worst row "
+              f"(limits {FLASH_BWD_REL_L2} / {FLASH_BWD_ROW_REL_L2}; control: first 64 keys "
+              f"skipped): " + "; ".join(report), flush=True)
+        del q, k, v, do, o, lse, grads, ref, control
+    return worst
+
+
+def flash_backward_times(gen, b: int, n: int, h: int, d: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from textboost_torch.ops import flash_attention as fa
+
+    dev, bf16 = gen.device, torch.bfloat16
+    q, k, v, do = (torch.randn(b, n, h, d, generator=gen, device=dev).to(bf16) for _ in range(4))
+    o, lse = fa.flash_attention_forward(q, k, v, scale=d**-0.5)
+    qt, kt, vt = (z.transpose(1, 2).contiguous().requires_grad_() for z in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+
+    nbytes = 8 * q.numel() * 2 + b * h * n * 4  # q, k, v, o, dO in; dq, dk, dv out; lse
+    ops = 10 * b * h * n * n * d  # five N x N x D products, 2 operations per multiply-add
+    out = {
+        "ms": cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, lse, do, scale=d**-0.5), 10),
+        "plain_ms": cuda_ms(
+            lambda: fa.flash_attention_backward_reference(q, k, v, o, lse, do, d**-0.5), 2, 1),
+        "library_ms": cuda_ms(sdpa_fwd_bwd, 10) - cuda_ms(sdpa_fwd, 10),
+        "bound_ms": max(nbytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS) * 1e3,
+        "bound_by": "operations" if ops / H100_BF16_FLOPS > nbytes / H100_BYTES_PER_S else "bytes",
+    }
+    del q, k, v, do, o, lse, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_step_parity(gen, instance_dir: str, output_dir: str):
+    """One sd15 train step at batch 2 from one state, batch and draws, with
+    the kernels ('auto') and with plain math, and the control.  Returns
+    (numbers, the (shape without batch, groups, eps, silu) of every UNet
+    GroupNorm the backward runs through)."""
+    import torch
+
+    from textboost_torch.lora.partition import lora_parameters
+    from textboost_torch.models.layers import GroupNorm, set_impl
+    from textboost_torch.ops import group_norm as gn
+    from textboost_torch.train.config import parse_args
+    from textboost_torch.train.step import forward_backward
+    from textboost_torch.train.trainer import Trainer
+
+    trainer = Trainer(parse_args(train_flags(instance_dir, output_dir, 2, 1)), device="cuda")
+    state, te = trainer.state, trainer.text_encoder
+    lora = lora_parameters(te)
+    with torch.no_grad():
+        for p in lora[1::2]:  # lora_B: nonzero, so that lora_A has gradients too
+            p.normal_(0.0, 0.01, generator=gen)
+    try:
+        batch = trainer._device_batch(next(iter(trainer.train_loader)),
+                                      next(iter(trainer.prior_loader)))
+    finally:
+        trainer.train_loader.stop()
+        trainer.prior_loader.stop()
+    draws = trainer._draws()
+    shapes = set()
+
+    def record(mod, args):
+        if torch.is_grad_enabled() and args[0].requires_grad:
+            shapes.add((tuple(args[0].shape[1:]), mod.num_groups, mod.eps, mod.silu))
+
+    hooks = [m.register_forward_pre_hook(record) for m in state.unet.modules()
+             if isinstance(m, GroupNorm)]
+
+    def run(impl):
+        set_impl(state.unet, impl)
+        set_impl(state.vae, impl)
+        loss, _ = forward_backward(state, trainer.step_config, batch, draws)
+        lora_grad = torch.cat([p.grad.float().flatten() for p in lora])
+        emb_grad = te.token_embedding.weight.grad[trainer.first_added_id:].float().clone()
+        return loss.item(), lora_grad, emb_grad
+
+    kernels = run("auto")
+    for hk in hooks:
+        hk.remove()
+    math = run("math")
+    real_bwd = gn.group_norm_backward
+    # Control: a GroupNorm backward that forgets the SiLU's derivative.
+    gn.group_norm_backward = lambda x, ga, be, mu, rs, dy, g, eps, silu: (
+        gn.group_norm_backward_reference(x, ga, be, mu, rs, dy, g, eps, False))
+    try:
+        control = run("auto")
+    finally:
+        gn.group_norm_backward = real_bwd
+    set_impl(state.unet, "auto")
+    set_impl(state.vae, "auto")
+    out = {
+        "loss_rel_diff": abs(kernels[0] - math[0]) / abs(math[0]),
+        "lora_grad_rel_l2": rel_l2(kernels[1], math[1]),
+        "emb_grad_rel_l2": rel_l2(kernels[2], math[2]),
+        "control_lora_grad_rel_l2": rel_l2(control[1], math[1]),
+        "control_emb_grad_rel_l2": rel_l2(control[2], math[2]),
+    }
+    print(f"[train_step] sd15 batch 2, kernels vs math: loss {kernels[0]:.6g} vs {math[0]:.6g} "
+          f"(rel {out['loss_rel_diff']:.3g}, bound {TRAIN_LOSS_REL}); rel L2 of the LoRA grads "
+          f"{out['lora_grad_rel_l2']:.3g}, of the added-embedding grad "
+          f"{out['emb_grad_rel_l2']:.3g} (bound {TRAIN_GRAD_REL_L2}); control (GN backward "
+          f"without the SiLU derivative) {out['control_lora_grad_rel_l2']:.3g} / "
+          f"{out['control_emb_grad_rel_l2']:.3g}", flush=True)
+    if not (out["control_lora_grad_rel_l2"] > TRAIN_GRAD_REL_L2
+            and out["control_emb_grad_rel_l2"] > TRAIN_GRAD_REL_L2):
+        raise AssertionError("the train-step bound would pass a GroupNorm backward without "
+                             "the SiLU derivative")
+    if not (out["loss_rel_diff"] <= TRAIN_LOSS_REL and out["lora_grad_rel_l2"] <= TRAIN_GRAD_REL_L2
+            and out["emb_grad_rel_l2"] <= TRAIN_GRAD_REL_L2):
+        raise AssertionError("the sd15 train step with kernels disagrees with plain math")
+    del trainer, state, te, lora, batch, draws, kernels, math, control
+    return out, shapes
+
+
+def check_group_norm_backward(gen, shapes, batch: int):
+    """K4 against its plain version at every (shape, groups, eps, silu) of
+    the UNet's training backward, at `batch`; returns ({key: ms}, max
+    |error|)."""
+    import torch
+
+    from textboost_torch.ops import group_norm as gn
+
+    dev, bf16 = gen.device, torch.bfloat16
+    times, worst = {}, 0.0
+    for shp, groups, eps, silu in sorted(shapes):
+        shape = (batch,) + shp
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(bf16)
+        dy = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        ga = torch.randn(shape[1], generator=gen, device=dev) * 0.2 + 1
+        be = torch.randn(shape[1], generator=gen, device=dev) * 0.1
+        _, mu, rs = gn.group_norm_forward(x, ga, be, groups, eps=eps, silu=silu)
+        dx = gn.group_norm_backward(x, ga, be, mu, rs, dy, groups, eps, silu)
+        torch.cuda.synchronize()
+        ref = gn.group_norm_backward_reference(x, ga, be, mu, rs, dy, groups, eps, silu).float()
+        err = (dx.float() - ref).abs()
+        if not bool((err <= GN_BWD_ATOL + GN_BWD_RTOL * ref.abs()).all()):
+            raise AssertionError(f"group norm backward disagrees with its plain version at "
+                                 f"{shape, groups, eps, silu}")
+        worst = max(worst, err.max().item())
+        times[(shape, groups, eps, silu)] = cuda_ms(
+            lambda: gn.group_norm_backward(x, ga, be, mu, rs, dy, groups, eps, silu), 10)
+    print(f"[group_norm_bwd] {len(times)} distinct (shape, groups, eps, silu) of the UNet's "
+          f"training backward at batch {batch} agree; max|dx err| {worst:.3g}", flush=True)
+    return times, worst
+
+
+def train_main_path(instance_dir: str, output_dir: str):
+    """The training main path: `textboost_torch.train.main` for TRAIN_STEPS
+    steps at batch 8, with the launch counts set to 0 just before and read
+    just after.  CUDA events after each step give the warm step time (steps
+    3-9); the last step is traced with torch.profiler after the queue has
+    drained."""
+    import torch
+    import torch.profiler
+
+    from textboost_torch import train as train_pkg
+    from textboost_torch.ops import flash_attention as fa
+    from textboost_torch.ops import group_norm as gn
+    from textboost_torch.train import trainer as trainer_mod
+
+    events, traced = [], {}
+    real_make = trainer_mod.make_train_step
+
+    def timed_make(config):
+        step = real_make(config)
+
+        def timed_step(state, batch, draws):
+            if len(events) == TRAIN_STEPS - 1:
+                torch.cuda.synchronize()
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    out = step(state, batch, draws)
+                    torch.cuda.synchronize()
+                    traced["wall_ms"] = (time.perf_counter() - t0) * 1e3
+                traced["prof"] = prof
+            else:
+                out = step(state, batch, draws)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            return out
+
+        return timed_step
+
+    trainer_mod.make_train_step = timed_make
+    fa.launches = fa.bwd_launches = gn.launches = gn.bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        metrics = train_pkg.main(train_flags(instance_dir, output_dir, 8, TRAIN_STEPS))
+    finally:
+        trainer_mod.make_train_step = real_make
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = {"flash": fa.launches, "flash_bwd": fa.bwd_launches, "gn": gn.launches,
+                "gn_bwd": gn.bwd_launches}
+    kernel_ms = collections.Counter()
+    for e in traced["prof"].key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernel_ms[e.key] += e.self_device_time_total / 1e3
+    return {
+        "metrics": metrics, "launches": launches, "run_s": run_s,
+        "warm_step_ms": events[1].elapsed_time(events[TRAIN_STEPS - 2]) / (TRAIN_STEPS - 3),
+        "traced_wall_ms": traced["wall_ms"], "kernel_ms": kernel_ms,
+    }
 
 
 def main() -> int:
@@ -263,13 +633,15 @@ def main() -> int:
     want_flash, want_gn = expected_launches(spec, steps)
     if (want_flash, want_gn) != (251, 1555):
         raise AssertionError(f"spec-derived launch counts {want_flash, want_gn} != (251, 1555)")
-    fa.launches = gn.launches = 0
+    fa.launches = fa.bwd_launches = gn.launches = gn.bwd_launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     out = generate(args)  # raises if a decoded image is not finite
     torch.cuda.synchronize()
     cold_s = time.time() - t0
     launches = {"flash": fa.launches, "gn": gn.launches}
+    if fa.bwd_launches or gn.bwd_launches:
+        raise AssertionError("sampling launched a backward kernel")
     print(f"[generate] {out.shape} {out.dtype} in {cold_s:.2f} s (model init included): "
           f"{len(seeds) / cold_s:.3f} images/s; launches flash {launches['flash']} "
           f"group_norm {launches['gn']}", flush=True)
@@ -366,6 +738,97 @@ def main() -> int:
         }
         del xx
 
+    # 7. flash backward vs fp32 autograd, and its times -----------------------
+    flash_bwd_err = check_flash_backward(gen)
+    fb_t = {"unet_level0_8x4096x8x40": flash_backward_times(gen, 8, 4096, 8, 40),
+            "unet_level1_8x1024x8x80": flash_backward_times(gen, 8, 1024, 8, 80)}
+
+    # 8. one sd15 train step at batch 2, kernels vs math -----------------------
+    train_work = tempfile.TemporaryDirectory()
+    instance_dir = os.path.join(train_work.name, "instance")
+    os.makedirs(instance_dir)
+    write_instance_image(os.path.join(instance_dir, "dog.png"), seed=0)
+    parity, gn_train_shapes = train_step_parity(gen, instance_dir,
+                                                os.path.join(train_work.name, "parity"))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. group norm backward vs its plain version, training shapes at batch 8 --
+    gn_bwd_shape_ms, gn_bwd_err = check_group_norm_backward(gen, gn_train_shapes, 8)
+    shape, eps = (8, 320, 64, 64), 1e-6  # Transformer2D norm, level 0, no SiLU
+    x = torch.randn(shape, generator=gen, device=dev).to(bf16)
+    dy = torch.randn(shape, generator=gen, device=dev).to(bf16)
+    ga = torch.randn(320, generator=gen, device=dev) * 0.2 + 1
+    be = torch.randn(320, generator=gen, device=dev) * 0.1
+    _, mu, rs = gn.group_norm_forward(x, ga, be, 32, eps=eps, silu=False)
+    xg, ga16, be16 = x.clone().requires_grad_(), ga.to(bf16), be.to(bf16)
+
+    def library_gn_fwd():
+        return F.group_norm(xg, 32, ga16, be16, eps)
+
+    gn_bwd_ms = cuda_ms(lambda: gn.group_norm_backward(x, ga, be, mu, rs, dy, 32, eps, False), 20)
+    gn_bwd_plain = cuda_ms(
+        lambda: gn.group_norm_backward_reference(x, ga, be, mu, rs, dy, 32, eps, False), 10)
+    gn_bwd_lib = (cuda_ms(lambda: torch.autograd.grad(library_gn_fwd(), xg, dy), 20)
+                  - cuda_ms(library_gn_fwd, 20))
+    gn_bwd_bytes = 3 * x.numel() * 2 + 2 * 320 * 4 + 2 * 8 * 32 * 4  # x, dy in; dx out
+    gn_bwd_ops = 12 * x.numel()  # two passes of x_hat, the sums, dx
+    gn_bwd_bound = max(gn_bwd_bytes / H100_BYTES_PER_S, gn_bwd_ops / H100_FP32_FLOPS) * 1e3
+    resnet_key = ((8, 320, 64, 64), 32, 1e-5, True)
+    gn_bwd_extra = {"resnet_silu_8x320x64x64": {
+        "ms": gn_bwd_shape_ms[resnet_key], "bound_ms": gn_bwd_bytes / H100_BYTES_PER_S * 1e3}}
+    del x, dy, xg, mu, rs
+
+    # 10. main path: textboost_torch.train.main, then sampling from its output -
+    want = expected_train_launches(spec)
+    if want != (11, 9, 83, 58):
+        raise AssertionError(f"spec-derived train-step launch counts {want} != (11, 9, 83, 58)")
+    want_run = {key: n * TRAIN_STEPS
+                for key, n in zip(("flash", "flash_bwd", "gn", "gn_bwd"), want)}
+    out_dir = os.path.join(train_work.name, "out")
+    tr = train_main_path(instance_dir, out_dir)
+    m = tr["metrics"]
+    print(f"[train] {TRAIN_STEPS} steps sd15 512 px batch 8 bf16 in {tr['run_s']:.1f} s "
+          f"(model init and export included): loss {m['loss']:.5g}, kpl {m['kpl']:.3g}, "
+          f"grad_norm {m['grad_norm']:.3g}; warm step (steps 3-9, CUDA events) "
+          f"{tr['warm_step_ms']:.1f} ms; launches {tr['launches']} (expected {want_run})",
+          flush=True)
+    if tr["launches"] != want_run:
+        raise AssertionError(f"training launched {tr['launches']}, expected {want_run}")
+    if m["steps"] != TRAIN_STEPS or not all(
+            math.isfinite(m[key]) for key in ("loss", "kpl", "grad_norm", "added_embedding_norm")):
+        raise AssertionError(f"training returned {m}")
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    if not any(r["step"] == TRAIN_STEPS and math.isfinite(r["loss"]) for r in records):
+        raise AssertionError(f"metrics.jsonl has no step-{TRAIN_STEPS} record")
+    for name in ("text_encoder/adapter_model.safetensors", "text_encoder/adapter_config.json",
+                 "v*.bin", "training.log"):
+        if not os.path.isfile(os.path.join(out_dir, name)):
+            raise AssertionError(f"training wrote no {name}")
+    busy = sum(tr["kernel_ms"].values())
+    new_ms = {name: sum(ms for key, ms in tr["kernel_ms"].items() if tag in key)
+              for name, tag in (("flash_attention_bwd", "flash_bwd_"),
+                                ("group_norm_bwd", "group_norm_bwd_kernel"),
+                                ("flash_attention_fwd", "flash_fwd"),
+                                ("group_norm_fwd", "group_norm_fwd_kernel"))}
+    print(f"[train breakdown] traced step {tr['traced_wall_ms']:.1f} ms wall, {busy:.1f} ms "
+          f"of kernels (idle {1 - busy / tr['traced_wall_ms']:.3f}); flash bwd "
+          f"{new_ms['flash_attention_bwd']:.1f} ms ({new_ms['flash_attention_bwd'] / busy:.3f}), "
+          f"group norm bwd {new_ms['group_norm_bwd']:.1f} ms "
+          f"({new_ms['group_norm_bwd'] / busy:.3f}), flash fwd "
+          f"{new_ms['flash_attention_fwd']:.1f} ms, group norm fwd "
+          f"{new_ms['group_norm_fwd']:.1f} ms", flush=True)
+    for name, ms in tr["kernel_ms"].most_common(10):
+        print(f"[train breakdown]   {ms:8.2f} ms  {name[:100]}", flush=True)
+    images = generate(parse_args([out_dir, "--model", "sd15", "--prompt", "photo of a <v*> dog",
+                                  "--seeds", "0", "--steps", "2", "--lora-rank", "4"]))
+    if images.dtype.name != "uint8" or images.shape != (1, 512, 512, 3):
+        raise AssertionError(f"sampling the trained model gave {images.dtype} {images.shape}")
+    print(f"[train] the exported model dir samples through textboost_torch.inference: "
+          f"{images.shape}", flush=True)
+    train_work.cleanup()
+
     kernels = {"kernels": [
         dict({"name": "flash_attention_fwd", "route": "cuda",
               "source": "textboost_torch/csrc/flash_attention_fwd.cu",
@@ -373,7 +836,14 @@ def main() -> int:
               "launches": launches["flash"], "max_abs_err": flash_err},
              **fa_t["unet_level0_8x4096x8x40"], shape="B,N,H,D=8,4096,8,40 bf16",
              other_shapes={k: fa_t[k] for k in list(fa_t)[1:]},
-             per_generate_ms=flash_ms),
+             per_generate_ms=flash_ms, train_launches=tr["launches"]["flash"]),
+        dict({"name": "flash_attention_bwd", "route": "cuda",
+              "source": "textboost_torch/csrc/flash_attention_bwd.cu",
+              "replaces": "textboost_tpu/ops/flash_attention.py:119",
+              "launches": tr["launches"]["flash_bwd"], "max_abs_err": flash_bwd_err},
+             **fb_t["unet_level0_8x4096x8x40"], shape="B,N,H,D=8,4096,8,40 bf16",
+             other_shapes={k: fb_t[k] for k in list(fb_t)[1:]},
+             launches_per_train_step=tr["launches"]["flash_bwd"] / TRAIN_STEPS),
         {"name": "group_norm_fwd", "route": "cuda",
          "source": "textboost_torch/csrc/group_norm_fwd.cu",
          "replaces": "textboost_tpu/ops/group_norm.py:58",
@@ -381,20 +851,34 @@ def main() -> int:
          "ms": gn_ms, "plain_ms": gn_plain, "bound_ms": gn_bound,
          "bound_by": "bytes" if gn_bytes / H100_BYTES_PER_S > gn_ops / H100_FP32_FLOPS else "operations",
          "library_ms": gn_lib, "shape": "8x320x64x64 bf16 G=32 eps=1e-6 silu=off",
-         "other_shapes": extra, "per_generate_ms": gn_total_ms},
+         "other_shapes": extra, "per_generate_ms": gn_total_ms,
+         "train_launches": tr["launches"]["gn"]},
+        {"name": "group_norm_bwd", "route": "cuda",
+         "source": "textboost_torch/csrc/group_norm_bwd.cu",
+         "replaces": "textboost_tpu/ops/group_norm.py:93",
+         "launches": tr["launches"]["gn_bwd"], "max_abs_err": gn_bwd_err,
+         "ms": gn_bwd_ms, "plain_ms": gn_bwd_plain, "bound_ms": gn_bwd_bound,
+         "bound_by": ("bytes" if gn_bwd_bytes / H100_BYTES_PER_S > gn_bwd_ops / H100_FP32_FLOPS
+                      else "operations"),
+         "library_ms": gn_bwd_lib, "shape": "8x320x64x64 bf16 G=32 eps=1e-6 silu=off",
+         "other_shapes": gn_bwd_extra,
+         "launches_per_train_step": tr["launches"]["gn_bwd"] / TRAIN_STEPS},
     ], "sd15_images_per_s": len(seeds) / warm_s, "sd15_images_per_s_cold": len(seeds) / cold_s,
         "generate_ms": warm_s * 1e3, "load_ms": load_s * 1e3,
         "sample_ms": sample_s * 1e3, "sample_first_ms": first_sample_s * 1e3,
         "traced_sample_ms": traced_s * 1e3, "traced_kernel_ms": busy_ms,
         "traced_port_kernel_ms": traced_port_ms,
         "unet_forward_ms": unet_ms, "vae_decode_ms": vae_ms,
-        "unet_rel_l2_kernels_vs_math": rel}
+        "unet_rel_l2_kernels_vs_math": rel,
+        "train": {"steps": TRAIN_STEPS, "batch": 8, "run_s": tr["run_s"],
+                  "warm_step_ms": tr["warm_step_ms"], "traced_step_wall_ms": tr["traced_wall_ms"],
+                  "traced_step_kernel_ms": busy, "traced_port_kernel_ms": new_ms,
+                  "final_loss": m["loss"], "step_parity_batch2": parity}}
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -40,13 +40,15 @@
 // whole [M, D] K/V in VMEM, which at D = 512 no CTA can): lane j owns key j
 // in the score pass and reads q rows as shared-memory broadcasts; in the P.V
 // pass lane l owns head columns l, l+32, ... .  At D = 512 the tiles need
-// ~167 KB of shared memory, set with cudaFuncSetAttribute.  Its callers:
-// flash_attention_forward (or multi_head_attention with impl="flash") on fp32
-// tensors, on a head dim that is not a multiple of 8, or on views whose
-// strides are not; the wrapper's envelope is fp32/fp16/bf16 and any D <= 512.
-// Sampling never reaches it (the "auto" rule admits bf16/fp16 only and every
-// sd15 head dim is a multiple of 8).  When the backward kernel is ported, keep
-// this variant only if training needs fp32 or unaligned flash attention.
+// ~167 KB of shared memory, set with cudaFuncSetAttribute.  Its only callers
+// are explicit ones: impl="flash" (multi_head_attention, or
+// flash_attention_forward directly) on fp32 tensors, on a head dim that is
+// not a multiple of 8, or on views whose strides are not; that is the JAX
+// kernel's envelope (fp32/fp16/bf16, any D <= 512), which the wrapper keeps.
+// Neither main path reaches it: the "auto" rule admits bf16/fp16 only, and
+// every head dim of the shipped configs is a multiple of 8.  The backward
+// kernel (flash_attention_bwd.cu) does not cover this envelope: with a
+// gradient, fp32 and D % 8 != 0 raise (ROADMAP.md queue B).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>

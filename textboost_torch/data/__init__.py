@@ -1,1 +1,1 @@
-"""Host-side data helpers (tokenizer)."""
+"""Host-side data: tokenizer, prompt banks, datasets and the batch loader."""

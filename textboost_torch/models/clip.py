@@ -7,6 +7,13 @@ the adapter weights sit beside the base weights as `lora_A.weight`
 [r, in] and `lora_B.weight` [out, r].  Causal attention takes the plain
 math path (77 tokens).  Returns (last_hidden_state, pooled output at the
 first EOS).
+
+Trainable precision follows the JAX package, which keeps every param fp32
+and casts it to the compute dtype at use (models/clip.py:56-71,187): the
+LoRA weights stay fp32 when the module is cast to another dtype, and they
+and the token embedding (fp32 once training grows it) are cast to the
+compute dtype, that of the position embedding, where they are used.  AdamW
+at the usual learning rates would lose most of its updates on bf16 weights.
 """
 from __future__ import annotations
 
@@ -38,10 +45,22 @@ class LoRALinear(nn.Linear):
             self.lora_A = nn.Linear(in_features, lora_rank, bias=False)
             self.lora_B = nn.Linear(lora_rank, out_features, bias=False)
 
+    def _apply(self, fn, recurse=True):
+        """Casts and moves the module, but keeps fp32 adapter weights fp32."""
+        kept = ([(lin.weight, lin.weight.data) for lin in (self.lora_A, self.lora_B)]
+                if self.lora_rank > 0 else [])
+        super()._apply(fn, recurse)
+        for param, before in kept:
+            if before.dtype == torch.float32 and param.dtype != torch.float32:
+                param.data = before.to(param.device)
+        return self
+
     def forward(self, x: torch.Tensor, use_lora: bool = True) -> torch.Tensor:
         y = super().forward(x)
         if self.lora_rank > 0 and use_lora:
-            y = y + self.lora_B(self.lora_A(x)) * self.lora_scale
+            a = self.lora_A.weight.to(x.dtype)
+            b = self.lora_B.weight.to(x.dtype)
+            y = y + F.linear(F.linear(x, a), b) * self.lora_scale
         return y
 
 
@@ -126,11 +145,12 @@ class CLIPTextModel(nn.Module):
     def token_embedding(self) -> nn.Embedding:
         return self.text_model.embeddings.token_embedding
 
-    def set_token_embedding(self, weight: torch.Tensor) -> None:
-        """Replace the token-embedding table (e.g. a grown vocabulary),
-        keeping the current dtype and device."""
+    def set_token_embedding(self, weight: torch.Tensor, dtype: Optional[torch.dtype] = None) -> None:
+        """Replace the token-embedding table (e.g. a grown vocabulary), on
+        the current device, in `dtype` (default: the current dtype)."""
         old = self.token_embedding.weight
-        emb = nn.Embedding(weight.shape[0], weight.shape[1], device=old.device, dtype=old.dtype)
+        emb = nn.Embedding(weight.shape[0], weight.shape[1], device=old.device,
+                           dtype=dtype or old.dtype)
         with torch.no_grad():
             emb.weight.copy_(weight)
         emb.weight.requires_grad_(old.requires_grad)
@@ -140,7 +160,9 @@ class CLIPTextModel(nn.Module):
                 use_lora: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         tm = self.text_model
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)[None, :]
-        hidden = tm.embeddings.token_embedding(input_ids) + tm.embeddings.position_embedding(pos)
+        dtype = tm.embeddings.position_embedding.weight.dtype  # the compute dtype
+        hidden = (tm.embeddings.token_embedding(input_ids).to(dtype)
+                  + tm.embeddings.position_embedding(pos))
         for layer in tm.encoder.layers:
             hidden = layer(hidden, use_lora)
         hidden = tm.final_layer_norm(hidden)

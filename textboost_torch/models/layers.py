@@ -6,9 +6,9 @@ package: UNet downsampling pads symmetrically and the VAE's asymmetrically
 1e-5; LayerNorm eps is 1e-5; GEGLU uses the exact gelu.
 
 Each GroupNorm and attention layer carries an `impl`: "auto" takes the CUDA
-kernels where the dispatch rule sends the call (the plain versions on the
-CPU), "math" forces plain torch.  `set_impl(model, impl)` sets it for a
-whole model.
+kernels (forward, and backward under autograd) where the dispatch rule
+sends the call (the plain versions on the CPU), "math" forces plain torch
+and its autograd.  `set_impl(model, impl)` sets it for a whole model.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention
-from ..ops.group_norm import group_norm_forward, group_norm_reference
+from ..ops.group_norm import group_norm, group_norm_reference
 
 
 class GroupNorm(nn.Module):
@@ -50,9 +50,8 @@ class GroupNorm(nn.Module):
             return group_norm_reference(
                 x, self.weight, self.bias, self.num_groups, self.eps, self.silu
             )[0]
-        return group_norm_forward(
-            x, self.weight, self.bias, self.num_groups, eps=self.eps, silu=self.silu
-        )[0]
+        return group_norm(x, self.weight, self.bias, self.num_groups, eps=self.eps,
+                          silu=self.silu)
 
 
 def set_impl(model: nn.Module, impl: str) -> None:

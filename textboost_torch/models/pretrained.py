@@ -91,11 +91,13 @@ def load_models(
     preset: Optional[str] = None,
     lora_rank: int = 0,
     dtype: torch.dtype = torch.bfloat16,
+    vae_dtype: Optional[torch.dtype] = None,
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,
 ) -> ModelBundle:
     """Preset name -> ModelBundle of frozen-ready modules in eval mode, on
-    `device`, cast to `dtype` (GroupNorm affines stay fp32)."""
+    `device`, cast to `dtype` (the VAE to `vae_dtype` when given; GroupNorm
+    affines and LoRA adapters stay fp32)."""
     if model_name_or_path and os.path.isdir(model_name_or_path):
         raise NotImplementedError(
             f"{model_name_or_path}: loading a local diffusers snapshot is not "
@@ -109,5 +111,5 @@ def load_models(
         mod = mod.to_empty(device=dev)
         gen = torch.Generator(device=dev).manual_seed(seed + i)
         init_weights(mod, gen, clip=i == 0)
-        out.append(mod.to(dtype).eval())
+        out.append(mod.to(vae_dtype if i == 2 and vae_dtype else dtype).eval())
     return ModelBundle(spec, *out)

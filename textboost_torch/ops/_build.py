@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("flash_attention_fwd.cu", "group_norm_fwd.cu")
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
+           "group_norm_fwd.cu", "group_norm_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -37,9 +38,16 @@ SIGNATURES = {
         "tb_flash_attention_fwd": [_c_int] + [_c_ptr] * 5 + [_c_int] * 5
         + [_c_ll] * 9 + [_c_float, _c_ptr],
     },
+    "flash_attention_bwd.cu": {
+        "tb_flash_attention_bwd": [_c_int] + [_c_ptr] * 10 + [_c_int] * 6
+        + [_c_ll] * 15 + [_c_float, _c_ptr],
+    },
     "group_norm_fwd.cu": {
         "tb_group_norm_fwd": [_c_int] + [_c_ptr] * 6 + [_c_int] * 4
         + [_c_float, _c_int, _c_ptr],
+    },
+    "group_norm_bwd.cu": {
+        "tb_group_norm_bwd": [_c_int] + [_c_ptr] * 7 + [_c_int] * 5 + [_c_ptr],
     },
 }
 

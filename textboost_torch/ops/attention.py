@@ -6,7 +6,10 @@ Counterpart of textboost_tpu/ops/attention.py.  All attention in the port
 is the JAX package's (attention.py:80-99, cross-attention off): the flash
 kernel serves large unmasked self-attention in half precision on the GPU;
 everything else takes the math path, which mirrors `_xla_attention`
-(fp32 logits and softmax, probabilities cast to v's dtype).
+(fp32 logits and softmax, probabilities cast to v's dtype) and trains by
+plain autograd.  A flash call with a gradient goes through the forward and
+backward kernels (`flash_attention`), which refuse, rather than leave to
+math, what the backward kernel does not serve.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention_forward, supports_flash
+from .flash_attention import flash_attention, supports_flash
 
 IMPLS = ("auto", "math", "flash")
 
@@ -73,5 +76,5 @@ def multi_head_attention(
     if impl == "flash":
         if mask is not None:
             raise ValueError("the flash kernel takes no mask")
-        return flash_attention_forward(q, k, v, scale=scale)[0]
+        return flash_attention(q, k, v, scale=scale)
     return math_attention(q, k, v, mask, scale).to(q.dtype)

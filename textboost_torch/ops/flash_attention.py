@@ -1,13 +1,22 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers, their plain versions, and
+the autograd Function that joins them.
 
-The kernel (`csrc/flash_attention_fwd.cu`) replaces the Pallas TPU kernel
+Forward: `csrc/flash_attention_fwd.cu` replaces the Pallas TPU kernel
 `textboost_tpu/ops/flash_attention.py::_fwd_kernel`.  It reads q/k/v in the
 [B, N, H, D] layout through their strides and returns (o, lse): o in the
-input dtype, lse fp32 [B, H, N] (natural log), kept for the backward kernel
-of a later slice.  Keys at or past `kv_len` are masked inside the kernel.
+input dtype, lse fp32 [B, H, N] (natural log).  Backward:
+`csrc/flash_attention_bwd.cu` replaces `_bwd_fused_kernel` (`_bwd`): from
+q, k, v, o, lse and dO it returns (dq, dk, dv) in the input dtype, with P
+rebuilt from lse.  Keys at or past `kv_len` are masked inside both kernels
+(and get zero gradients).
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  `launches` counts kernel launches.
+`flash_attention` is the differentiable entry: with a gradient it runs the
+kernels through `FlashAttentionFunction`.  The backward's envelope is
+bf16/fp16 with D <= 128 and D % 8 == 0; outside it the call raises (it never
+switches to plain math).
+
+A CPU tensor takes the plain versions; a CUDA tensor launches the kernel or
+raises.  `launches` and `bwd_launches` count kernel launches.
 """
 from __future__ import annotations
 
@@ -18,10 +27,13 @@ import torch
 from . import _build
 
 SOURCE = "flash_attention_fwd.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 MAX_HEAD_DIM = 512
+BWD_MAX_HEAD_DIM = 128
 
 launches = 0
+bwd_launches = 0
 
 
 def supports_flash(n_q: int, n_kv: int, d: int) -> bool:
@@ -85,9 +97,9 @@ def flash_attention_forward(
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "flash attention backward is not ported yet; run frozen models "
-            "under torch.no_grad()/inference_mode()"
+        raise RuntimeError(
+            "flash_attention_forward keeps no autograd graph on CUDA; call "
+            "flash_attention() (the differentiable entry) or run under torch.no_grad()"
         )
     _check(q, k, v, kv_len)
     b, n, h, d = q.shape
@@ -108,3 +120,138 @@ def flash_attention_forward(
     global launches
     launches += 1
     return o, lse
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    scale: float,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version in fp32, P rebuilt from lse: P = exp(q k^T * scale -
+    lse), dV = P^T dO, dS = P * (dO V^T - rowsum(o * dO)), dK = scale *
+    dS^T q, dQ = scale * dS k.  Rows of dk/dv at or past kv_len are zero.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    m = k.shape[1] if kv_len is None else kv_len
+    qf, kf, vf = q.float(), k[:, :m].float(), v[:, :m].float()
+    dof = do.float()
+    p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale - lse[..., None])
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
+    delta = (o.float() * dof).sum(-1).transpose(1, 2)  # [B, H, N]
+    ds = p * (torch.einsum("bnhd,bmhd->bhnm", dof, vf) - delta[..., None])
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf) * scale
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
+    pad = (0, 0, 0, 0, 0, k.shape[1] - m)  # zero rows for the masked keys
+    return (dq.to(q.dtype), torch.nn.functional.pad(dk, pad).to(k.dtype),
+            torch.nn.functional.pad(dv, pad).to(v.dtype))
+
+
+def check_backward_envelope(q: torch.Tensor) -> None:
+    """Raise NotImplementedError for a gradient the backward kernel does not
+    serve: fp32, D > 128, or D not a multiple of 8."""
+    d = q.shape[-1]
+    if q.dtype not in (torch.float16, torch.bfloat16) or d > BWD_MAX_HEAD_DIM or d % 8:
+        raise NotImplementedError(
+            f"flash attention backward on CUDA takes bf16/fp16 with D <= "
+            f"{BWD_MAX_HEAD_DIM} and D % 8 == 0, got {q.dtype} D={d} (fp32 and wider "
+            "heads: ROADMAP.md queue B)"
+        )
+
+
+def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
+    """t itself when the backward kernel can read it in place (contiguous
+    head dim, strides in whole 16-byte chunks, 16-byte aligned), else a
+    contiguous copy."""
+    if (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0):
+        return t
+    return t.contiguous()
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    scale: float,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of attention over q [B, N, H, D], k/v
+    [B, M, H, D] from the forward's o and lse and the output gradient do."""
+    kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, o, lse, do, scale, kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    check_backward_envelope(q)
+    _check(q, k, v, kv_len)
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be {q.dtype} {tuple(q.shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if lse.dtype != torch.float32 or lse.shape != (b, h, n):
+        raise ValueError(f"lse must be fp32 [{b}, {h}, {n}], got {lse.dtype} {tuple(lse.shape)}")
+    q, k, v, o, do = (_kernel_ready(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    dq = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    lib = _build.load(BWD_SOURCE)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tb_flash_attention_bwd(
+            DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, n, m, kv_len, h, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+            *do.stride()[:3], float(scale), stream,
+        )
+    _build.check(rc, "flash_attention_bwd")
+    global bwd_launches
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """o = attention(q, k, v) through the forward kernel; the backward kernel
+    gives dq, dk, dv from the saved q, k, v, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, kv_len):
+        o, lse = flash_attention_forward(q, k, v, scale=scale, kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.kv_len = scale, kv_len
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, scale=ctx.scale,
+                                              kv_len=ctx.kv_len)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Differentiable attention over q [B, N, H, D], k/v [B, M, H, D] -> o."""
+    if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return flash_attention_forward(q, k, v, scale=scale, kv_len=kv_len)[0]
+    if q.device.type == "cuda":
+        check_backward_envelope(q)
+    return FlashAttentionFunction.apply(q, k, v, scale, kv_len)

@@ -1,12 +1,16 @@
-"""DDPM noise schedule tables (counterpart of textboost_tpu/ops/schedule.py).
+"""DDPM noise schedule (counterpart of textboost_tpu/ops/schedule.py).
 
-Only what sampling needs: the float32 `betas` / `alphas_cumprod` tables,
-computed in float64 and cast to float32 exactly as the JAX package does, so
-that sampler coefficients derived from them are bit-identical.
+The float32 `betas` / `alphas_cumprod` tables are computed in float64 and
+cast to float32 exactly as the JAX package does, so that sampler
+coefficients derived from them are bit-identical; the training queries
+(add_noise, velocity, snr, training_target, pred_original_sample) repeat
+the JAX package's float32 arithmetic.  The tables stay on the CPU and are
+gathered on the device of the timesteps.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,3 +61,77 @@ class NoiseSchedule:
             num_train_timesteps=num_train_timesteps,
             prediction_type=prediction_type,
         )
+
+    # -- schedule queries --------------------------------------------------
+    def _alphas(self, timesteps: torch.Tensor) -> torch.Tensor:
+        return self.alphas_cumprod.to(timesteps.device)[timesteps]
+
+    def _gather_sqrt(self, timesteps: torch.Tensor, ndim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(sqrt_alpha_prod, sqrt_one_minus_alpha_prod) broadcastable against
+        a sample with `ndim` dims, batch-leading."""
+        ac = self._alphas(timesteps)
+        shape = (-1,) + (1,) * (ndim - 1)
+        return torch.sqrt(ac).reshape(shape), torch.sqrt(1.0 - ac).reshape(shape)
+
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0): sqrt(ac_t) x0 + sqrt(1 - ac_t) eps."""
+        sqrt_ac, sqrt_1mac = self._gather_sqrt(timesteps, sample.dim())
+        return sqrt_ac * sample + sqrt_1mac * noise
+
+    def velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                 timesteps: torch.Tensor) -> torch.Tensor:
+        """v-prediction target: sqrt(ac_t) eps - sqrt(1 - ac_t) x0."""
+        sqrt_ac, sqrt_1mac = self._gather_sqrt(timesteps, sample.dim())
+        return sqrt_ac * noise - sqrt_1mac * sample
+
+    def snr(self, timesteps: torch.Tensor) -> torch.Tensor:
+        """Signal-to-noise ratio ac_t / (1 - ac_t) (diffusers compute_snr)."""
+        ac = self._alphas(timesteps)
+        return ac / (1.0 - ac)
+
+    def training_target(self, sample: torch.Tensor, noise: torch.Tensor,
+                        timesteps: torch.Tensor) -> torch.Tensor:
+        if self.prediction_type == EPSILON:
+            return noise
+        if self.prediction_type == V_PREDICTION:
+            return self.velocity(sample, noise, timesteps)
+        raise ValueError(f"Unknown prediction type {self.prediction_type}")
+
+    def pred_original_sample(self, model_output: torch.Tensor, sample: torch.Tensor,
+                             timesteps: torch.Tensor) -> torch.Tensor:
+        """Recover x0-hat from the model output at x_t."""
+        sqrt_ac, sqrt_1mac = self._gather_sqrt(timesteps, sample.dim())
+        if self.prediction_type == EPSILON:
+            return (sample - sqrt_1mac * model_output) / sqrt_ac
+        if self.prediction_type == V_PREDICTION:
+            return sqrt_ac * sample - sqrt_1mac * model_output
+        raise ValueError(f"Unknown prediction type {self.prediction_type}")
+
+
+def snr_timestep_weights(schedule: NoiseSchedule) -> torch.Tensor:
+    """SNR-weighted timestep sampling distribution (reference semantics,
+    train_textboost.py:991-997): w_t = -log SNR(t) + max_t log SNR(t),
+    p_t = w_t / sum(w_t), float32 [num_train_timesteps]."""
+    logsnr = torch.log(schedule.snr(torch.arange(schedule.num_train_timesteps)))
+    w = -logsnr + logsnr.max()
+    return w / w.sum()
+
+
+def sample_timesteps(
+    generator: torch.Generator,
+    schedule: NoiseSchedule,
+    batch_size: int,
+    weighted: bool = False,
+    device: Optional[torch.device] = None,
+) -> torch.Tensor:
+    """Per-example timesteps [batch_size] (int64), uniform by default (the
+    reference's reachable default, train_textboost.py:406-411), else drawn
+    from `snr_timestep_weights`.  Draws come from `generator`, on its
+    device; JAX's threefry draws cannot be reproduced."""
+    device = device or generator.device
+    if weighted:
+        p = snr_timestep_weights(schedule).to(device)
+        return torch.multinomial(p, batch_size, replacement=True, generator=generator)
+    return torch.randint(0, schedule.num_train_timesteps, (batch_size,), generator=generator,
+                         device=device)
