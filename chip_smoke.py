@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels from textboost_torch/csrc/ (four: flash-attention
 forward and backward, GroupNorm forward and input-gradient backward) and
-holds each against its plain PyTorch version at the shapes sd15 gives it.
+holds each against its plain PyTorch version at the shapes sd15 gives it,
+and the two flash kernels also at shapes that cross their tiles' edges.
 Then it drives the port's two main paths through their entry points, each
 with the launch counts set to 0 just before and read just after:
 
@@ -19,7 +20,8 @@ with the launch counts set to 0 just before and read just after:
 
 Before them: one sd15 UNet forward and one sd15 train step (batch 2) with
 the kernels and with plain math.  It checks the outputs, that each path
-launched each kernel exactly as often as the model spec says, then prints
+launched each kernel exactly as often as the model spec says and that every
+flash forward launch went through a wgmma variant, then prints
 the card (name and power limit from nvidia-smi), one JSON line of
 per-kernel numbers, and as its last line {"ok": true, "device": {...}}.
 Any failed phase raises and the script exits non-zero with no result line.
@@ -75,6 +77,50 @@ TRAIN_STEPS = 10
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (H100 SXM)
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+EX2_PER_SM_CLOCK = 16  # base-2 exponentials an SM retires per clock (NVIDIA's throughput table, cc 9.0)
+
+# The variants of the flash forward that count as the Hopper design.
+WGMMA_VARIANTS = {"wgmma", "wgmma_wide"}
+
+
+def flash_floors_ms(b: int, n: int, m: int, h: int, d: int, *, backward: bool,
+                    sm_count: int, sm_clock_hz: float) -> dict:
+    """The least times (ms) the card could take for attention over q
+    [b, n, h, d], k/v [b, m, h, d] in a 16-bit type, one per resource:
+    "bytes" (every input read once, every output written once, lse fp32),
+    "tensor_cores" (two products forward, five backward, 2 operations per
+    multiply-add, at the card's dense 16-bit rate) and "exponentials" (one
+    ex2 per score at 16 per SM and clock)."""
+    q_el, kv_el = b * n * h * d, b * m * h * d
+    if backward:  # q, o, dO in, dq out; k, v in, dk, dv out; lse
+        nbytes = 2 * (4 * q_el + 4 * kv_el) + 4 * b * h * n
+        products = 5
+    else:  # q in, o out; k, v in; lse
+        nbytes = 2 * (2 * q_el + 2 * kv_el) + 4 * b * h * n
+        products = 2
+    return {
+        "bytes": nbytes / H100_BYTES_PER_S * 1e3,
+        "tensor_cores": products * 2 * b * h * n * m * d / H100_BF16_FLOPS * 1e3,
+        "exponentials": b * h * n * m / (EX2_PER_SM_CLOCK * sm_count * sm_clock_hz) * 1e3,
+    }
+
+
+def bound_of(floors: dict) -> dict:
+    """bound_ms (the largest floor), bound_by ("bytes" or "operations": the
+    tensor cores' and the exponentials' floors are both operations),
+    bound_floor (which of the three) and the floors themselves."""
+    name = max(floors, key=floors.get)
+    return {"bound_ms": floors[name], "bound_by": "bytes" if name == "bytes" else "operations",
+            "bound_floor": name, "floors_ms": dict(floors)}
+
+
+def card_clock_hz() -> float:
+    """The card's maximum SM clock as nvidia-smi reports it."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    return float(mhz) * 1e6
 
 
 SPIN_CYCLES = 400_000_000  # ~0.2 s of GPU clock: longer than the host takes to enqueue a timed loop
@@ -259,7 +305,12 @@ def check_flash_backward(gen) -> float:
         k, v = (torch.randn(b, m, h, d, generator=gen, device=dev).to(bf16) for _ in range(2))
         o, lse = fa.flash_attention_forward(q, k, v, scale=d**-0.5, kv_len=kv)
         grads = fa.flash_attention_backward(q, k, v, o, lse, do, scale=d**-0.5, kv_len=kv)
+        again = fa.flash_attention_backward(q, k, v, o, lse, do, scale=d**-0.5, kv_len=kv)
         torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            raise AssertionError(f"two calls of the flash backward on the same inputs differ "
+                                 f"at {b, n, h, d, m, kv}")
+        del again
         ref = attention_grads_fp32(q, k, v, do, d**-0.5, kv)
         control = attention_grads_fp32(q, k, v, do, d**-0.5, kv, skip_keys=64)
         report = []
@@ -276,12 +327,77 @@ def check_flash_backward(gen) -> float:
             worst = max(worst, (g.float() - r).abs().max().item())
         print(f"[flash_bwd] B,N,H,D,M,kv_len={b},{n},{h},{d},{m},{kv}: rel L2 / worst row "
               f"(limits {FLASH_BWD_REL_L2} / {FLASH_BWD_ROW_REL_L2}; control: first 64 keys "
-              f"skipped): " + "; ".join(report), flush=True)
+              f"skipped): " + "; ".join(report) + "; two calls bit-identical", flush=True)
         del q, k, v, do, o, lse, grads, ref, control
     return worst
 
 
-def flash_backward_times(gen, b: int, n: int, h: int, d: int) -> dict:
+def check_flash_edges() -> None:
+    """Both flash kernels across their tiles' edges: a kv_len inside the last
+    key tile (128 keys forward, 64 backward) at D = 40, 80 and 128, a query
+    length that is no multiple of the 128-row tile, one fp16 case, and one
+    batch whose two samples come from different seeds (so that a batch or
+    head mix-up shows: each sample must also equal, bit for bit, the
+    kernel's result on that sample alone).  Forward against the fp32 plain
+    version, backward against fp32 autograd, with the limits of the main
+    shapes; dk and dv past kv_len must be zero and two backward calls
+    bit-identical."""
+    import torch
+
+    from textboost_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    cases = ((2, 1024, 4, 40, 1024, 1000, torch.bfloat16, (1, 1)),
+             (2, 1000, 4, 80, 1024, 650, torch.bfloat16, (2, 2)),
+             (2, 1024, 2, 128, 1024, 900, torch.bfloat16, (3, 3)),
+             (2, 1024, 4, 64, 1024, 1024, torch.float16, (4, 4)),
+             (2, 1024, 3, 40, 1024, 1024, torch.bfloat16, (5, 6)))
+    for b, n, h, d, m, kv, dtype, seeds in cases:
+        parts = []
+        for seed in seeds:  # one sample per seed
+            g = torch.Generator(dev).manual_seed(seed)
+            parts.append([torch.randn(1, rows, h, d, generator=g, device=dev).to(dtype)
+                          for rows in (n, m, m, n)])
+        q, k, v, do = (torch.cat(t) for t in zip(*parts))
+        scale = d**-0.5
+        o, lse = fa.flash_attention_forward(q, k, v, scale=scale, kv_len=kv)
+        grads = fa.flash_attention_backward(q, k, v, o, lse, do, scale=scale, kv_len=kv)
+        again = fa.flash_attention_backward(q, k, v, o, lse, do, scale=scale, kv_len=kv)
+        torch.cuda.synchronize()
+        ro, rl = fa.flash_attention_reference(q.float(), k.float(), v.float(), scale, kv)
+        rel, row = flash_errors(o, ro)
+        el = (lse - rl).abs().max().item()
+        if not (rel <= FLASH_REL_L2 and row <= FLASH_ROW_REL_L2 and el <= FLASH_LSE_ATOL):
+            raise AssertionError(f"flash forward disagrees with its plain version at the edge "
+                                 f"case {b, n, h, d, m, kv, dtype}: {rel:.3g} / {row:.3g} / {el:.3g}")
+        report = [f"o {rel:.3g} / {row:.3g}, lse {el:.3g}"]
+        for name, got, ref in zip(("dq", "dk", "dv"), grads,
+                                  attention_grads_fp32(q, k, v, do, scale, kv)):
+            rel, row = grad_errors(got, ref)
+            report.append(f"{name} {rel:.3g} / {row:.3g}")
+            if not (rel <= FLASH_BWD_REL_L2 and row <= FLASH_BWD_ROW_REL_L2):
+                raise AssertionError(f"flash backward {name} disagrees with fp32 autograd at "
+                                     f"the edge case {b, n, h, d, m, kv, dtype}")
+        if grads[1][:, kv:].any() or grads[2][:, kv:].any():
+            raise AssertionError(f"dk or dv past kv_len is not zero at {b, n, h, d, m, kv}")
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            raise AssertionError(f"two backward calls differ at {b, n, h, d, m, kv, dtype}")
+        if seeds[0] != seeds[1]:
+            for i in range(b):
+                one = [t[i:i + 1] for t in (q, k, v, do)]
+                oi, li = fa.flash_attention_forward(*one[:3], scale=scale, kv_len=kv)
+                gi = fa.flash_attention_backward(*one[:3], oi, li, one[3], scale=scale, kv_len=kv)
+                same = (torch.equal(oi, o[i:i + 1]) and torch.equal(li, lse[i:i + 1])
+                        and all(torch.equal(x, y[i:i + 1]) for x, y in zip(gi, grads)))
+                if not same:
+                    raise AssertionError(f"sample {i} of a two-seed batch differs from the same "
+                                         f"sample alone at {b, n, h, d, m, kv}")
+            report.append("each sample bit-identical to its own call")
+        print(f"[flash_edges] B,N,H,D,M,kv_len={b},{n},{h},{d},{m},{kv} {dtype}: rel L2 / worst "
+              f"row: " + "; ".join(report), flush=True)
+
+
+def flash_backward_times(gen, b: int, n: int, h: int, d: int, card: dict) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -299,15 +415,12 @@ def flash_backward_times(gen, b: int, n: int, h: int, d: int) -> dict:
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
 
-    nbytes = 8 * q.numel() * 2 + b * h * n * 4  # q, k, v, o, dO in; dq, dk, dv out; lse
-    ops = 10 * b * h * n * n * d  # five N x N x D products, 2 operations per multiply-add
     out = {
         "ms": cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, lse, do, scale=d**-0.5), 10),
         "plain_ms": cuda_ms(
             lambda: fa.flash_attention_backward_reference(q, k, v, o, lse, do, d**-0.5), 2, 1),
         "library_ms": cuda_ms(sdpa_fwd_bwd, 10) - cuda_ms(sdpa_fwd, 10),
-        "bound_ms": max(nbytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS) * 1e3,
-        "bound_by": "operations" if ops / H100_BF16_FLOPS > nbytes / H100_BYTES_PER_S else "bytes",
+        **bound_of(flash_floors_ms(b, n, n, h, d, backward=True, **card)),
     }
     del q, k, v, do, o, lse, qt, kt, vt, dot
     torch.cuda.empty_cache()
@@ -469,6 +582,7 @@ def train_main_path(instance_dir: str, output_dir: str):
 
     trainer_mod.make_train_step = timed_make
     fa.launches = fa.bwd_launches = gn.launches = gn.bwd_launches = 0
+    fa.variant_counts.clear()
     torch.cuda.synchronize()
     t0 = time.time()
     try:
@@ -479,12 +593,16 @@ def train_main_path(instance_dir: str, output_dir: str):
     run_s = time.time() - t0
     launches = {"flash": fa.launches, "flash_bwd": fa.bwd_launches, "gn": gn.launches,
                 "gn_bwd": gn.bwd_launches}
+    variants = dict(fa.variant_counts)
+    if set(variants) - WGMMA_VARIANTS or sum(variants.values()) != fa.launches:
+        raise AssertionError(f"training's flash forward launches went through {variants}, "
+                             f"not all through {sorted(WGMMA_VARIANTS)}")
     kernel_ms = collections.Counter()
     for e in traced["prof"].key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernel_ms[e.key] += e.self_device_time_total / 1e3
     return {
-        "metrics": metrics, "launches": launches, "run_s": run_s,
+        "metrics": metrics, "launches": launches, "variants": variants, "run_s": run_s,
         "warm_step_ms": events[1].elapsed_time(events[TRAIN_STEPS - 2]) / (TRAIN_STEPS - 3),
         "traced_wall_ms": traced["wall_ms"], "kernel_ms": kernel_ms,
     }
@@ -526,6 +644,10 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"[build] {len(libs)} kernels built in {time.time() - t0:.1f} s on {kind}", flush=True)
+    card = {"sm_count": torch.cuda.get_device_properties(0).multi_processor_count,
+            "sm_clock_hz": card_clock_hz()}
+    print(f"[card] {card['sm_count']} SMs, max SM clock {card['sm_clock_hz'] / 1e6:.0f} MHz "
+          f"(the exponentials' floor: {EX2_PER_SM_CLOCK} ex2 per SM and clock)", flush=True)
 
     # 2. flash attention vs its plain version ------------------------------
     flash_err = 0.0
@@ -553,6 +675,7 @@ def main() -> int:
             raise AssertionError(f"flash attention disagrees with its plain version at {b, n, h, d, m}")
         flash_err = max(flash_err, eo)
         del q, k, v, o, lse, ro, rl
+    check_flash_edges()
 
     # 3-4. sd15 UNet (kernels vs math) and VAE decode, GN shapes recorded ----
     spec = get_spec("sd15")
@@ -634,17 +757,22 @@ def main() -> int:
     if (want_flash, want_gn) != (251, 1555):
         raise AssertionError(f"spec-derived launch counts {want_flash, want_gn} != (251, 1555)")
     fa.launches = fa.bwd_launches = gn.launches = gn.bwd_launches = 0
+    fa.variant_counts.clear()
     torch.cuda.synchronize()
     t0 = time.time()
     out = generate(args)  # raises if a decoded image is not finite
     torch.cuda.synchronize()
     cold_s = time.time() - t0
     launches = {"flash": fa.launches, "gn": gn.launches}
+    variants = dict(fa.variant_counts)
+    if set(variants) - WGMMA_VARIANTS or sum(variants.values()) != fa.launches:
+        raise AssertionError(f"sampling's flash launches went through {variants}, "
+                             f"not all through {sorted(WGMMA_VARIANTS)}")
     if fa.bwd_launches or gn.bwd_launches:
         raise AssertionError("sampling launched a backward kernel")
     print(f"[generate] {out.shape} {out.dtype} in {cold_s:.2f} s (model init included): "
           f"{len(seeds) / cold_s:.3f} images/s; launches flash {launches['flash']} "
-          f"group_norm {launches['gn']}", flush=True)
+          f"(by variant: {variants}) group_norm {launches['gn']}", flush=True)
     if out.dtype.name != "uint8" or out.shape != (4, 512, 512, 3):
         raise AssertionError(f"generate returned {out.dtype} {out.shape}")
     if (launches["flash"], launches["gn"]) != (want_flash, want_gn):
@@ -695,14 +823,16 @@ def main() -> int:
     def flash_times(b, n, h, d):
         q, k, v = (torch.randn(b, n, h, d, generator=gen, device=dev).to(bf16) for _ in range(3))
         qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
-        nbytes = 4 * q.numel() * 2 + b * h * n * 4  # q, k, v read, o written (bf16); lse fp32
-        ops = 4 * b * h * n * n * d  # two matmuls, 2 operations per multiply-add
+        fa.variant_counts.clear()
+        fa.flash_attention_forward(q, k, v, scale=d**-0.5)
+        if set(fa.variant_counts) - WGMMA_VARIANTS:
+            raise AssertionError(f"the main-path shape {b, n, h, d} was served by "
+                                 f"{dict(fa.variant_counts)}, not by wgmma")
         return {
             "ms": cuda_ms(lambda: fa.flash_attention_forward(q, k, v, scale=d**-0.5), 10),
             "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(q, k, v, d**-0.5), 3, 1),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 10),
-            "bound_ms": max(nbytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS) * 1e3,
-            "bound_by": "operations" if ops / H100_BF16_FLOPS > nbytes / H100_BYTES_PER_S else "bytes",
+            **bound_of(flash_floors_ms(b, n, n, h, d, backward=False, **card)),
         }
 
     fa_shapes = {"unet_level0_8x4096x8x40": (8, 4096, 8, 40),
@@ -740,8 +870,12 @@ def main() -> int:
 
     # 7. flash backward vs fp32 autograd, and its times -----------------------
     flash_bwd_err = check_flash_backward(gen)
-    fb_t = {"unet_level0_8x4096x8x40": flash_backward_times(gen, 8, 4096, 8, 40),
-            "unet_level1_8x1024x8x80": flash_backward_times(gen, 8, 1024, 8, 80)}
+    fb_t = {name: flash_backward_times(gen, *shp, card)
+            for name, shp in (("unet_level0_8x4096x8x40", (8, 4096, 8, 40)),
+                              ("unet_level1_8x1024x8x80", (8, 1024, 8, 80)),
+                              # No sd15 shape: the widest head the backward
+                              # serves, whose dK/dV kernel spills registers.
+                              ("widest_head_8x4096x8x128", (8, 4096, 8, 128)))}
 
     # 8. one sd15 train step at batch 2, kernels vs math -----------------------
     train_work = tempfile.TemporaryDirectory()
@@ -791,8 +925,8 @@ def main() -> int:
     print(f"[train] {TRAIN_STEPS} steps sd15 512 px batch 8 bf16 in {tr['run_s']:.1f} s "
           f"(model init and export included): loss {m['loss']:.5g}, kpl {m['kpl']:.3g}, "
           f"grad_norm {m['grad_norm']:.3g}; warm step (steps 3-9, CUDA events) "
-          f"{tr['warm_step_ms']:.1f} ms; launches {tr['launches']} (expected {want_run})",
-          flush=True)
+          f"{tr['warm_step_ms']:.1f} ms; launches {tr['launches']} (expected {want_run}); "
+          f"flash forward by variant {tr['variants']}", flush=True)
     if tr["launches"] != want_run:
         raise AssertionError(f"training launched {tr['launches']}, expected {want_run}")
     if m["steps"] != TRAIN_STEPS or not all(
@@ -836,7 +970,8 @@ def main() -> int:
               "launches": launches["flash"], "max_abs_err": flash_err},
              **fa_t["unet_level0_8x4096x8x40"], shape="B,N,H,D=8,4096,8,40 bf16",
              other_shapes={k: fa_t[k] for k in list(fa_t)[1:]},
-             per_generate_ms=flash_ms, train_launches=tr["launches"]["flash"]),
+             per_generate_ms=flash_ms, train_launches=tr["launches"]["flash"],
+             variants={"generate": variants, "train": tr["variants"]}),
         dict({"name": "flash_attention_bwd", "route": "cuda",
               "source": "textboost_torch/csrc/flash_attention_bwd.cu",
               "replaces": "textboost_tpu/ops/flash_attention.py:119",
@@ -850,8 +985,8 @@ def main() -> int:
          "launches": launches["gn"], "max_abs_err": gn_err,
          "ms": gn_ms, "plain_ms": gn_plain, "bound_ms": gn_bound,
          "bound_by": "bytes" if gn_bytes / H100_BYTES_PER_S > gn_ops / H100_FP32_FLOPS else "operations",
-         "library_ms": gn_lib, "shape": "8x320x64x64 bf16 G=32 eps=1e-6 silu=off",
-         "other_shapes": extra, "per_generate_ms": gn_total_ms,
+         "library_ms": gn_lib,
+         "shape": "8x320x64x64 bf16 G=32 eps=1e-6 silu=off", "other_shapes": extra, "per_generate_ms": gn_total_ms,
          "train_launches": tr["launches"]["gn"]},
         {"name": "group_norm_bwd", "route": "cuda",
          "source": "textboost_torch/csrc/group_norm_bwd.cu",
@@ -860,8 +995,8 @@ def main() -> int:
          "ms": gn_bwd_ms, "plain_ms": gn_bwd_plain, "bound_ms": gn_bwd_bound,
          "bound_by": ("bytes" if gn_bwd_bytes / H100_BYTES_PER_S > gn_bwd_ops / H100_FP32_FLOPS
                       else "operations"),
-         "library_ms": gn_bwd_lib, "shape": "8x320x64x64 bf16 G=32 eps=1e-6 silu=off",
-         "other_shapes": gn_bwd_extra,
+         "library_ms": gn_bwd_lib,
+         "shape": "8x320x64x64 bf16 G=32 eps=1e-6 silu=off", "other_shapes": gn_bwd_extra,
          "launches_per_train_step": tr["launches"]["gn_bwd"] / TRAIN_STEPS},
     ], "sd15_images_per_s": len(seeds) / warm_s, "sd15_images_per_s_cold": len(seeds) / cold_s,
         "generate_ms": warm_s * 1e3, "load_ms": load_s * 1e3,
@@ -869,7 +1004,7 @@ def main() -> int:
         "traced_sample_ms": traced_s * 1e3, "traced_kernel_ms": busy_ms,
         "traced_port_kernel_ms": traced_port_ms,
         "unet_forward_ms": unet_ms, "vae_decode_ms": vae_ms,
-        "unet_rel_l2_kernels_vs_math": rel,
+        "unet_rel_l2_kernels_vs_math": rel, "card": card,
         "train": {"steps": TRAIN_STEPS, "batch": 8, "run_s": tr["run_s"],
                   "warm_step_ms": tr["warm_step_ms"], "traced_step_wall_ms": tr["traced_wall_ms"],
                   "traced_step_kernel_ms": busy, "traced_port_kernel_ms": new_ms,

@@ -18,27 +18,43 @@ def test_kernels_match_plain_versions_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc (run on the card)")
     g = torch.Generator("cuda").manual_seed(0)
-    # Tensor-core variants (bf16/fp16, D % 8 == 0: D <= 128 per warp, wide
-    # up to 512) and the CUDA-core variant (D = 100, fp32), with ragged N and
-    # masked KV tails.
-    for b, n, h, d, m, dtype in ((2, 1024, 2, 40, 1024, torch.bfloat16),
-                                 (1, 300, 3, 128, 77, torch.bfloat16),
-                                 (1, 200, 2, 64, 130, torch.float16),
-                                 (1, 512, 1, 512, 300, torch.bfloat16),
-                                 (1, 100, 2, 200, 64, torch.float16),
-                                 (1, 256, 2, 100, 256, torch.bfloat16),
-                                 (1, 130, 2, 40, 99, torch.float32)):
+    # wgmma variants (bf16/fp16, D % 8 == 0: D <= 128, wide up to 512) and
+    # the CUDA-core variant (D = 100, fp32), with ragged N, masked KV tails
+    # and a kv_len inside the last 128-key tile at D = 40, 80 and 128.
+    for b, n, h, d, m, kv, dtype, variant in (
+            (2, 1024, 2, 40, 1024, 1024, torch.bfloat16, "wgmma"),
+            (1, 300, 3, 128, 77, 77, torch.bfloat16, "wgmma"),
+            (1, 200, 2, 64, 130, 130, torch.float16, "wgmma"),
+            (2, 1024, 4, 40, 1024, 1000, torch.bfloat16, "wgmma"),
+            (2, 1000, 4, 80, 1024, 650, torch.bfloat16, "wgmma"),
+            (2, 1024, 2, 128, 1024, 900, torch.bfloat16, "wgmma"),
+            (2, 1024, 4, 64, 1024, 1024, torch.float16, "wgmma"),
+            (1, 200, 1, 8, 100, 77, torch.bfloat16, "wgmma"),
+            (1, 512, 1, 512, 300, 300, torch.bfloat16, "wgmma_wide"),
+            (1, 100, 2, 200, 64, 64, torch.float16, "wgmma_wide"),
+            (1, 256, 2, 100, 256, 256, torch.bfloat16, "cuda_cores"),
+            (1, 130, 2, 40, 99, 99, torch.float32, "cuda_cores")):
         q = torch.randn(b, n, h, d, generator=g, device="cuda").to(dtype)
         k = torch.randn(b, m, h, d, generator=g, device="cuda").to(dtype)
         v = torch.randn(b, m, h, d, generator=g, device="cuda").to(dtype)
-        o, lse = fa.flash_attention_forward(q, k, v, scale=d**-0.5)
-        ro, rl = fa.flash_attention_reference(q.float(), k.float(), v.float(), d**-0.5)
+        fa.variant_counts.clear()
+        o, lse = fa.flash_attention_forward(q, k, v, scale=d**-0.5, kv_len=kv)
+        assert dict(fa.variant_counts) == {variant: 1}
+        ro, rl = fa.flash_attention_reference(q.float(), k.float(), v.float(), d**-0.5, kv)
         # o against the fp32 plain version: relative L2 over the whole output
         # and over the worst row (chip_smoke.py states why these limits).
         diff = o.float() - ro
-        assert (diff.norm() / ro.norm()).item() <= 5e-3, (b, n, h, d, m, dtype)
-        assert (diff.norm(dim=-1) / ro.norm(dim=-1)).max().item() <= 2e-2, (b, n, h, d, m, dtype)
+        assert (diff.norm() / ro.norm()).item() <= 5e-3, (b, n, h, d, m, kv, dtype)
+        assert (diff.norm(dim=-1) / ro.norm(dim=-1)).max().item() <= 2e-2, (b, n, h, d, m, kv, dtype)
         torch.testing.assert_close(lse, rl, atol=1e-3, rtol=0)
+    # Views the TMA unit cannot read in place go to the CUDA cores, and agree.
+    qkv = torch.randn(1, 256, 2, 3 * 40 + 4, generator=g, device="cuda").bfloat16()
+    q, k, v = (qkv[..., i * 40 + 4:(i + 1) * 40 + 4] for i in range(3))
+    fa.variant_counts.clear()
+    o, _ = fa.flash_attention_forward(q, k, v, scale=40**-0.5)
+    assert dict(fa.variant_counts) == {"cuda_cores": 1}
+    ro, _ = fa.flash_attention_reference(q.float(), k.float(), v.float(), 40**-0.5)
+    assert ((o.float() - ro).norm() / ro.norm()).item() <= 5e-3
     x = torch.randn(2, 320, 32, 32, generator=g, device="cuda").bfloat16()
     gamma = torch.rand(320, generator=g, device="cuda") + 0.5
     beta = torch.randn(320, generator=g, device="cuda")
@@ -55,17 +71,25 @@ def test_backward_kernels_match_plain_versions_on_the_card():
         pytest.skip("needs an NVIDIA GPU with nvcc (run on the card)")
     g = torch.Generator("cuda").manual_seed(1)
     # Flash backward: its envelope (bf16/fp16, D % 8 == 0, D <= 128), with
-    # ragged N and masked KV tails, against fp32 autograd of plain attention
-    # (chip_smoke.py states why these limits).
+    # ragged N, masked KV tails and a kv_len inside the last 64-key tile at
+    # D = 40, 80 and 128, against fp32 autograd of plain attention
+    # (chip_smoke.py states why these limits).  Two calls on the same inputs
+    # must agree bit for bit: the kernels use no atomics.
     for b, n, h, d, m, kv, dtype in ((2, 1024, 2, 40, 1024, 1024, torch.bfloat16),
                                      (1, 300, 2, 64, 320, 250, torch.float16),
                                      (1, 256, 2, 128, 256, 256, torch.bfloat16),
                                      (1, 200, 1, 8, 100, 77, torch.bfloat16),
-                                     (2, 512, 3, 80, 512, 400, torch.bfloat16)):
+                                     (2, 512, 3, 80, 512, 400, torch.bfloat16),
+                                     (2, 1024, 4, 40, 1024, 1000, torch.bfloat16),
+                                     (2, 1000, 4, 80, 1024, 650, torch.bfloat16),
+                                     (2, 1024, 2, 128, 1024, 900, torch.bfloat16),
+                                     (2, 1024, 4, 64, 1024, 1024, torch.float16)):
         q, do = (torch.randn(b, n, h, d, generator=g, device="cuda").to(dtype) for _ in range(2))
         k, v = (torch.randn(b, m, h, d, generator=g, device="cuda").to(dtype) for _ in range(2))
         o, lse = fa.flash_attention_forward(q, k, v, scale=d**-0.5, kv_len=kv)
         grads = fa.flash_attention_backward(q, k, v, o, lse, do, scale=d**-0.5, kv_len=kv)
+        again = fa.flash_attention_backward(q, k, v, o, lse, do, scale=d**-0.5, kv_len=kv)
+        assert all(torch.equal(x, y) for x, y in zip(grads, again)), (b, n, h, d, m, kv, dtype)
         qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
         s = torch.einsum("bnhd,bmhd->bhnm", qf, kf[:, :kv]) * d**-0.5
         torch.einsum("bhnm,bmhd->bnhd", torch.softmax(s, -1), vf[:, :kv]).backward(do.float())
@@ -74,6 +98,30 @@ def test_backward_kernels_match_plain_versions_on_the_card():
             assert (diff.norm() / ref.norm()).item() <= 5e-3, (b, n, h, d, m, kv, dtype)
             assert (diff.norm(dim=-1)[live] / ref.norm(dim=-1)[live]).max().item() <= 2e-2
         assert not grads[1][:, kv:].any() and not grads[2][:, kv:].any()
+    # Two samples from different seeds in one batch: each equals, bit for bit,
+    # the kernels' results on that sample alone (no batch or head mix-up).
+    parts = []
+    for seed in (5, 6):
+        gs = torch.Generator("cuda").manual_seed(seed)
+        parts.append([torch.randn(1, 1024, 3, 40, generator=gs, device="cuda").bfloat16()
+                      for _ in range(4)])
+    q, k, v, do = (torch.cat(t) for t in zip(*parts))
+    o, lse = fa.flash_attention_forward(q, k, v, scale=40**-0.5)
+    grads = fa.flash_attention_backward(q, k, v, o, lse, do, scale=40**-0.5)
+    for i, (qi, ki, vi, doi) in enumerate(parts):
+        oi, li = fa.flash_attention_forward(qi, ki, vi, scale=40**-0.5)
+        gi = fa.flash_attention_backward(qi, ki, vi, oi, li, doi, scale=40**-0.5)
+        assert torch.equal(oi, o[i:i + 1]) and torch.equal(li, lse[i:i + 1])
+        assert all(torch.equal(x, y[i:i + 1]) for x, y in zip(gi, grads))
+    # Dense views whose base is 8 bytes off a 16-byte boundary: the backward
+    # copies them and gives the bits it gives on aligned copies.
+    qi, ki, vi, doi = parts[0]
+    oi, li = fa.flash_attention_forward(qi, ki, vi, scale=40**-0.5)
+    want = fa.flash_attention_backward(qi, ki, vi, oi, li, doi, scale=40**-0.5)
+    off = [torch.cat([t.new_zeros(4), t.flatten()])[4:].view(t.shape) for t in (qi, ki, vi, oi, doi)]
+    assert all(t.is_contiguous() and t.data_ptr() % 16 == 8 for t in off)
+    got = fa.flash_attention_backward(*off[:4], li, off[4], scale=40**-0.5)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
     with pytest.raises(NotImplementedError, match="queue B"):
         fa.flash_attention(*(torch.randn(1, 256, 1, 512, device="cuda", dtype=torch.bfloat16,
                                          requires_grad=True) for _ in range(3)), scale=0.1)

@@ -7,6 +7,7 @@ DPM-Solver++(2M) sampler; the safetensors reader/writer; and the port's
 import isolation.  Inputs come from numpy seeds and go to both sides.
 The kernels themselves run only on a GPU (test marked `cuda`).
 """
+import ctypes
 import os
 import subprocess
 import sys
@@ -271,3 +272,98 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20  # every module was imported
+
+
+def _write_csrc(tmp_path, files):
+    for name, text in files.items():
+        (tmp_path / name).write_text(text)
+
+
+def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
+    from textboost_torch.ops import _build
+
+    _write_csrc(tmp_path, {
+        "a.cu": '#include "h.cuh"\n#include <cuda.h>\n  #  include "missing.cuh"\nint a;\n',
+        "b.cu": "int b;\n",
+        "h.cuh": '#pragma once\n#include "h2.cuh"\n',
+        "h2.cuh": '#include "h.cuh"\nint h2;\n',  # a cycle must not loop
+        "other.cuh": "int other;\n",
+    })
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    assert _build.included_headers("a.cu") == ["h.cuh", "h2.cuh"]
+    assert _build.included_headers("b.cu") == []
+    before = {s: _build.library_path(s) for s in ("a.cu", "b.cu")}
+    assert before["a.cu"].name.startswith("a-") and before["a.cu"].parent == tmp_path / "build"
+    (tmp_path / "other.cuh").write_text("int other2;\n")  # included by neither
+    assert {s: _build.library_path(s) for s in before} == before
+    (tmp_path / "h2.cuh").write_text('#include "h.cuh"\nint h2_edited;\n')  # included through h.cuh
+    assert _build.library_path("a.cu") != before["a.cu"]
+    assert _build.library_path("b.cu") == before["b.cu"]
+    edited = _build.library_path("a.cu")
+    (tmp_path / "a.cu").write_text((tmp_path / "a.cu").read_text() + "int a2;\n")
+    assert _build.library_path("a.cu") != edited
+
+
+def test_the_flash_sources_hash_their_shared_header():
+    from textboost_torch.ops import _build
+
+    for source in (fa.SOURCE, fa.BWD_SOURCE):
+        assert _build.included_headers(source) == ["hopper.cuh"]
+    assert _build.included_headers("group_norm_fwd.cu") == []
+    # The forward reports the variant it chose through its last argument.
+    assert _build.SIGNATURES[fa.SOURCE]["tb_flash_attention_fwd"][-1] == ctypes.POINTER(ctypes.c_int)
+
+
+@pytest.mark.parametrize("how,in_place", [
+    ("plain", True),
+    ("head_slice", True),    # one of three fused projections: strides stay multiples of 8
+    ("odd_stride", False),   # a sequence stride of 84 elements
+    ("offset", False),       # base 8 bytes off a 16-byte boundary
+    ("strided_head_dim", False),
+])
+def test_kernel_ready_copies_only_what_the_backward_cannot_read_in_place(how, in_place):
+    b, n, h, d = 1, 16, 2, 40
+    if how == "plain":
+        t = torch.arange(b * n * h * d, dtype=torch.float32).bfloat16().view(b, n, h, d)
+    elif how == "head_slice":
+        t = torch.randn(b, n, h, 3 * d).bfloat16()[..., d:2 * d]
+    elif how == "odd_stride":
+        t = torch.randn(b, n, h * d + 4).bfloat16()[..., :h * d].unflatten(-1, (h, d))
+    elif how == "offset":
+        t = torch.randn(b * n * h * d + 4).bfloat16()[4:].view(b, n, h, d)
+    else:
+        t = torch.randn(b, n, h, 2 * d).bfloat16()[..., ::2]
+    ready = fa._kernel_ready(t)
+    assert (ready is t) == in_place
+    assert torch.equal(ready, t)
+    assert ready.stride(-1) == 1 and all(s % 8 == 0 for s in ready.stride()[:-1])
+    assert ready.data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("shape,backward,floor,ms", [
+    # 16 ex2 per SM and clock on 132 SMs at 1.98 GHz; 989 TFLOP/s; 3.35 TB/s.
+    ((8, 4096, 4096, 8, 40), False, "exponentials", 8 * 8 * 4096**2 / (16 * 132 * 1.98e9) * 1e3),
+    ((8, 1024, 1024, 8, 80), False, "tensor_cores", 4 * 64 * 1024**2 * 80 / 989e12 * 1e3),
+    ((4, 4096, 4096, 1, 512), False, "tensor_cores", 4 * 4 * 4096**2 * 512 / 989e12 * 1e3),
+    ((8, 4096, 4096, 8, 40), True, "tensor_cores", 10 * 64 * 4096**2 * 40 / 989e12 * 1e3),
+    ((8, 4096, 1, 8, 8), False, "bytes",
+     (2 * 2 * (8 * 4096 * 8 * 8 + 8 * 1 * 8 * 8) + 4 * 8 * 8 * 4096) / 3.35e12 * 1e3),
+])
+def test_chip_smoke_floors(shape, backward, floor, ms):
+    import chip_smoke
+
+    floors = chip_smoke.flash_floors_ms(*shape, backward=backward, sm_count=132,
+                                        sm_clock_hz=1.98e9)
+    assert set(floors) == {"bytes", "tensor_cores", "exponentials"}
+    bound = chip_smoke.bound_of(floors)
+    assert bound["bound_floor"] == floor
+    assert bound["bound_by"] == ("bytes" if floor == "bytes" else "operations")
+    assert bound["bound_ms"] == pytest.approx(ms, rel=1e-12)
+    assert bound["bound_ms"] == max(floors.values())
+    # The backward moves twice the bytes and does 2.5 times the products.
+    fwd = chip_smoke.flash_floors_ms(*shape, backward=False, sm_count=132, sm_clock_hz=1.98e9)
+    bwd = chip_smoke.flash_floors_ms(*shape, backward=True, sm_count=132, sm_clock_hz=1.98e9)
+    assert bwd["tensor_cores"] == pytest.approx(2.5 * fwd["tensor_cores"])
+    assert bwd["exponentials"] == fwd["exponentials"]
+    assert fwd["bytes"] < bwd["bytes"] < 2 * fwd["bytes"] + 1e-12

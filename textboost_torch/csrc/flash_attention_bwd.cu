@@ -21,19 +21,37 @@
 // pair).  On Hopper the CTAs run at once and in no order: that carry does
 // not exist, and a fused kernel would need fp32 atomicAdd into dq, whose sum
 // order (and so its bits) changes from run to run.  Here:
-//   1. flash_bwd_dq_kernel, one CTA of 4 warps per (batch*head, 64 query
-//      rows): computes delta for its rows (written to an fp32 [B, H, N]
-//      scratch), then streams 64-key K/V tiles and accumulates dQ in fp32
-//      registers (S, dP, dQ: 3 matmuls per tile pair), cast once at the end;
-//   2. flash_bwd_dkdv_kernel, one CTA of 4 warps per (batch*head, 64 keys),
-//      16 keys per warp: streams Q/dO tiles and accumulates dK and dV in
-//      fp32 registers (S^T, dP^T, dV, dK: 4 matmuls per tile pair).
+//   1. flash_bwd_dq_kernel, one CTA per (batch*head, 128 query rows):
+//      computes delta for its rows (written to an fp32 [B, H, N] scratch),
+//      then streams 64-key K/V tiles and accumulates dQ in fp32 registers
+//      (S, dP, dQ: 3 matmuls per tile pair), cast once at the end;
+//   2. flash_bwd_dkdv_kernel, one CTA per (batch*head, 128 keys): streams
+//      64-row Q/dO tiles (with their lse and delta) and accumulates dK and dV
+//      in fp32 registers (S^T, dP^T, dV, dK: 4 matmuls per tile pair).
 // 7 matmuls per tile pair against the fused design's 5, with no atomics and
-// bit-identical results from run to run.  All products are mma.sync
-// m16n8k16 with fp32 accumulation; P and dS are rounded to the input dtype
-// as the A operand of the next product (as FlashAttention-2 does), taken
-// straight from the score accumulators.  D is zero-padded to a multiple of
-// 16 in shared memory only.
+// bit-identical results from run to run.
+//
+// Both kernels are built from hopper.cuh's pieces, like the forward: a
+// producer warpgroup keeps a three-stage ring of streamed tiles filled by TMA
+// (tensor maps over [B, S, H, D], 128-byte swizzle, zero fill past D and
+// past the sequence end, an mbarrier pair per stage), and two consumer
+// warpgroups of 64 rows (dQ) or 64 keys (dK/dV) each run every product
+// with wgmma, fp32 accumulation.  The score-shaped products read both
+// operands from shared memory (m64n64k16).  P and dS never leave registers:
+// rounded to the input dtype, the score accumulators are the A operands of
+// the next products, whose B operands are the streamed row-major tiles read
+// MN-major with n = the head dim.  That is why the dK/dV kernel computes the
+// transposed scores S^T = K Q^T and dP^T = V dO^T: its CTA's keys are the
+// wgmma rows, so P^T and dS^T come out as A operands of dV += P^T dO and
+// dK += dS^T Q; lse and delta, per query row, are per accumulator column
+// there and are staged in shared memory beside each Q/dO tile.  The five
+// (dQ kernel: three) products of a tile pair are started behind one wait, the
+// accumulating ones of tile j together with the score-shaped ones of tile
+// j + 1, and the two warpgroups take turns at starting (hopper.cuh, turn_wait
+// / turn_pass), so that one's wgmma run under the other's exponentials.  At
+// D = 128 the dK/dV kernel's two 64 x 128 accumulators beside two 64 x 64
+// score tiles exceed the registers (ptxas spills 320 bytes and serialises
+// the wgmma there); no shipped config trains at that head dim.
 //
 // Envelope: bf16/fp16, D <= 128, D and every stride a multiple of 8, 16-byte
 // aligned pointers (the wrapper makes contiguous copies of views that are
@@ -44,436 +62,532 @@
 // Bound on the card.  At sd15's shapes (N = M = 4096, D = 40 or 80) the least
 // work is 5 products of 2*N*M*D operations per (batch, head), i.e.
 // 10*B*H*N^2*D, against 8*N*D elements moved (q, k, v, o, dO in; dq, dk, dv
-// out): far above the H100's ~295 operations per byte, so the tensor cores
-// bound it.  The split
-// does 7 products (1.4x the bound's operations), and mma.sync reaches only a
-// part of the rate that wgmma does; what is left to reach the bound: wgmma,
-// TMA and a pipelined tile ring (later work).
+// out): far above the H100's ~295 operations per byte, so operations bound
+// it: the five products at the tensor cores' rate and, at D = 40, almost as
+// much again the N*M exponentials per (batch, head) at 16 ex2 a clock on
+// each SM.  The split does 7 products and computes every exponential twice
+// (once in each kernel); that is the price of results without atomics.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 
 #include <math.h>
-#include <stdint.h>
-#include <string.h>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBQ = 64;  // query rows per dQ CTA, 16 per warp
-constexpr int kBK = 64;  // keys per dK/dV CTA (16 per warp) and per dQ tile
+using namespace hopper;
+
+constexpr int kOwnRows = 128;  // query rows per dQ CTA, keys per dK/dV CTA: 64 per warpgroup
+constexpr int kTileRows = 64;  // streamed keys per dQ tile, query rows per dK/dV tile
+constexpr int kStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// DN: the accumulators' width (the head dim rounded up to one of the
+// instantiated widths); the k extent of the score products is DN rounded up
+// to 16.  OWN: the CTA's resident tiles (two of them), STREAM: one stage.
+template <int DN> struct BwdTile {
+  static constexpr int KP = (DN + 15) / 16 * 16;
+  static constexpr int NSUB = DN > 64 ? 2 : 1;
+  static constexpr int OWN_BYTES = NSUB * kOwnRows * kRowBytes;
+  static constexpr int STREAM_BYTES = NSUB * kTileRows * kRowBytes;
+  static constexpr int SMEM =
+      1024 + 2 * OWN_BYTES + kStages * 2 * STREAM_BYTES + 2 * kOwnRows * 4 + 64;
+};
+
+// acc[64 x 64] = A[64 rows x KP] * B[64 rows x KP]^T, both K-major tiles whose
+// sub-tiles are `a_sub` / `b_sub` bytes apart.
+template <typename T, int KSTEPS>
+__device__ __forceinline__ void rows_dot(float (&acc)[32], uint32_t a_addr, uint32_t a_sub,
+                                         uint32_t b_addr, uint32_t b_sub) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const uint32_t off = (ks & 3) * 32;
+    WgmmaSS<kTileRows>::template run<T, 0>(acc, desc_k_major(a_addr + (ks >> 2) * a_sub + off),
+                                           desc_k_major(b_addr + (ks >> 2) * b_sub + off), ks > 0);
+  }
 }
 
-// Four 8x8 b16 matrices from shared memory, transposed: lanes 0-7, 8-15,
-// 16-23 and 24-31 give the row addresses of matrices 0-3.  From a row-major
-// [row][d] tile this yields the B fragments (k = row, n = d) of two 8-column
-// tiles.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// The same with A from the fragments `a` (load_a_fragments).
+template <typename T, int KSTEPS>
+__device__ __forceinline__ void rows_dot(float (&acc)[32], const uint32_t (&a)[KSTEPS][4],
+                                         uint32_t b_addr, uint32_t b_sub) {
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks)
+    WgmmaRS<kTileRows>::template run<T, 0>(
+        acc, a[ks], desc_k_major(b_addr + (ks >> 2) * b_sub + (ks & 3) * 32), ks > 0);
 }
 
-template <typename T> struct Mma;
-
-template <> struct Mma<__nv_bfloat16> {
-  // d += a (16x16, row) * b (16x8, col), fp32 accumulate.
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    uint32_t r;
-    memcpy(&r, &v, 4);
-    return r;
-  }
-  static __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+// Whether a warpgroup keeps the fragments of its two resident tiles in
+// registers (2 * KSTEPS * 4 of them) instead of having every wgmma read
+// them from shared memory: where the accumulators leave room.
+template <int DN> struct ResidentInRegisters {
+  static constexpr bool value = DN <= 64;
 };
 
-template <> struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// acc[64 x DN] += X[64 x 64] * tile[64 rows x DN], X from the fragments `xa`.
+template <typename T, int DN>
+__device__ __forceinline__ void acc_times_tile(float (&acc)[DN / 2],
+                                               const uint32_t (&xa)[kTileRows / 16][4],
+                                               uint32_t tile_addr) {
+#pragma unroll
+  for (int ks = 0; ks < kTileRows / 16; ++ks)
+    WgmmaRS<DN>::template run<T, 1>(
+        acc, xa[ks], desc_mn_major(tile_addr + ks * 16 * kRowBytes, kTileRows * kRowBytes), 1);
+}
+
+// Rows row0 + g and row0 + g + 8 of acc * mul as T into a contiguous
+// [rows][H][D] output.
+template <typename T, int DN>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[DN / 2], float mul, int b,
+                                           int h, int H, int D, int rows, int row0, int lane) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int n = row0 + (lane >> 2) + 8 * e;
+    if (n >= rows) continue;
+    T* orow = out + (((long long)b * rows + n) * H + h) * D;
+#pragma unroll
+    for (int jn = 0; jn < DN / 8; ++jn) {
+      const int d = jn * 8 + (lane & 3) * 2;
+      if (d < D)
+        *reinterpret_cast<uint32_t*>(orow + d) =
+            pack2<T>(acc[4 * jn + 2 * e] * mul, acc[4 * jn + 2 * e + 1] * mul);
+    }
   }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    const __half2 v = __floats2half2_rn(lo, hi);
-    uint32_t r;
-    memcpy(&r, &v, 4);
-    return r;
+}
+
+// ---------------------------------------------------------------------------
+// 1. delta and dQ, one CTA per (batch*head, 128 query rows).
+// ---------------------------------------------------------------------------
+template <typename T, int DN>
+__global__ void __launch_bounds__(kCtaThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_g,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v, const T* __restrict__ o,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    float* __restrict__ delta, T* __restrict__ dq, int N, int kv_len, int H,
+                    int D, long long o_sb, long long o_sn, long long o_sh, long long g_sb,
+                    long long g_sn, long long g_sh, float scale) {
+  using Tile = BwdTile<DN>;
+  constexpr int NSUB = Tile::NSUB;
+  constexpr int KSTEPS = Tile::KP / 16;
+  constexpr uint32_t OWN_SUB = kOwnRows * kRowBytes;
+  constexpr uint32_t STREAM_SUB = kTileRows * kRowBytes;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align_1024(smem_raw);
+  uint8_t* sG = sQ + Tile::OWN_BYTES;  // dO
+  uint8_t* sK = sG + Tile::OWN_BYTES;
+  uint8_t* sV = sK + kStages * Tile::STREAM_BYTES;
+  float* sL = reinterpret_cast<float*>(sV + kStages * Tile::STREAM_BYTES);  // lse * log2(e)
+  float* sD = sL + kOwnRows;                                                // delta
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sD + kOwnRows);
+  uint64_t* bar_own = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * kOwnRows;
+  const int ntiles = (kv_len + kTileRows - 1) / kTileRows;
+
+  if (tid == 0) {
+    mbar_init(bar_own, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
+    }
+    mbar_fence_init();
   }
-  static __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+  __syncthreads();
+
+  if (tid < kWgThreads) {
+    reg_dealloc<40>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(bar_own, 2 * Tile::OWN_BYTES);
+      tma_load_tile<NSUB>(sQ, kOwnRows, &map_q, h, q0, b, bar_own);
+      tma_load_tile<NSUB>(sG, kOwnRows, &map_g, h, q0, b, bar_own);
+      for (int j = 0; j < ntiles; ++j) {
+        const int stage = j % kStages;
+        const uint32_t phase = (j / kStages) & 1;
+        mbar_wait(empty + stage, phase ^ 1);
+        mbar_arrive_expect_tx(full + stage, 2 * Tile::STREAM_BYTES);
+        tma_load_tile<NSUB>(sK + stage * Tile::STREAM_BYTES, kTileRows, &map_k, h,
+                            j * kTileRows, b, full + stage);
+        tma_load_tile<NSUB>(sV + stage * Tile::STREAM_BYTES, kTileRows, &map_v, h,
+                            j * kTileRows, b, full + stage);
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int wg = tid / kWgThreads - 1;
+    const int t = tid % kWgThreads;
+    const int warp = t >> 5;
+    const int lane = t & 31;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+
+    // delta = rowsum(o * dO) in fp32, two threads per row, from device memory.
+    {
+      const int r = wg * 64 + (t >> 1);
+      const int n = q0 + r;
+      float part = 0.f;
+      if (n < N) {
+        const T* orow = o + b * o_sb + (long long)n * o_sn + h * o_sh;
+        const T* grow = dout + b * g_sb + (long long)n * g_sn + h * g_sh;
+        for (int c = t & 1; c < D / 8; c += 2) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
+          const uint4 gv = *reinterpret_cast<const uint4*>(grow + c * 8);
+          const T* oe = reinterpret_cast<const T*>(&ov);
+          const T* ge = reinterpret_cast<const T*>(&gv);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) part = fmaf(to_float(oe[i]), to_float(ge[i]), part);
+        }
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      if ((t & 1) == 0) {
+        sD[r] = part;
+        sL[r] = n < N ? lse[(long long)bh * N + n] * kLog2e : 0.f;
+        if (n < N) delta[(long long)bh * N + n] = part;
+      }
+    }
+    named_barrier_sync(1 + wg, kWgThreads);
+    const int row0 = wg * 64 + warp * 16 + g;
+    const float l2[2] = {sL[row0], sL[row0 + 8]};
+    const float dl[2] = {sD[row0], sD[row0 + 8]};
+    const float scale_log2 = scale * kLog2e;
+    const uint32_t q_addr = smem_u32(sQ) + wg * 64 * kRowBytes;
+    const uint32_t g_addr = smem_u32(sG) + wg * 64 * kRowBytes;
+
+    float acc[DN / 2];
+#pragma unroll
+    for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
+
+    // The five products of a tile pair go out behind one wait: dQ += dS K of
+    // tile j is in flight together with S and dP of tile j + 1.
+    float s[32], dp[32];
+    uint32_t dsa[kTileRows / 16][4];
+    constexpr bool kInRegs = ResidentInRegisters<DN>::value;
+    uint32_t qa[kInRegs ? KSTEPS : 1][4], ga[kInRegs ? KSTEPS : 1][4];
+    auto start_scores = [&](int stage) {
+      const uint32_t k_addr = smem_u32(sK) + stage * Tile::STREAM_BYTES;
+      const uint32_t v_addr = smem_u32(sV) + stage * Tile::STREAM_BYTES;
+      if constexpr (kInRegs) {
+        rows_dot<T, KSTEPS>(s, qa, k_addr, STREAM_SUB);   // S = Q K^T
+        rows_dot<T, KSTEPS>(dp, ga, v_addr, STREAM_SUB);  // dP = dO V^T
+      } else {
+        rows_dot<T, KSTEPS>(s, q_addr, OWN_SUB, k_addr, STREAM_SUB);
+        rows_dot<T, KSTEPS>(dp, g_addr, OWN_SUB, v_addr, STREAM_SUB);
+      }
+      wgmma_commit();
+    };
+    turn_init(wg);
+    mbar_wait(bar_own, 0);
+    if constexpr (kInRegs) {
+      load_a_fragments<KSTEPS>(qa, sQ, OWN_SUB, wg * 64 + warp * 16);
+      load_a_fragments<KSTEPS>(ga, sG, OWN_SUB, wg * 64 + warp * 16);
+    }
+    mbar_wait(full, 0);
+    turn_wait(wg);
+    wgmma_fence();
+    start_scores(0);
+    turn_pass(wg);
+    wgmma_wait<0>();
+    for (int j = 0; j < ntiles; ++j) {
+      const int stage = j % kStages;
+      pin(s);
+      pin(dp);
+      const int left = kv_len - j * kTileRows;  // valid keys of this tile
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int e = (i >> 1) & 1;
+        const int col = (i >> 2) * 8 + tq * 2 + (i & 1);
+        const float p = col < left ? fast_exp2(fmaf(s[i], scale_log2, -l2[e])) : 0.f;
+        s[i] = p * (dp[i] - dl[e]);  // dS
+      }
+#pragma unroll
+      for (int ks = 0; ks < kTileRows / 16; ++ks) acc_to_a<T>(dsa[ks], s, ks);
+      if (j + 1 < ntiles) mbar_wait(full + (j + 1) % kStages, ((j + 1) / kStages) & 1);
+      pin(dsa);
+      pin(acc);
+      pin(s);
+      pin(dp);
+      turn_wait(wg);
+      wgmma_fence();
+      acc_times_tile<T, DN>(acc, dsa, smem_u32(sK) + stage * Tile::STREAM_BYTES);  // dQ += dS K
+      wgmma_commit();
+      if (j + 1 < ntiles) start_scores((j + 1) % kStages);
+      turn_pass(wg);
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty + stage);
+    }
+    pin(acc);
+    store_rows<T, DN>(dq, acc, scale, b, h, H, D, N, q0 + wg * 64 + warp * 16, lane);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2. dK and dV, one CTA per (batch*head, 128 keys).
+// ---------------------------------------------------------------------------
+template <int DN> struct DkdvSmem {
+  // K, V resident; per stage Q, dO and their lse / delta.
+  static constexpr int SMEM = 1024 + 2 * BwdTile<DN>::OWN_BYTES +
+                              kStages * 2 * BwdTile<DN>::STREAM_BYTES +
+                              kStages * 2 * kTileRows * 4 + 64;
 };
+
+template <typename T, int DN>
+__global__ void __launch_bounds__(kCtaThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_g, const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                      int N, int M, int kv_len, int H, int D, float scale) {
+  using Tile = BwdTile<DN>;
+  constexpr int NSUB = Tile::NSUB;
+  constexpr int KSTEPS = Tile::KP / 16;
+  constexpr uint32_t OWN_SUB = kOwnRows * kRowBytes;
+  constexpr uint32_t STREAM_SUB = kTileRows * kRowBytes;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align_1024(smem_raw);
+  uint8_t* sV = sK + Tile::OWN_BYTES;
+  uint8_t* sQ = sV + Tile::OWN_BYTES;
+  uint8_t* sG = sQ + kStages * Tile::STREAM_BYTES;  // dO
+  float* sL = reinterpret_cast<float*>(sG + kStages * Tile::STREAM_BYTES);  // [stage][64]
+  float* sD = sL + kStages * kTileRows;                                     // [stage][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sD + kStages * kTileRows);
+  uint64_t* bar_own = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kb0 = blockIdx.x * kOwnRows;
+  const int ntiles = kb0 < kv_len ? (N + kTileRows - 1) / kTileRows : 0;  // uniform over the CTA
+
+  if (tid == 0) {
+    mbar_init(bar_own, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1 + 32);  // the TMA thread's expect_tx and the warp's lse / delta
+      mbar_init(empty + s, kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < kWgThreads) {
+    reg_dealloc<40>();
+    if (tid < 32 && ntiles > 0) {
+      if (tid == 0) {
+        mbar_arrive_expect_tx(bar_own, 2 * Tile::OWN_BYTES);
+        tma_load_tile<NSUB>(sK, kOwnRows, &map_k, h, kb0, b, bar_own);
+        tma_load_tile<NSUB>(sV, kOwnRows, &map_v, h, kb0, b, bar_own);
+      }
+      // lse and delta of a tile's rows, two per lane, fetched one tile ahead
+      // so that their latency hides under the wait for a free stage.
+      float nl[kTileRows / 32], nd[kTileRows / 32];
+      auto fetch = [&](int j) {
+#pragma unroll
+        for (int i = 0; i < kTileRows / 32; ++i) {
+          const int n = j * kTileRows + tid + 32 * i;
+          nl[i] = n < N ? lse[(long long)bh * N + n] * kLog2e : 0.f;
+          nd[i] = n < N ? delta[(long long)bh * N + n] : 0.f;
+        }
+      };
+      fetch(0);
+      for (int j = 0; j < ntiles; ++j) {
+        const int stage = j % kStages;
+        const uint32_t phase = (j / kStages) & 1;
+        const int q0 = j * kTileRows;
+        mbar_wait(empty + stage, phase ^ 1);
+        if (tid == 0) {
+          mbar_arrive_expect_tx(full + stage, 2 * Tile::STREAM_BYTES);
+          tma_load_tile<NSUB>(sQ + stage * Tile::STREAM_BYTES, kTileRows, &map_q, h, q0, b,
+                              full + stage);
+          tma_load_tile<NSUB>(sG + stage * Tile::STREAM_BYTES, kTileRows, &map_g, h, q0, b,
+                              full + stage);
+        }
+#pragma unroll
+        for (int i = 0; i < kTileRows / 32; ++i) {
+          sL[stage * kTileRows + tid + 32 * i] = nl[i];
+          sD[stage * kTileRows + tid + 32 * i] = nd[i];
+        }
+        mbar_arrive(full + stage);
+        fetch(j + 1);  // rows past N read as 0
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int wg = tid / kWgThreads - 1;
+    const int t = tid % kWgThreads;
+    const int warp = t >> 5;
+    const int lane = t & 31;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    const int key0 = kb0 + wg * 64 + warp * 16 + g;  // this thread's rows: key0, key0 + 8
+    const bool kvalid[2] = {key0 < kv_len, key0 + 8 < kv_len};
+    const float scale_log2 = scale * kLog2e;
+    const uint32_t k_addr = smem_u32(sK) + wg * 64 * kRowBytes;
+    const uint32_t v_addr = smem_u32(sV) + wg * 64 * kRowBytes;
+
+    float dka[DN / 2], dva[DN / 2];
+#pragma unroll
+    for (int i = 0; i < DN / 2; ++i) dka[i] = dva[i] = 0.f;
+
+    // As in the dQ kernel: dV += P^T dO and dK += dS^T Q of tile j are in
+    // flight together with S^T and dP^T of tile j + 1.
+    float pt[32], dst[32];
+    uint32_t pa[kTileRows / 16][4], dsa[kTileRows / 16][4];
+    constexpr bool kInRegs = ResidentInRegisters<DN>::value;
+    uint32_t ka[kInRegs ? KSTEPS : 1][4], va[kInRegs ? KSTEPS : 1][4];
+    auto start_scores = [&](int stage) {
+      const uint32_t q_addr = smem_u32(sQ) + stage * Tile::STREAM_BYTES;
+      const uint32_t g_addr = smem_u32(sG) + stage * Tile::STREAM_BYTES;
+      if constexpr (kInRegs) {
+        rows_dot<T, KSTEPS>(pt, ka, q_addr, STREAM_SUB);   // S^T = K Q^T
+        rows_dot<T, KSTEPS>(dst, va, g_addr, STREAM_SUB);  // dP^T = V dO^T
+      } else {
+        rows_dot<T, KSTEPS>(pt, k_addr, OWN_SUB, q_addr, STREAM_SUB);
+        rows_dot<T, KSTEPS>(dst, v_addr, OWN_SUB, g_addr, STREAM_SUB);
+      }
+      wgmma_commit();
+    };
+    turn_init(wg);
+    if (ntiles > 0) {
+      mbar_wait(bar_own, 0);
+      if constexpr (kInRegs) {
+        load_a_fragments<KSTEPS>(ka, sK, OWN_SUB, wg * 64 + warp * 16);
+        load_a_fragments<KSTEPS>(va, sV, OWN_SUB, wg * 64 + warp * 16);
+      }
+      mbar_wait(full, 0);
+      turn_wait(wg);
+      wgmma_fence();
+      start_scores(0);
+      turn_pass(wg);
+      wgmma_wait<0>();
+    }
+    for (int j = 0; j < ntiles; ++j) {
+      const int stage = j % kStages;
+      const float* tl = sL + stage * kTileRows;
+      const float* td = sD + stage * kTileRows;
+      pin(pt);
+      pin(dst);
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        const float2 l2 = *reinterpret_cast<const float2*>(tl + jn * 8 + tq * 2);
+        const float2 dl = *reinterpret_cast<const float2*>(td + jn * 8 + tq * 2);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jn + 2 * e;
+          const float p0 = kvalid[e] ? fast_exp2(fmaf(pt[i], scale_log2, -l2.x)) : 0.f;
+          const float p1 = kvalid[e] ? fast_exp2(fmaf(pt[i + 1], scale_log2, -l2.y)) : 0.f;
+          pt[i] = p0;                           // P^T
+          pt[i + 1] = p1;
+          dst[i] = p0 * (dst[i] - dl.x);        // dS^T
+          dst[i + 1] = p1 * (dst[i + 1] - dl.y);
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < kTileRows / 16; ++ks) {
+        acc_to_a<T>(pa[ks], pt, ks);
+        acc_to_a<T>(dsa[ks], dst, ks);
+      }
+      if (j + 1 < ntiles) mbar_wait(full + (j + 1) % kStages, ((j + 1) / kStages) & 1);
+      pin(pa);
+      pin(dsa);
+      pin(dva);
+      pin(dka);
+      pin(pt);
+      pin(dst);
+      turn_wait(wg);
+      wgmma_fence();
+      acc_times_tile<T, DN>(dva, pa, smem_u32(sG) + stage * Tile::STREAM_BYTES);   // dV += P^T dO
+      acc_times_tile<T, DN>(dka, dsa, smem_u32(sQ) + stage * Tile::STREAM_BYTES);  // dK += dS^T Q
+      wgmma_commit();
+      if (j + 1 < ntiles) start_scores((j + 1) % kStages);
+      turn_pass(wg);
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty + stage);
+    }
+    pin(dka);
+    pin(dva);
+    const int row0 = kb0 + wg * 64 + warp * 16;
+    store_rows<T, DN>(dk, dka, scale, b, h, H, D, M, row0, lane);
+    store_rows<T, DN>(dv, dva, 1.f, b, h, H, D, M, row0, lane);
+  }
+}
 
 // Element strides (batch, sequence, head) of the five inputs.
 struct Strides {
   long long q[3], k[3], v[3], o[3], g[3];
 };
 
-// Stage `rows` rows of a [seq][D] slice (row stride `rs`) into a [rows][QS]
-// tile, zero past `valid` rows and past D (16-byte chunks).
-template <typename T, int PCH, int QS>
-__device__ __forceinline__ void stage(T* dst, const T* src, long long rs, int row0, int rows,
-                                      int valid, int dch) {
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int idx = threadIdx.x; idx < rows * PCH; idx += kThreads) {
-    const int r = idx / PCH;
-    const int c = idx - r * PCH;
-    const int n = row0 + r;
-    const uint4 val = (n < valid && c < dch)
-                          ? *reinterpret_cast<const uint4*>(src + (long long)n * rs + c * 8)
-                          : zero;
-    *reinterpret_cast<uint4*>(dst + r * QS + c * 8) = val;
-  }
-}
-
-// A fragments (16 rows from `row0`, the padded head dim) of a [rows][QS] tile.
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A a0:(g, 2t..2t+1) a1:(g+8, 2t..) a2:(g, 2t+8..) a3:(g+8, 2t+8..)
-//   B b0:(k=2t..2t+1, n=g) b1:(k=2t+8.., n=g)
-//   C c0,c1:(g, 2t..2t+1) c2,c3:(g+8, 2t..2t+1)
-template <typename T, int KD, int QS>
-__device__ __forceinline__ void load_a(uint32_t (&a)[KD][4], const T* tile, int row0) {
-  const int lane = threadIdx.x & 31;
-  const T* p = tile + (row0 + (lane >> 2)) * QS + (lane & 3) * 2;
-#pragma unroll
-  for (int ks = 0; ks < KD; ++ks) {
-    a[ks][0] = ld32(p + ks * 16);
-    a[ks][1] = ld32(p + 8 * QS + ks * 16);
-    a[ks][2] = ld32(p + ks * 16 + 8);
-    a[ks][3] = ld32(p + 8 * QS + ks * 16 + 8);
-  }
-}
-
-// c[nt] = A * (rows nt*8.. of `tile`)^T over the padded head dim: the scores
-// of the warp's 16 rows against NT*8 rows of the tile.
-template <typename T, int KD, int QS, int NT>
-__device__ __forceinline__ void rows_dot(float (&c)[NT][4], const uint32_t (&a)[KD][4],
-                                         const T* tile) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-    const T* r = tile + (nt * 8 + (lane >> 2)) * QS + (lane & 3) * 2;
-#pragma unroll
-    for (int ks = 0; ks < KD; ++ks) Mma<T>::run(c[nt], a[ks], ld32(r + ks * 16), ld32(r + ks * 16 + 8));
-  }
-}
-
-// acc += X * tile, X [16 x NT*8] from the score accumulators `x` (rounded to
-// T), tile [NT*8 rows][padded D] row-major in shared memory.
-template <typename T, int ND, int QS, int NT>
-__device__ __forceinline__ void acc_times_tile(float (&acc)[ND][4], const float (&x)[NT][4],
-                                               const T* tile) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int t = 0; t < NT / 2; ++t) {
-    const uint32_t xa[4] = {
-        Mma<T>::pack(x[2 * t][0], x[2 * t][1]), Mma<T>::pack(x[2 * t][2], x[2 * t][3]),
-        Mma<T>::pack(x[2 * t + 1][0], x[2 * t + 1][1]),
-        Mma<T>::pack(x[2 * t + 1][2], x[2 * t + 1][3])};
-#pragma unroll
-    for (int nd = 0; nd < ND; nd += 2) {
-      uint32_t bt[4];
-      ldmatrix_x4_trans(bt, tile + (t * 16 + (lane & 15)) * QS + (nd + (lane >> 4)) * 8);
-      Mma<T>::run(acc[nd], xa, bt[0], bt[1]);
-      Mma<T>::run(acc[nd + 1], xa, bt[2], bt[3]);
-    }
-  }
-}
-
-// Write rows row0 + g and row0 + g + 8 of acc * mul as T into a contiguous
-// [rows][H][D] output.
-template <typename T, int ND>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[ND][4], float mul, int b,
-                                           int h, int H, int D, int rows, int row0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int n = row0 + (lane >> 2) + 8 * i;
-    if (n >= rows) continue;
-    T* orow = out + (((long long)b * rows + n) * H + h) * D;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const int d = nd * 8 + (lane & 3) * 2;
-      if (d < D)
-        *reinterpret_cast<uint32_t*>(orow + d) =
-            Mma<T>::pack(acc[nd][2 * i] * mul, acc[nd][2 * i + 1] * mul);
-    }
-  }
-}
-
-template <int KD>
-__host__ __device__ constexpr int tile_stride() {
-  return KD * 16 + 8;  // +8: conflict-free 32-bit and ldmatrix fragment loads
-}
-
-// ---------------------------------------------------------------------------
-// 1. delta and dQ, one CTA per (batch*head, 64 query rows).
-// ---------------------------------------------------------------------------
-template <typename T, int KD>
-__host__ __device__ constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * 2 * kBQ + sizeof(T) * (size_t)(2 * kBQ + 2 * kBK) * tile_stride<KD>();
-}
-
-template <typename T, int KD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ o, const T* __restrict__ dout,
-                    const float* __restrict__ lse, float* __restrict__ delta,
-                    T* __restrict__ dq, int N, int kv_len, int H, int D, Strides st,
-                    float scale) {
-  constexpr int DP = KD * 16;
-  constexpr int PCH = DP / 8;
-  constexpr int ND = DP / 8;
-  constexpr int QS = tile_stride<KD>();
-
-  extern __shared__ float4 smem4[];
-  float* sL = reinterpret_cast<float*>(smem4);  // [64] lse * log2(e)
-  float* sD = sL + kBQ;                         // [64] delta
-  T* sQ = reinterpret_cast<T*>(sD + kBQ);       // [64][QS]
-  T* sG = sQ + kBQ * QS;                        // [64][QS] dO
-  T* sK = sG + kBQ * QS;                        // [64][QS]
-  T* sV = sK + kBK * QS;                        // [64][QS]
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * kBQ;
-  const int dch = D / 8;
-
-  const T* qb = q + b * st.q[0] + h * st.q[2];
-  const T* kb = k + b * st.k[0] + h * st.k[2];
-  const T* vb = v + b * st.v[0] + h * st.v[2];
-  const T* ob = o + b * st.o[0] + h * st.o[2];
-  const T* gb = dout + b * st.g[0] + h * st.g[2];
-
-  stage<T, PCH, QS>(sQ, qb, st.q[1], q0, kBQ, N, dch);
-  stage<T, PCH, QS>(sG, gb, st.g[1], q0, kBQ, N, dch);
-  __syncthreads();
-
-  // delta = rowsum(o * dO) in fp32: warp w takes rows 16w..16w+15.
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-    const int n = q0 + r;
-    float part = 0.f;
-    if (n < N) {
-      const T* orow = ob + (long long)n * st.o[1];
-      for (int d = lane; d < D; d += 32)
-        part = fmaf(Mma<T>::to_float(orow[d]), Mma<T>::to_float(sG[r * QS + d]), part);
-    }
-    part = warp_sum(part);
-    if (lane == 0) {
-      sD[r] = part;
-      sL[r] = n < N ? lse[(long long)bh * N + n] * kLog2e : 0.f;
-      if (n < N) delta[(long long)bh * N + n] = part;
-    }
-  }
-  __syncthreads();
-
-  uint32_t qa[KD][4], ga[KD][4];
-  load_a<T, KD, QS>(qa, sQ, warp * 16);
-  load_a<T, KD, QS>(ga, sG, warp * 16);
-  const int g = lane >> 2;
-  const float l2[2] = {sL[warp * 16 + g], sL[warp * 16 + g + 8]};
-  const float dl[2] = {sD[warp * 16 + g], sD[warp * 16 + g + 8]};
-  const float scale_log2 = scale * kLog2e;
-
-  float acc[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-
-  for (int k0 = 0; k0 < kv_len; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed
-    stage<T, PCH, QS>(sK, kb, st.k[1], k0, kBK, kv_len, dch);
-    stage<T, PCH, QS>(sV, vb, st.v[1], k0, kBK, kv_len, dch);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    rows_dot<T, KD, QS, 8>(s, qa, sK);   // S = Q K^T
-    rows_dot<T, KD, QS, 8>(dp, ga, sV);  // dP = dO V^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + (lane & 3) * 2 + (e & 1);
-        const int i = e >> 1;
-        const float p = key < kv_len ? exp2f(s[nt][e] * scale_log2 - l2[i]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - dl[i]);  // dS
-      }
-    }
-    acc_times_tile<T, ND, QS, 8>(acc, s, sK);  // dQ += dS K
-  }
-  store_rows<T, ND>(dq, acc, scale, b, h, H, D, N, q0 + warp * 16);
-}
-
-// ---------------------------------------------------------------------------
-// 2. dK and dV, one CTA per (batch*head, 64 keys).
-// ---------------------------------------------------------------------------
-template <int KD>
-__host__ __device__ constexpr int dkdv_q_tile() {
-  return KD <= 5 ? 64 : 32;  // fewer score registers where the accumulators are wide
-}
-
-template <typename T, int KD>
-__host__ __device__ constexpr size_t dkdv_smem_bytes() {
-  return sizeof(float) * 2 * dkdv_q_tile<KD>() +
-         sizeof(T) * (size_t)(2 * kBK + 2 * dkdv_q_tile<KD>()) * tile_stride<KD>();
-}
-
-template <typename T, int KD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const T* __restrict__ dout, const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                      int N, int M, int kv_len, int H, int D, Strides st, float scale) {
-  constexpr int DP = KD * 16;
-  constexpr int PCH = DP / 8;
-  constexpr int ND = DP / 8;
-  constexpr int QS = tile_stride<KD>();
-  constexpr int QT = dkdv_q_tile<KD>();
-  constexpr int NT = QT / 8;
-
-  extern __shared__ float4 smem4[];
-  float* sL = reinterpret_cast<float*>(smem4);  // [QT] lse * log2(e)
-  float* sD = sL + QT;                          // [QT] delta
-  T* sK = reinterpret_cast<T*>(sD + QT);        // [64][QS]
-  T* sV = sK + kBK * QS;                        // [64][QS]
-  T* sQ = sV + kBK * QS;                        // [QT][QS]
-  T* sG = sQ + QT * QS;                         // [QT][QS] dO
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int kb0 = blockIdx.x * kBK;
-  const int dch = D / 8;
-
-  const T* qb = q + b * st.q[0] + h * st.q[2];
-  const T* kb = k + b * st.k[0] + h * st.k[2];
-  const T* vb = v + b * st.v[0] + h * st.v[2];
-  const T* gb = dout + b * st.g[0] + h * st.g[2];
-
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    dka[nd][0] = dka[nd][1] = dka[nd][2] = dka[nd][3] = 0.f;
-    dva[nd][0] = dva[nd][1] = dva[nd][2] = dva[nd][3] = 0.f;
-  }
-
-  if (kb0 < kv_len) {  // uniform over the CTA: a block wholly past kv_len writes zeros
-    stage<T, PCH, QS>(sK, kb, st.k[1], kb0, kBK, kv_len, dch);
-    stage<T, PCH, QS>(sV, vb, st.v[1], kb0, kBK, kv_len, dch);
-    __syncthreads();
-    uint32_t ka[KD][4], va[KD][4];
-    load_a<T, KD, QS>(ka, sK, warp * 16);
-    load_a<T, KD, QS>(va, sV, warp * 16);
-    const float scale_log2 = scale * kLog2e;
-    const int key0 = kb0 + warp * 16 + (lane >> 2);  // this thread's rows: key0, key0 + 8
-    const bool kvalid[2] = {key0 < kv_len, key0 + 8 < kv_len};
-
-    for (int q0 = 0; q0 < N; q0 += QT) {
-      __syncthreads();  // the previous tile is consumed
-      stage<T, PCH, QS>(sQ, qb, st.q[1], q0, QT, N, dch);
-      stage<T, PCH, QS>(sG, gb, st.g[1], q0, QT, N, dch);
-      for (int r = threadIdx.x; r < QT; r += kThreads) {
-        const int n = q0 + r;
-        sL[r] = n < N ? lse[(long long)bh * N + n] * kLog2e : 0.f;
-        sD[r] = n < N ? delta[(long long)bh * N + n] : 0.f;
-      }
-      __syncthreads();
-
-      float pt[NT][4], dst[NT][4];
-      rows_dot<T, KD, QS, NT>(pt, ka, sQ);   // S^T = K Q^T
-      rows_dot<T, KD, QS, NT>(dst, va, sG);  // dP^T = V dO^T
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + (lane & 3) * 2 + (e & 1);
-          const bool ok = kvalid[e >> 1] && q0 + col < N;
-          const float p = ok ? exp2f(pt[nt][e] * scale_log2 - sL[col]) : 0.f;
-          pt[nt][e] = p;                         // P^T
-          dst[nt][e] = p * (dst[nt][e] - sD[col]);  // dS^T
-        }
-      }
-      acc_times_tile<T, ND, QS, NT>(dva, pt, sG);   // dV += P^T dO
-      acc_times_tile<T, ND, QS, NT>(dka, dst, sQ);  // dK += dS^T Q
-    }
-  }
-  store_rows<T, ND>(dk, dka, scale, b, h, H, D, M, kb0 + warp * 16);
-  store_rows<T, ND>(dv, dva, 1.f, b, h, H, D, M, kb0 + warp * 16);
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-template <typename T, int KD>
+template <typename T, int DN>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int N,
                    int M, int kv_len, int H, int D, const Strides& st, float scale,
                    cudaStream_t stream) {
-  auto dq_kernel = flash_bwd_dq_kernel<T, KD>;
-  auto dkdv_kernel = flash_bwd_dkdv_kernel<T, KD>;
-  const size_t dq_smem = dq_smem_bytes<T, KD>();
-  const size_t dkdv_smem = dkdv_smem_bytes<T, KD>();
-  cudaError_t err = allow_smem(dq_kernel, dq_smem);
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  // Maps by (tensor, rows per box): the resident tiles take 128 rows, the
+  // streamed ones 64.  K and V show kv_len rows, so the rest read as zeros.
+  CUtensorMap q_own, g_own, k_str, v_str, k_own, v_own, q_str, g_str;
+  struct {
+    CUtensorMap* map;
+    const void* base;
+    int seq;
+    const long long* s;
+    int rows;
+  } maps[8] = {{&q_own, q, N, st.q, kOwnRows},       {&g_own, dout, N, st.g, kOwnRows},
+               {&k_str, k, kv_len, st.k, kTileRows}, {&v_str, v, kv_len, st.v, kTileRows},
+               {&k_own, k, kv_len, st.k, kOwnRows},  {&v_own, v, kv_len, st.v, kOwnRows},
+               {&q_str, q, N, st.q, kTileRows},      {&g_str, dout, N, st.g, kTileRows}};
+  for (auto& m : maps) {
+    cudaError_t err =
+        make_tensor_map(m.map, bf16, m.base, B, m.seq, H, D, m.s[0], m.s[1], m.s[2], m.rows);
+    if (err != cudaSuccess) return err;
+  }
+  auto dq_kernel = flash_bwd_dq_kernel<T, DN>;
+  auto dkdv_kernel = flash_bwd_dkdv_kernel<T, DN>;
+  constexpr int dq_smem = BwdTile<DN>::SMEM;
+  constexpr int dkdv_smem = DkdvSmem<DN>::SMEM;
+  cudaError_t err =
+      cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
   if (err != cudaSuccess) return err;
-  err = allow_smem(dkdv_kernel, dkdv_smem);
+  err = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
   if (err != cudaSuccess) return err;
-  dq_kernel<<<dim3((N + kBQ - 1) / kBQ, B * H), kThreads, dq_smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), N,
-      kv_len, H, D, st, scale);
+  dq_kernel<<<dim3((N + kOwnRows - 1) / kOwnRows, B * H), kCtaThreads, dq_smem, stream>>>(
+      q_own, g_own, k_str, v_str, static_cast<const T*>(o), static_cast<const T*>(dout), lse,
+      delta, static_cast<T*>(dq), N, kv_len, H, D, st.o[0], st.o[1], st.o[2], st.g[0], st.g[1],
+      st.g[2], scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<<<dim3((M + kBK - 1) / kBK, B * H), kThreads, dkdv_smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), N, M,
-      kv_len, H, D, st, scale);
+  dkdv_kernel<<<dim3((M + kOwnRows - 1) / kOwnRows, B * H), kCtaThreads, dkdv_smem, stream>>>(
+      k_own, v_own, q_str, g_str, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), N, M,
+      kv_len, H, D, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_kd(const void* q, const void* k, const void* v, const void* o,
+cudaError_t dispatch_dn(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const float* lse, float* delta, void* dq, void* dk,
                         void* dv, int B, int N, int M, int kv_len, int H, int D,
                         const Strides& st, float scale, cudaStream_t s) {
-  const int kd = (D + 15) / 16;
-#define TB_LAUNCH(KD) \
-  launch<T, KD>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, N, M, kv_len, H, D, st, scale, s)
-  if (kd <= 2) return TB_LAUNCH(2);
-  if (kd <= 3) return TB_LAUNCH(3);
-  if (kd <= 4) return TB_LAUNCH(4);
-  if (kd <= 5) return TB_LAUNCH(5);
-  if (kd <= 6) return TB_LAUNCH(6);
-  return TB_LAUNCH(8);
+#define TB_LAUNCH(DN) \
+  launch<T, DN>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, N, M, kv_len, H, D, st, scale, s)
+  if (D <= 16) return TB_LAUNCH(16);
+  if (D <= 32) return TB_LAUNCH(32);
+  if (D <= 40) return TB_LAUNCH(40);
+  if (D <= 64) return TB_LAUNCH(64);
+  if (D <= 80) return TB_LAUNCH(80);
+  return TB_LAUNCH(128);
 #undef TB_LAUNCH
 }
 
@@ -511,10 +625,10 @@ extern "C" int tb_flash_attention_bwd(int dtype, const void* q, const void* k, c
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 1:
-      return (int)dispatch_kd<__half>(q, k, v, o, dout, l, dl, dq, dk, dv, B, N, M, kv_len, H, D,
+      return (int)dispatch_dn<__half>(q, k, v, o, dout, l, dl, dq, dk, dv, B, N, M, kv_len, H, D,
                                       st, scale, s);
     case 2:
-      return (int)dispatch_kd<__nv_bfloat16>(q, k, v, o, dout, l, dl, dq, dk, dv, B, N, M,
+      return (int)dispatch_dn<__nv_bfloat16>(q, k, v, o, dout, l, dl, dq, dk, dv, B, N, M,
                                              kv_len, H, D, st, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }

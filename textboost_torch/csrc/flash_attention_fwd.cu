@@ -13,26 +13,38 @@
 // columns at or past D are masked here: nothing is padded in device memory.
 //
 // Bound on the card.  At the sd15 shapes (N = M = 4096, D = 40 or 80) the
-// work is 4*N*M*D operations per (batch, head) against 2*(N+2M)*D bytes, far
-// above the H100's ~295 operations per byte: the kernel is bound by
-// operations, i.e. by the tensor cores.
+// work is 4*N*M*D tensor-core operations per (batch, head) against 2*(N+2M)*D
+// bytes, far above the H100's ~295 operations per byte, so memory does not
+// bound it.  At D = 40 the tensor cores do not either: the softmax takes one
+// ex2 per score, an SM retires 16 of them a clock, and N*M exponentials per
+// (batch, head) take longer than the two products.  At D = 512 (the VAE's
+// single head) the tensor cores bound it.
 //
-// Two variants share the entry point.
+// Three variants share the entry point (hopper.cuh holds the shared pieces).
 //
-// Tensor cores (bf16/fp16, D <= 512, D and the strides multiples of 8): one
-// CTA of 4 warps per (batch*head, 64 query rows), 16 rows per warp, in the
-// FlashAttention-2 arrangement with mma.sync m16n8k16 (fp32 accumulate).
-// Each warp keeps its q fragments, running max/sum and the fp32 output
-// accumulator in registers; 64-key K and V tiles are staged in shared memory
-// with 16-byte loads (V's fragments read back transposed by ldmatrix), and
-// the tile's probabilities go from the score accumulator straight into the A
-// operand of P.V (rounded to the input dtype, as FlashAttention does).  D is zero-padded to a multiple of
-// 16 in shared memory only.  For 128 < D <= 512 (the VAE mid block's single
-// d=512 head, which no warp's registers can accumulate alone) a wide form
-// has the 4 warps share 16 query rows and split D: partial scores are summed
-// through shared memory and each warp accumulates a quarter of the output.
-// What is left to reach the bound: wgmma, TMA and a pipelined K/V ring
-// (later work).
+// wgmma, D <= 128 (bf16/fp16; D, the strides and the bases in whole 16-byte
+// chunks).  One CTA per (batch*head, 128 query rows): a producer warpgroup
+// whose one thread keeps a three-stage ring of 128-key K and V tiles filled by
+// TMA (cp.async.bulk.tensor through tensor maps built per call over
+// [B, S, H, D], 128-byte swizzle, one mbarrier pair per stage), and two
+// consumer warpgroups of 64 query rows each.  A consumer computes S = Q K^T
+// with wgmma m64n128k16, K from shared memory and Q from shared memory or,
+// where D <= 64 leaves the registers, from fragments loaded once (the head
+// dim padded to a multiple of 16 by the TMA unit's zero fill: 48 at D = 40), runs the online
+// softmax on the accumulator in log2 units, and feeds P, rounded to the
+// input dtype, from the same registers as the A operand of O += P V, whose B
+// operand is V's row-major tile read MN-major with n = the head dim itself
+// (40 and 80 pad nothing).  setmaxnreg moves registers from the producer to
+// the consumers.  Two things keep the tensor cores busy under the softmax,
+// which at D = 40 is the longer part: within a warpgroup S of tile j and P.V
+// of tile j - 1 are started together and the softmax of tile j runs while
+// P.V finishes; and the two warpgroups take turns at starting (hopper.cuh,
+// turn_wait / turn_pass), so that one's wgmma run under the other's
+// exponentials.  TMA rather than cp.async: the zero fill pads D and masks
+// the ragged sequence ends for free, the swizzled layout is the one wgmma
+// reads, and no thread spends registers on addresses.
+//
+// wgmma wide, 128 < D <= 512: see flash_fwd_wgmma_wide_kernel.
 //
 // CUDA cores (fp32, D not a multiple of 8, unaligned views; none at sd15's
 // bf16 shapes): 4 warps per (batch*head, BQ query rows), each warp owning
@@ -50,13 +62,9 @@
 // kernel (flash_attention_bwd.cu) does not cover this envelope: with a
 // gradient, fp32 and D % 8 != 0 raise (ROADMAP.md queue B).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 
 #include <math.h>
-#include <stdint.h>
-#include <string.h>
 
 namespace {
 
@@ -291,467 +299,492 @@ cudaError_t dispatch_nc(const void* q, const void* k, const void* v, void* o, fl
   return cudaErrorInvalidValue;
 }
 
-
 // ---------------------------------------------------------------------------
-// Tensor-core variant.
+// wgmma variants.
 // ---------------------------------------------------------------------------
-constexpr int kMmaBQ = 64;  // query rows per CTA, 16 per warp
-constexpr int kMmaBK = 64;  // keys per tile
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int kBQ = 128;                      // query rows per CTA, 64 per consumer warpgroup
+constexpr int kTileKeys = 128;                // keys per K/V stage
+constexpr int kStages = 3;
 
-// Four 8x8 b16 matrices from shared memory, transposed: lanes 0-7, 8-15,
-// 16-23 and 24-31 give the row addresses of matrices 0-3.  From row-major
-// V [key][d] this yields the B fragments of P.V for two 8-column tiles.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-template <typename T> struct Mma;
-
-template <> struct Mma<__nv_bfloat16> {
-  // d += a (16x16, row) * b (16x8, col), fp32 accumulate.
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    uint32_t r;
-    memcpy(&r, &v, 4);
-    return r;
-  }
+// DN: the width of P.V's accumulator (the head dim rounded up to one of the
+// instantiated widths); the k extent of Q.K^T is DN rounded up to 16.
+template <int DN> struct FwdTile {
+  static constexpr int KP = (DN + 15) / 16 * 16;
+  static constexpr int NSUB = DN > 64 ? 2 : 1;
+  static constexpr int Q_BYTES = NSUB * kBQ * kRowBytes;
+  static constexpr int KV_BYTES = NSUB * kTileKeys * kRowBytes;  // one of K, V per stage
+  static constexpr int SMEM = 1024 + Q_BYTES + kStages * 2 * KV_BYTES + 64;
 };
 
-template <> struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    const __half2 v = __floats2half2_rn(lo, hi);
-    uint32_t r;
-    memcpy(&r, &v, 4);
-    return r;
-  }
-};
+template <typename T, int DN>
+__global__ void __launch_bounds__(kCtaThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v, T* __restrict__ o,
+                       float* __restrict__ lse, int N, int kv_len, int H, int D,
+                       float scale_log2) {
+  using Tile = FwdTile<DN>;
+  constexpr int NSUB = Tile::NSUB;
+  constexpr int KSTEPS = Tile::KP / 16;
 
-template <int KD>
-__host__ __device__ constexpr size_t mma_smem_elems() {
-  // q, k and v tiles [64][16*KD + 8]; the +8 padding makes the fragment
-  // loads (32-bit and ldmatrix) bank-conflict free.
-  return (size_t)(kMmaBQ + 2 * kMmaBK) * (KD * 16 + 8);
-}
-
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A a0:(g, 2t..2t+1) a1:(g+8, 2t..) a2:(g, 2t+8..) a3:(g+8, 2t+8..)
-//   B b0:(k=2t..2t+1, n=g) b1:(k=2t+8.., n=g)
-//   C c0,c1:(g, 2t..2t+1) c2,c3:(g+8, 2t..2t+1)
-template <typename T, int KD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, float* __restrict__ lse, int N, int M, int H, int D,
-                     long long q_sb, long long q_sn, long long q_sh, long long k_sb,
-                     long long k_sm, long long k_sh, long long v_sb, long long v_sm,
-                     long long v_sh, float scale_log2) {
-  constexpr int DP = KD * 16;  // head dim padded to the mma's k
-  constexpr int PCH = DP / 8;  // 16-byte chunks per padded row
-  constexpr int ND = DP / 8;   // 8-column tiles of the output
-  constexpr int QS = DP + 8;   // row stride of the q, k and v tiles
-
-  extern __shared__ float4 smem4[];
-  T* sQ = reinterpret_cast<T*>(smem4);
-  T* sK = sQ + kMmaBQ * QS;
-  T* sV = sK + kMmaBK * QS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align_1024(smem_raw);
+  uint8_t* sK = sQ + Tile::Q_BYTES;
+  uint8_t* sV = sK + kStages * Tile::KV_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kStages * Tile::KV_BYTES);
+  uint64_t* bar_q = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.x * kMmaBQ;
-  const int dch = D / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int q0 = blockIdx.x * kBQ;
+  const int ntiles = (kv_len + kTileKeys - 1) / kTileKeys;
 
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
-
-  for (int idx = tid; idx < kMmaBQ * PCH; idx += kThreads) {
-    const int r = idx / PCH;
-    const int c = idx - r * PCH;
-    const int n = q0 + r;
-    const uint4 val = (n < N && c < dch)
-                          ? *reinterpret_cast<const uint4*>(qb + (long long)n * q_sn + c * 8)
-                          : zero;
-    *reinterpret_cast<uint4*>(sQ + r * QS + c * 8) = val;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
+    }
+    mbar_fence_init();
   }
   __syncthreads();
-  uint32_t qa[KD][4];
-  {
-    const T* qw = sQ + (warp * 16 + g) * QS + tq * 2;
-#pragma unroll
-    for (int ks = 0; ks < KD; ++ks) {
-      qa[ks][0] = ld32(qw + ks * 16);
-      qa[ks][1] = ld32(qw + 8 * QS + ks * 16);
-      qa[ks][2] = ld32(qw + ks * 16 + 8);
-      qa[ks][3] = ld32(qw + 8 * QS + ks * 16 + 8);
-    }
-  }
 
-  float acc[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < M; k0 += kMmaBK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < kMmaBK * PCH; idx += kThreads) {
-      const int r = idx / PCH;
-      const int c = idx - r * PCH;
-      const int m = k0 + r;
-      uint4 kv = zero, vv = zero;
-      if (m < M && c < dch) {
-        kv = *reinterpret_cast<const uint4*>(kb + (long long)m * k_sm + c * 8);
-        vv = *reinterpret_cast<const uint4*>(vb + (long long)m * v_sm + c * 8);
-      }
-      *reinterpret_cast<uint4*>(sK + r * QS + c * 8) = kv;
-      *reinterpret_cast<uint4*>(sV + r * QS + c * 8) = vv;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const T* kr = sK + (nt * 8 + g) * QS + tq * 2;
-#pragma unroll
-      for (int ks = 0; ks < KD; ++ks)
-        Mma<T>::run(s[nt], qa[ks], ld32(kr + ks * 16), ld32(kr + ks * 16 + 8));
-    }
-
-    // Online softmax in log2 units; rows g (i = 0) and g + 8 (i = 1).
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + tq * 2 + (e & 1);
-        const float x = key < M ? s[nt][e] * scale_log2 : -INFINITY;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+  if (tid < kWgThreads) {
+    // Producer warpgroup: one thread keeps the K/V ring full.
+    reg_dealloc<40>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(bar_q, Tile::Q_BYTES);
+      tma_load_tile<NSUB>(sQ, kBQ, &map_q, h, q0, b, bar_q);
+      for (int j = 0; j < ntiles; ++j) {
+        const int stage = j % kStages;
+        const uint32_t phase = (j / kStages) & 1;
+        mbar_wait(empty + stage, phase ^ 1);
+        mbar_arrive_expect_tx(full + stage, 2 * Tile::KV_BYTES);
+        tma_load_tile<NSUB>(sK + stage * Tile::KV_BYTES, kTileKeys, &map_k, h, j * kTileKeys, b,
+                            full + stage);
+        tma_load_tile<NSUB>(sV + stage * Tile::KV_BYTES, kTileKeys, &map_v, h, j * kTileKeys, b,
+                            full + stage);
       }
     }
-    float alpha[2], lsum[2] = {0.f, 0.f};
+  } else {
+    reg_alloc<232>();
+    const int wg = tid / kWgThreads - 1;  // 0, 1: query rows 64 wg .. 64 wg + 63
+    const int t = tid % kWgThreads;
+    const int warp = t >> 5;
+    const int lane = t & 31;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    const uint32_t q_addr = smem_u32(sQ) + wg * 64 * kRowBytes;
+
+    float acc[DN / 2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i]);  // finite: key k0 is valid
-      alpha[i] = exp2f(m_run[i] - m_new);
-      m_run[i] = m_new;
-    }
+    for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};
+    float s[kTileKeys / 2];             // the tile's scores, then its probabilities
+    uint32_t pa[kTileKeys / 16][4];     // P of the previous tile as A fragments
+    float alpha[2];
+
+    // Q's fragments stay in registers where the accumulator leaves room, so
+    // that the score product reads only K from shared memory.
+    constexpr bool kQInRegs = DN <= 64;
+    uint32_t qa[kQInRegs ? KSTEPS : 1][4];
+    // S = Q K^T of the tile in `stage`: 64 rows x 128 keys (asynchronous).
+    auto start_qk = [&](int stage) {
+      const uint32_t k_addr = smem_u32(sK) + stage * Tile::KV_BYTES;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m_run[e >> 1]);
-        s[nt][e] = p;
-        lsum[e >> 1] += p;
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        const uint32_t off = (ks & 3) * 32;
+        const uint64_t kd = desc_k_major(k_addr + (ks >> 2) * kTileKeys * kRowBytes + off);
+        if constexpr (kQInRegs)
+          WgmmaRS<kTileKeys>::template run<T, 0>(s, qa[ks], kd, ks > 0);
+        else
+          WgmmaSS<kTileKeys>::template run<T, 0>(
+              s, desc_k_major(q_addr + (ks >> 2) * kBQ * kRowBytes + off), kd, ks > 0);
       }
+      wgmma_commit();
+    };
+    // acc += P V with the tile in `stage`, P from `pa` (asynchronous).
+    auto start_pv = [&](int stage) {
+      const uint32_t v_addr = smem_u32(sV) + stage * Tile::KV_BYTES;
+#pragma unroll
+      for (int ks = 0; ks < kTileKeys / 16; ++ks)
+        WgmmaRS<DN>::template run<T, 1>(
+            acc, pa[ks], desc_mn_major(v_addr + ks * 16 * kRowBytes, kTileKeys * kRowBytes), 1);
+      wgmma_commit();
+    };
+    // Online softmax of tile j in log2 units, rows g (e = 0) and g + 8
+    // (e = 1): s becomes P, m_run and l_run move on, alpha is what the
+    // accumulator must be scaled by.  Touches neither acc nor pa.
+    auto softmax = [&](int j) {
+      if (j == ntiles - 1 && kv_len - j * kTileKeys < kTileKeys) {
+        const int left = kv_len - j * kTileKeys;  // >= 1: the tile's first key is valid
+#pragma unroll
+        for (int i = 0; i < kTileKeys / 2; ++i)
+          if ((i >> 2) * 8 + tq * 2 + (i & 1) >= left) s[i] = -INFINITY;
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < kTileKeys / 2; i += 4) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[i], s[i + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[i + 2], s[i + 3]));
+      }
+      float neg_m[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+        const float m_new = fmaxf(m_run[e], mx[e] * scale_log2);  // finite
+        alpha[e] = fast_exp2(m_run[e] - m_new);
+        m_run[e] = m_new;
+        neg_m[e] = -m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < kTileKeys / 2; ++i) {
+        const int e = (i >> 1) & 1;
+        s[i] = fast_exp2(fmaf(s[i], scale_log2, neg_m[e]));
+        lsum[e] += s[i];
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) l_run[e] = l_run[e] * alpha[e] + lsum[e];
+    };
+    // Scale the accumulator and turn s into the next P.V's A fragments.
+    auto rescale_and_pack = [&]() {
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int ks = 0; ks < kTileKeys / 16; ++ks) acc_to_a<T>(pa[ks], s, ks);
+    };
+
+    // Software pipeline over the tiles: S of tile j and P.V of tile j - 1
+    // are in flight together, and the softmax of tile j runs under P.V.
+    turn_init(wg);
+    mbar_wait(bar_q, 0);
+    if constexpr (kQInRegs)
+      load_a_fragments<KSTEPS>(qa, sQ, kBQ * kRowBytes, wg * 64 + warp * 16);
+    mbar_wait(full, 0);
+    turn_wait(wg);
+    wgmma_fence();
+    start_qk(0);
+    turn_pass(wg);
+    wgmma_wait<0>();
+    pin(s);
+    softmax(0);
+    rescale_and_pack();
+    for (int j = 1; j < ntiles; ++j) {
+      const int stage = j % kStages;
+      const int prev = (j - 1) % kStages;
+      mbar_wait(full + stage, (j / kStages) & 1);
+      pin(pa);
+      pin(acc);
+      turn_wait(wg);
+      wgmma_fence();
+      start_qk(stage);
+      start_pv(prev);
+      turn_pass(wg);
+      wgmma_wait<1>();  // S is there
+      pin(s);
+      softmax(j);
+      wgmma_wait<0>();  // P.V is done
+      pin(acc);
+      if (lane == 0) mbar_arrive(empty + prev);
+      rescale_and_pack();
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + lsum[i];
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      acc[nd][0] *= alpha[0];
-      acc[nd][1] *= alpha[0];
-      acc[nd][2] *= alpha[1];
-      acc[nd][3] *= alpha[1];
+    {
+      const int last = (ntiles - 1) % kStages;
+      pin(pa);
+      pin(acc);
+      turn_wait(wg);
+      wgmma_fence();
+      start_pv(last);
+      turn_pass(wg);
+      wgmma_wait<0>();
+      pin(acc);
+      if (lane == 0) mbar_arrive(empty + last);
     }
 
-    // acc += P V, P taken from the score accumulator 16 keys at a time.
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const uint32_t pa[4] = {
-          Mma<T>::pack(s[2 * t][0], s[2 * t][1]), Mma<T>::pack(s[2 * t][2], s[2 * t][3]),
-          Mma<T>::pack(s[2 * t + 1][0], s[2 * t + 1][1]),
-          Mma<T>::pack(s[2 * t + 1][2], s[2 * t + 1][3])};
+    for (int e = 0; e < 2; ++e) {
+      l_run[e] += __shfl_xor_sync(0xffffffffu, l_run[e], 1);
+      l_run[e] += __shfl_xor_sync(0xffffffffu, l_run[e], 2);
+    }
 #pragma unroll
-      for (int nd = 0; nd < ND; nd += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, sV + (t * 16 + (lane & 15)) * QS + (nd + (lane >> 4)) * 8);
-        Mma<T>::run(acc[nd], pa, bv[0], bv[1]);
-        Mma<T>::run(acc[nd + 1], pa, bv[2], bv[3]);
+    for (int e = 0; e < 2; ++e) {
+      const int n = q0 + wg * 64 + warp * 16 + g + 8 * e;
+      if (n >= N) continue;
+      const float inv = 1.f / l_run[e];
+      T* orow = o + (((long long)b * N + n) * H + h) * D;
+#pragma unroll
+      for (int jn = 0; jn < DN / 8; ++jn) {
+        const int d = jn * 8 + tq * 2;
+        if (d < D)
+          *reinterpret_cast<uint32_t*>(orow + d) =
+              pack2<T>(acc[4 * jn + 2 * e] * inv, acc[4 * jn + 2 * e + 1] * inv);
       }
+      if (tq == 0) lse[(long long)bh * N + n] = (m_run[e] + log2f(l_run[e])) * kLn2;
     }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int n = q0 + warp * 16 + g + 8 * i;
-    if (n >= N) continue;
-    const float inv = 1.f / l_run[i];
-    T* orow = o + (((long long)b * N + n) * H + h) * D;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const int d = nd * 8 + tq * 2;
-      if (d < D)
-        *reinterpret_cast<uint32_t*>(orow + d) =
-            Mma<T>::pack(acc[nd][2 * i] * inv, acc[nd][2 * i + 1] * inv);
-    }
-    if (tq == 0) lse[(long long)bh * N + n] = (m_run[i] + log2f(l_run[i])) * kLn2;
   }
 }
 
-template <typename T, int KD>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                       int N, int M, int H, int D, const long long* qs, const long long* ks,
-                       const long long* vs, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * mma_smem_elems<KD>();
-  auto kernel = flash_fwd_mma_kernel<T, KD>;
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid((N + kMmaBQ - 1) / kMmaBQ, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, N, M, H, D, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0],
-      vs[1], vs[2], scale * kLog2e);
-  return cudaGetLastError();
-}
-
-
-// Wide tensor-core variant (128 < D <= 512, i.e. the VAE mid block's single
-// head): the 4 warps share 16 query rows and split the head dim.  Each warp
-// computes the scores over its quarter of D, the partials are summed through
-// shared memory in a fixed order (so every warp holds identical scores and
-// softmax state), and each warp accumulates its quarter of the output.
-constexpr int kWideBQ = 16;
-
-template <int DP>
-__host__ __device__ constexpr size_t wide_smem_bytes(size_t elem) {
-  return elem * (size_t)(kWideBQ + 2 * kMmaBK) * (DP + 8) + sizeof(float) * kWarps * 32 * 32;
-}
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                          int N, int M, int H, int D, long long q_sb, long long q_sn,
-                          long long q_sh, long long k_sb, long long k_sm, long long k_sh,
-                          long long v_sb, long long v_sm, long long v_sh, float scale_log2) {
-  constexpr int PCH = DP / 8;
-  constexpr int QS = DP + 8;
-  constexpr int DW = DP / kWarps;  // head columns per warp
-  constexpr int KDW = DW / 16;     // k-steps of a warp's score slice
-  constexpr int NDW = DW / 8;      // output column tiles per warp
-
-  extern __shared__ float4 smem4[];
-  T* sQ = reinterpret_cast<T*>(smem4);               // [16][QS]
-  T* sK = sQ + kWideBQ * QS;                          // [64][QS]
-  T* sV = sK + kMmaBK * QS;                           // [64][QS]
-  float* sS = reinterpret_cast<float*>(sV + kMmaBK * QS);  // [warp][32 values][32 lanes]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * kWideBQ;
-  const int dch = D / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
-
-  for (int idx = tid; idx < kWideBQ * PCH; idx += kThreads) {
-    const int r = idx / PCH;
-    const int c = idx - r * PCH;
-    const int n = q0 + r;
-    const uint4 val = (n < N && c < dch)
-                          ? *reinterpret_cast<const uint4*>(qb + (long long)n * q_sn + c * 8)
-                          : zero;
-    *reinterpret_cast<uint4*>(sQ + r * QS + c * 8) = val;
-  }
-  __syncthreads();
-  uint32_t qa[KDW][4];
-  {
-    const T* qw = sQ + g * QS + warp * DW + tq * 2;
-#pragma unroll
-    for (int ks = 0; ks < KDW; ++ks) {
-      qa[ks][0] = ld32(qw + ks * 16);
-      qa[ks][1] = ld32(qw + 8 * QS + ks * 16);
-      qa[ks][2] = ld32(qw + ks * 16 + 8);
-      qa[ks][3] = ld32(qw + 8 * QS + ks * 16 + 8);
-    }
-  }
-
-  float acc[NDW][4];
-#pragma unroll
-  for (int nd = 0; nd < NDW; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < M; k0 += kMmaBK) {
-    __syncthreads();  // the previous tile (and its partial scores) is consumed
-    for (int idx = tid; idx < kMmaBK * PCH; idx += kThreads) {
-      const int r = idx / PCH;
-      const int c = idx - r * PCH;
-      const int m = k0 + r;
-      uint4 kv = zero, vv = zero;
-      if (m < M && c < dch) {
-        kv = *reinterpret_cast<const uint4*>(kb + (long long)m * k_sm + c * 8);
-        vv = *reinterpret_cast<const uint4*>(vb + (long long)m * v_sm + c * 8);
-      }
-      *reinterpret_cast<uint4*>(sK + r * QS + c * 8) = kv;
-      *reinterpret_cast<uint4*>(sV + r * QS + c * 8) = vv;
-    }
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const T* kr = sK + (nt * 8 + g) * QS + warp * DW + tq * 2;
-#pragma unroll
-      for (int ks = 0; ks < KDW; ++ks)
-        Mma<T>::run(s[nt], qa[ks], ld32(kr + ks * 16), ld32(kr + ks * 16 + 8));
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sS[(warp * 32 + nt * 4 + e) * 32 + lane] = s[nt][e];
-    }
-    __syncthreads();
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) x += sS[(w * 32 + nt * 4 + e) * 32 + lane];
-        const int key = k0 + nt * 8 + tq * 2 + (e & 1);
-        x = key < M ? x * scale_log2 : -INFINITY;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2], lsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i]);
-      alpha[i] = exp2f(m_run[i] - m_new);
-      m_run[i] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m_run[e >> 1]);
-        s[nt][e] = p;
-        lsum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + lsum[i];
-#pragma unroll
-    for (int nd = 0; nd < NDW; ++nd) {
-      acc[nd][0] *= alpha[0];
-      acc[nd][1] *= alpha[0];
-      acc[nd][2] *= alpha[1];
-      acc[nd][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const uint32_t pa[4] = {
-          Mma<T>::pack(s[2 * t][0], s[2 * t][1]), Mma<T>::pack(s[2 * t][2], s[2 * t][3]),
-          Mma<T>::pack(s[2 * t + 1][0], s[2 * t + 1][1]),
-          Mma<T>::pack(s[2 * t + 1][2], s[2 * t + 1][3])};
-#pragma unroll
-      for (int nd = 0; nd < NDW; nd += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, sV + (t * 16 + (lane & 15)) * QS + warp * DW +
-                                  (nd + (lane >> 4)) * 8);
-        Mma<T>::run(acc[nd], pa, bv[0], bv[1]);
-        Mma<T>::run(acc[nd + 1], pa, bv[2], bv[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int n = q0 + g + 8 * i;
-    if (n >= N) continue;
-    const float inv = 1.f / l_run[i];
-    T* orow = o + (((long long)b * N + n) * H + h) * D;
-#pragma unroll
-    for (int nd = 0; nd < NDW; ++nd) {
-      const int d = warp * DW + nd * 8 + tq * 2;
-      if (d < D)
-        *reinterpret_cast<uint32_t*>(orow + d) =
-            Mma<T>::pack(acc[nd][2 * i] * inv, acc[nd][2 * i + 1] * inv);
-    }
-    if (warp == 0 && tq == 0) lse[(long long)bh * N + n] = (m_run[i] + log2f(l_run[i])) * kLn2;
-  }
-}
-
-template <typename T, int DP>
-cudaError_t launch_mma_wide(const void* q, const void* k, const void* v, void* o, float* lse,
-                            int B, int N, int M, int H, int D, const long long* qs,
-                            const long long* ks, const long long* vs, float scale,
-                            cudaStream_t stream) {
-  const size_t smem = wide_smem_bytes<DP>(sizeof(T));
-  auto kernel = flash_fwd_mma_wide_kernel<T, DP>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <typename T, int DN>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                         int N, int M, int H, int D, const long long* qs, const long long* ks,
+                         const long long* vs, float scale, cudaStream_t stream) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = make_tensor_map(&mq, bf16, q, B, N, H, D, qs[0], qs[1], qs[2], kBQ);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + kWideBQ - 1) / kWideBQ, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, N, M, H, D, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0],
-      vs[1], vs[2], scale * kLog2e);
+  err = make_tensor_map(&mk, bf16, k, B, M, H, D, ks[0], ks[1], ks[2], kTileKeys);
+  if (err != cudaSuccess) return err;
+  err = make_tensor_map(&mv, bf16, v, B, M, H, D, vs[0], vs[1], vs[2], kTileKeys);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_wgmma_kernel<T, DN>;
+  constexpr int smem = FwdTile<DN>::SMEM;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + kBQ - 1) / kBQ, B * H);
+  kernel<<<grid, kCtaThreads, smem, stream>>>(mq, mk, mv, static_cast<T*>(o), lse, N, M, H, D,
+                                               scale * kLog2e);
   return cudaGetLastError();
 }
 
-// The tensor-core variants take 16-byte loads of whole 8-element chunks.
-bool mma_eligible(const void* q, const void* k, const void* v, int D, const long long* qs,
-                  const long long* ks, const long long* vs) {
+// Wide form, 128 < D <= 512 (the VAE mid block's single d = 512 head).  One
+// CTA owns 64 query rows; its two consumer warpgroups each own half of the
+// output's head dim (64 x DP/2 fp32 in registers).  For each 64-key tile
+// warpgroup w computes the scores of keys 32 w .. 32 w + 31 over the whole
+// head dim, the two exchange their row maxima through shared memory, and
+// each writes its half of P (rounded to T) into one shared [64][64] tile;
+// both then accumulate P . V over their half of V's columns.  K and V have
+// one buffer each, with barriers of their own, so the next K tile loads
+// under P . V and the next V tile under Q . K^T.
+constexpr int kWideRows = 64;
+constexpr int kWideKeys = 64;
+
+template <int DP> struct WideTile {
+  static constexpr int NSUB = DP / kSubCols;
+  static constexpr int TILE_BYTES = NSUB * kWideRows * kRowBytes;  // each of Q, K, V
+  static constexpr int P_BYTES = kWideRows * kRowBytes;
+  static constexpr int SMEM = 1024 + 3 * TILE_BYTES + P_BYTES + 2 * kWideRows * 4 + 64;
+};
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kCtaThreads, 1)
+flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v, T* __restrict__ o,
+                            float* __restrict__ lse, int N, int kv_len, int H, int D,
+                            float scale_log2) {
+  using Tile = WideTile<DP>;
+  constexpr int NSUB = Tile::NSUB;
+  constexpr int DH = DP / 2;  // output columns per consumer warpgroup
+  constexpr int SUB_BYTES = kWideRows * kRowBytes;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align_1024(smem_raw);
+  uint8_t* sK = sQ + Tile::TILE_BYTES;
+  uint8_t* sV = sK + Tile::TILE_BYTES;
+  uint8_t* sP = sV + Tile::TILE_BYTES;
+  float* sX = reinterpret_cast<float*>(sP + Tile::P_BYTES);  // [2][64] row maxima / sums
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sX + 2 * kWideRows);
+  uint64_t* bar_q = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* k_empty = bars + 2;
+  uint64_t* v_full = bars + 3;
+  uint64_t* v_empty = bars + 4;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * kWideRows;
+  const int ntiles = (kv_len + kWideKeys - 1) / kWideKeys;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    mbar_init(k_empty, kConsumerWarps);
+    mbar_init(v_empty, kConsumerWarps);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < kWgThreads) {
+    reg_dealloc<40>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(bar_q, Tile::TILE_BYTES);
+      tma_load_tile<NSUB>(sQ, kWideRows, &map_q, h, q0, b, bar_q);
+      for (int j = 0; j < ntiles; ++j) {
+        const uint32_t phase = j & 1;
+        mbar_wait(k_empty, phase ^ 1);
+        mbar_arrive_expect_tx(k_full, Tile::TILE_BYTES);
+        tma_load_tile<NSUB>(sK, kWideKeys, &map_k, h, j * kWideKeys, b, k_full);
+        mbar_wait(v_empty, phase ^ 1);
+        mbar_arrive_expect_tx(v_full, Tile::TILE_BYTES);
+        tma_load_tile<NSUB>(sV, kWideKeys, &map_v, h, j * kWideKeys, b, v_full);
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int wg = tid / kWgThreads - 1;  // keys 32 wg .. of a tile; output columns DH wg ..
+    const int t = tid % kWgThreads;
+    const int warp = t >> 5;
+    const int lane = t & 31;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    const int row0 = warp * 16 + g;  // this thread's rows: row0, row0 + 8
+    const uint32_t q_addr = smem_u32(sQ);
+    const uint32_t k_addr = smem_u32(sK) + wg * 32 * kRowBytes;
+    const uint32_t v_addr = smem_u32(sV) + wg * (NSUB / 2) * SUB_BYTES;
+    const uint32_t p_addr = smem_u32(sP);
+
+    float acc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};
+
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < ntiles; ++j) {
+      const uint32_t phase = j & 1;
+      mbar_wait(k_full, phase);
+      float s[16];  // 64 rows x this warpgroup's 32 keys
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {
+        const uint32_t off = (ks >> 2) * SUB_BYTES + (ks & 3) * 32;
+        WgmmaSS<32>::template run<T, 0>(s, desc_k_major(q_addr + off), desc_k_major(k_addr + off),
+                                        ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(k_empty);
+
+      const int left = kv_len - j * kWideKeys - wg * 32;  // valid keys of this half; may be <= 0
+      if (left < 32) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          if ((i >> 2) * 8 + tq * 2 + (i & 1) >= left) s[i] = -INFINITY;
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 16; i += 4) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[i], s[i + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[i + 2], s[i + 3]));
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+        if (tq == 0) sX[wg * kWideRows + row0 + 8 * e] = mx[e];
+      }
+      // Both halves' maxima are written; the previous tile's P is consumed.
+      named_barrier_sync(1, 2 * kWgThreads);
+      float alpha[2], neg_m[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float other = sX[(1 - wg) * kWideRows + row0 + 8 * e];
+        const float m_new = fmaxf(m_run[e], fmaxf(mx[e], other) * scale_log2);  // finite
+        alpha[e] = fast_exp2(m_run[e] - m_new);
+        m_run[e] = m_new;
+        neg_m[e] = -m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int e = (i >> 1) & 1;
+        s[i] = fast_exp2(fmaf(s[i], scale_log2, neg_m[e]));
+        lsum[e] += s[i];
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) l_run[e] = l_run[e] * alpha[e] + lsum[e];
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          *reinterpret_cast<uint32_t*>(
+              sP + swizzled_offset(row0 + 8 * e, wg * 32 + jn * 8 + tq * 2)) =
+              pack2<T>(s[4 * jn + 2 * e], s[4 * jn + 2 * e + 1]);
+      }
+      fence_proxy_async();
+      // P is whole; the maxima are consumed.
+      named_barrier_sync(2, 2 * kWgThreads);
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      mbar_wait(v_full, phase);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kWideKeys / 16; ++ks)
+        WgmmaSS<DH>::template run<T, 1>(
+            acc, desc_k_major(p_addr + ks * 32),
+            desc_mn_major(v_addr + ks * 16 * kRowBytes, SUB_BYTES), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(v_empty);
+    }
+
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      l_run[e] += __shfl_xor_sync(0xffffffffu, l_run[e], 1);
+      l_run[e] += __shfl_xor_sync(0xffffffffu, l_run[e], 2);
+    }
+    named_barrier_sync(1, 2 * kWgThreads);  // the last tile's maxima are consumed
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (tq == 0) sX[wg * kWideRows + row0 + 8 * e] = l_run[e];
+    named_barrier_sync(2, 2 * kWgThreads);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = q0 + row0 + 8 * e;
+      if (n >= N) continue;
+      const float l = l_run[e] + sX[(1 - wg) * kWideRows + row0 + 8 * e];
+      const float inv = 1.f / l;
+      T* orow = o + (((long long)b * N + n) * H + h) * D + wg * DH;
+#pragma unroll
+      for (int jn = 0; jn < DH / 8; ++jn) {
+        const int d = jn * 8 + tq * 2;
+        if (wg * DH + d < D)
+          *reinterpret_cast<uint32_t*>(orow + d) =
+              pack2<T>(acc[4 * jn + 2 * e] * inv, acc[4 * jn + 2 * e + 1] * inv);
+      }
+      if (wg == 0 && tq == 0) lse[(long long)bh * N + n] = (m_run[e] + log2f(l)) * kLn2;
+    }
+  }
+}
+
+template <typename T, int DP>
+cudaError_t launch_wgmma_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                              int B, int N, int M, int H, int D, const long long* qs,
+                              const long long* ks, const long long* vs, float scale,
+                              cudaStream_t stream) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = make_tensor_map(&mq, bf16, q, B, N, H, D, qs[0], qs[1], qs[2], kWideRows);
+  if (err != cudaSuccess) return err;
+  err = make_tensor_map(&mk, bf16, k, B, M, H, D, ks[0], ks[1], ks[2], kWideKeys);
+  if (err != cudaSuccess) return err;
+  err = make_tensor_map(&mv, bf16, v, B, M, H, D, vs[0], vs[1], vs[2], kWideKeys);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_wgmma_wide_kernel<T, DP>;
+  constexpr int smem = WideTile<DP>::SMEM;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + kWideRows - 1) / kWideRows, B * H);
+  kernel<<<grid, kCtaThreads, smem, stream>>>(mq, mk, mv, static_cast<T*>(o), lse, N, M, H, D,
+                                               scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// The wgmma variants load through TMA: whole 16-byte chunks of the head dim,
+// 16-byte aligned bases, strides in whole chunks.
+bool wgmma_eligible(const void* q, const void* k, const void* v, int D, const long long* qs,
+                    const long long* ks, const long long* vs) {
   if (D > 512 || D % 8 != 0) return false;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) & 15)
@@ -761,33 +794,38 @@ bool mma_eligible(const void* q, const void* k, const void* v, int D, const long
   return true;
 }
 
+enum Variant { kCudaCores = 0, kWgmma = 1, kWgmmaWide = 2 };
+
 template <typename T>
-cudaError_t dispatch_kd(const void* q, const void* k, const void* v, void* o, float* lse,
-                        int B, int N, int M, int H, int D, const long long* qs,
-                        const long long* ks, const long long* vs, float scale,
-                        cudaStream_t stream) {
-  if (D > 256) return launch_mma_wide<T, 512>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream);
-  if (D > 128) return launch_mma_wide<T, 256>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream);
-  const int kd = (D + 15) / 16;
-  if (kd <= 2) return launch_mma<T, 2>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream);
-  if (kd <= 3) return launch_mma<T, 3>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream);
-  if (kd <= 4) return launch_mma<T, 4>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream);
-  if (kd <= 5) return launch_mma<T, 5>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream);
-  if (kd <= 6) return launch_mma<T, 6>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream);
-  return launch_mma<T, 8>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream);
+cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                           int B, int N, int M, int H, int D, const long long* qs,
+                           const long long* ks, const long long* vs, float scale,
+                           cudaStream_t stream) {
+#define TB_ARGS q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream
+  if (D > 256) return launch_wgmma_wide<T, 512>(TB_ARGS);
+  if (D > 128) return launch_wgmma_wide<T, 256>(TB_ARGS);
+  if (D <= 16) return launch_wgmma<T, 16>(TB_ARGS);
+  if (D <= 32) return launch_wgmma<T, 32>(TB_ARGS);
+  if (D <= 40) return launch_wgmma<T, 40>(TB_ARGS);
+  if (D <= 64) return launch_wgmma<T, 64>(TB_ARGS);
+  if (D <= 80) return launch_wgmma<T, 80>(TB_ARGS);
+  return launch_wgmma<T, 128>(TB_ARGS);
+#undef TB_ARGS
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 float16, 2 bfloat16.  Strides are in elements:
 // (batch, sequence, head) for each of q, k, v; the head dim has stride 1.
-// Returns the launch's cudaError_t (0 on success).
+// M is the number of keys attended to (kv_len).  Writes to *variant which
+// kernel serves the call: 0 CUDA cores, 1 wgmma (D <= 128), 2 wgmma wide
+// (128 < D <= 512).  Returns the launch's cudaError_t (0 on success).
 extern "C" int tb_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                       void* o, void* lse, int B, int N, int M, int H, int D,
                                       long long q_sb, long long q_sn, long long q_sh,
                                       long long k_sb, long long k_sm, long long k_sh,
                                       long long v_sb, long long v_sm, long long v_sh,
-                                      float scale, void* stream) {
+                                      float scale, void* stream, int* variant) {
   if (B <= 0 || N <= 0 || M <= 0 || H <= 0 || D <= 0 || D > 512 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   const long long qs[3] = {q_sb, q_sn, q_sh};
@@ -795,15 +833,16 @@ extern "C" int tb_flash_attention_fwd(int dtype, const void* q, const void* k, c
   const long long vs[3] = {v_sb, v_sm, v_sh};
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wgmma = dtype != 0 && wgmma_eligible(q, k, v, D, qs, ks, vs);
+  *variant = !wgmma ? kCudaCores : D > 128 ? kWgmmaWide : kWgmma;
   switch (dtype) {
     case 0: return (int)dispatch_nc<float>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
     case 1:
-      if (mma_eligible(q, k, v, D, qs, ks, vs))
-        return (int)dispatch_kd<__half>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
+      if (wgmma) return (int)dispatch_wgmma<__half>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
       return (int)dispatch_nc<__half>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
     case 2:
-      if (mma_eligible(q, k, v, D, qs, ks, vs))
-        return (int)dispatch_kd<__nv_bfloat16>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
+      if (wgmma)
+        return (int)dispatch_wgmma<__nv_bfloat16>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
       return (int)dispatch_nc<__nv_bfloat16>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }

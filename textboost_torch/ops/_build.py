@@ -3,9 +3,10 @@
 Each source in `textboost_torch/csrc/` is compiled by `nvcc` into its own
 shared library with a plain C interface and loaded with ctypes (no PyTorch
 headers, so a build takes seconds).  Libraries go to `csrc/build/`, named by
-a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Builds happen at first use, never at import, and
-`build()` starts one `nvcc` per source at once.
+a hash of the source, of the `csrc/` headers it includes (directly or
+through another header) and of the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.  Builds happen at first use, never
+at import, and `build()` starts one `nvcc` per source at once.
 
 A missing `nvcc` or a failed build raises: there is no fallback.
 """
@@ -14,11 +15,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -36,7 +38,7 @@ _c_ptr, _c_int, _c_float, _c_ll = (
 SIGNATURES = {
     "flash_attention_fwd.cu": {
         "tb_flash_attention_fwd": [_c_int] + [_c_ptr] * 5 + [_c_int] * 5
-        + [_c_ll] * 9 + [_c_float, _c_ptr],
+        + [_c_ll] * 9 + [_c_float, _c_ptr, ctypes.POINTER(_c_int)],
     },
     "flash_attention_bwd.cu": {
         "tb_flash_attention_bwd": [_c_int] + [_c_ptr] * 10 + [_c_int] * 6
@@ -68,10 +70,27 @@ def find_nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(source: str) -> List[str]:
+    """Names of the `csrc/` files that `source` includes with quotes,
+    directly or through one of them, sorted."""
+    seen, todo = set(), [source]
+    while todo:
+        for name in _INCLUDE.findall((CSRC / todo.pop()).read_bytes()):
+            name = name.decode()
+            if name not in seen and (CSRC / name).is_file():
+                seen.add(name)
+                todo.append(name)
+    return sorted(seen)
+
+
 def library_path(source: str) -> Path:
-    text = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [source] + included_headers(source):
+        digest.update(b"\0" + name.encode() + b"\0" + (CSRC / name).read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:

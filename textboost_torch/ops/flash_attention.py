@@ -7,8 +7,18 @@ Forward: `csrc/flash_attention_fwd.cu` replaces the Pallas TPU kernel
 input dtype, lse fp32 [B, H, N] (natural log).  Backward:
 `csrc/flash_attention_bwd.cu` replaces `_bwd_fused_kernel` (`_bwd`): from
 q, k, v, o, lse and dO it returns (dq, dk, dv) in the input dtype, with P
-rebuilt from lse.  Keys at or past `kv_len` are masked inside both kernels
-(and get zero gradients).
+rebuilt from lse, in two kernels without atomics, so two calls on the same
+inputs give the same bits.  Keys at or past `kv_len` are masked inside both
+kernels (and get zero gradients).
+
+The kernels are written for Hopper (`csrc/hopper.cuh` holds what they
+share): every product is a wgmma from a ring of K/V (or Q/dO) tiles that a
+producer warpgroup fills by TMA, with two consumer warpgroups per CTA.  The
+forward serves bf16/fp16 whose head dim, strides and base addresses are
+whole 16-byte chunks this way ("wgmma" for D <= 128, "wgmma_wide" up to
+512); fp32, other head dims and unaligned views take its CUDA-core variant
+("cuda_cores").  The C entry point owns that rule and reports its choice;
+`variant_counts` records which variant served each launch.
 
 `flash_attention` is the differentiable entry: with a gradient it runs the
 kernels through `FlashAttentionFunction`.  The backward's envelope is
@@ -20,6 +30,8 @@ raises.  `launches` and `bwd_launches` count kernel launches.
 """
 from __future__ import annotations
 
+import collections
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -32,8 +44,20 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 MAX_HEAD_DIM = 512
 BWD_MAX_HEAD_DIM = 128
 
+# The forward's variants, by the code the C entry point reports.
+VARIANTS = ("cuda_cores", "wgmma", "wgmma_wide")
+
 launches = 0
 bwd_launches = 0
+# Forward launches by the variant that served them.
+variant_counts: "collections.Counter[str]" = collections.Counter()
+
+
+def _chunk_aligned(t: torch.Tensor) -> bool:
+    """Whether TMA can read t in place: contiguous head dim, strides in whole
+    16-byte chunks, 16-byte aligned base."""
+    return (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
 
 
 def supports_flash(n_q: int, n_kv: int, d: int) -> bool:
@@ -106,6 +130,7 @@ def flash_attention_forward(
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     lib = _build.load(SOURCE)
+    variant = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tb_flash_attention_fwd(
@@ -114,11 +139,12 @@ def flash_attention_forward(
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            float(scale), stream,
+            float(scale), stream, ctypes.byref(variant),
         )
     _build.check(rc, "flash_attention_fwd")
     global launches
     launches += 1
+    variant_counts[VARIANTS[variant.value]] += 1
     return o, lse
 
 
@@ -165,11 +191,9 @@ def check_backward_envelope(q: torch.Tensor) -> None:
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
     """t itself when the backward kernel can read it in place (contiguous
     head dim, strides in whole 16-byte chunks, 16-byte aligned), else a
-    contiguous copy."""
-    if (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1])
-            and t.data_ptr() % 16 == 0):
-        return t
-    return t.contiguous()
+    contiguous copy (a clone: `contiguous()` would hand back a dense view
+    whose base is off a 16-byte boundary as it is)."""
+    return t if _chunk_aligned(t) else t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_backward(
