@@ -19,7 +19,14 @@ with the launch counts set to 0 just before and read just after:
     `textboost_torch.inference.generate`.
 
 Before them: one sd15 UNet forward and one sd15 train step (batch 2) with
-the kernels and with plain math.  It checks the outputs, that each path
+the kernels and with plain math.  The GroupNorm kernels are held against
+their plain versions at every GroupNorm shape of both paths (derived from
+the config by running the models on the meta device, and checked against
+the calls the run makes), two calls must be bit-identical, and a plain
+version that drops one cluster rank's partial sums must fail the limits;
+a table gives each shape's plan, L2-warm and L2-cold times, bytes moved,
+bound and `F.group_norm` time, with launch-weighted sums per generate call
+and per train step.  It checks the outputs, that each path
 launched each kernel exactly as often as the model spec says and that every
 flash forward launch went through a wgmma variant, then prints
 the card (name and power limit from nvidia-smi), one JSON line of
@@ -509,36 +516,302 @@ def train_step_parity(gen, instance_dir: str, output_dir: str):
     return out, shapes
 
 
-def check_group_norm_backward(gen, shapes, batch: int):
-    """K4 against its plain version at every (shape, groups, eps, silu) of
-    the UNet's training backward, at `batch`; returns ({key: ms}, max
-    |error|)."""
+def group_norm_calls(model: str):
+    """The GroupNorm calls of the port's main paths at `model`'s full width,
+    found by running its UNet and VAE on the meta device (shapes only: no
+    memory, no arithmetic), at the main paths' batches: the UNet at 8 (four
+    seeds under CFG; the train step), the VAE decoder at 4, the encoder at 8.
+    Returns {"unet": one UNet forward, "unet_backward": the UNet norms a
+    train step's backward runs through (those downstream of the text, the
+    trainable input), "decode": one VAE decode, "encode": one VAE encode},
+    each a Counter of (shape, groups, eps, silu) -> calls."""
+    import torch
+
+    from textboost_torch.models.configs import get_spec
+    from textboost_torch.models.layers import GroupNorm, set_impl
+    from textboost_torch.models.unet import UNet2DCondition
+    from textboost_torch.models.vae import AutoencoderKL
+
+    spec = get_spec(model)
+    with torch.device("meta"):
+        unet, vae = UNet2DCondition(spec.unet), AutoencoderKL(spec.vae)
+    calls = {name: collections.Counter() for name in ("unet", "unet_backward", "decode", "encode")}
+    part = ["unet"]
+
+    def record(mod, args):
+        key = (tuple(args[0].shape), mod.num_groups, mod.eps, mod.silu)
+        calls[part[0]][key] += 1
+        if args[0].requires_grad:
+            calls["unet_backward"][key] += 1
+
+    for net in (unet, vae):
+        net.requires_grad_(False)
+        set_impl(net, "math")  # the kernels take no meta tensors
+        for m in net.modules():
+            if isinstance(m, GroupNorm):
+                m.register_forward_pre_hook(record)
+    s, r, meta = spec.unet.sample_size, spec.resolution, torch.device("meta")
+    ctx = torch.empty(8, 77, spec.unet.cross_attention_dim, device=meta, requires_grad=True)
+    unet(torch.empty(8, spec.unet.in_channels, s, s, device=meta),
+         torch.zeros(8, dtype=torch.long, device=meta), ctx)
+    with torch.no_grad():
+        part[0] = "decode"
+        vae.decode(torch.empty(4, spec.vae.latent_channels, s, s, device=meta))
+        part[0] = "encode"
+        vae.encode_moments(torch.empty(8, 3, r, r, device=meta))
+    return calls
+
+
+def drop_last_rank(t, plan, groups: int):
+    """`t` [B, C, *spatial] with the last cluster rank's chunk of every
+    (sample, group) span set to 0, and that chunk's first element.  Given
+    x so changed (or, backward, dy), the plain GroupNorm sums only what a
+    kernel that leaves out the last rank's partial sums adds up; before
+    that element its output is that kernel's output."""
+    start = (plan.cluster - 1) * plan.chunk
+    spans = t.reshape(t.shape[0], groups, -1).clone()
+    spans[..., start:] = 0
+    return spans.reshape(t.shape), start
+
+
+def group_norm_bound(shape, groups: int, backward: bool) -> dict:
+    """The bound of one GroupNorm launch over a bf16 `shape`: x (and dy) read
+    once, y (or dx) written once, gamma and beta read, mean and rstd written
+    (or read); about 8 fp32 operations per element forward, 20 backward."""
+    b, c = shape[:2]
+    numel = math.prod(shape)
+    nbytes = (3 if backward else 2) * numel * 2 + 2 * c * 4 + 2 * b * groups * 4
+    floors = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
+              "operations": (20 if backward else 8) * numel / H100_FP32_FLOPS * 1e3}
+    name = max(floors, key=floors.get)
+    return {"bytes": nbytes, "bound_ms": floors[name], "bound_by": name}
+
+
+L2_ROTATE_BYTES = 100 * 2**20  # inputs rotated over twice the 50 MB L2 for the L2-cold times
+
+
+def group_norm_table(gen, keys, launches: dict, backward: bool):
+    """K3 (or K4, `backward`) at each (shape, groups, eps, silu) of `keys`,
+    bf16: against its plain version under the GroupNorm limits, two calls
+    bit-identical; its plan; its time L2-warm (the same inputs again) and
+    L2-cold (inputs rotated over more than the L2); where the plan holds the
+    chunk in registers, also the L2-warm time of the plan that holds it in
+    shared memory instead (checked against the plain version too); the
+    library's time (`F.group_norm`; backward:
+    `aten.native_group_norm_backward`, the input gradient F.group_norm's
+    autograd runs; neither has the SiLU); its bound; for a streamed plan the
+    bytes it reads twice by design.  `launches[key]` is {path: launches}.
+    Returns ({key: row}, max |error|)."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from textboost_torch.ops import group_norm as gn
+
+    dev, bf16 = gen.device, torch.bfloat16
+    tag = "group_norm_bwd" if backward else "group_norm"
+    library = "native_group_norm_backward" if backward else "F.group_norm"
+    k_max = gn.max_cluster_of(gn.BWD_SOURCE if backward else gn.SOURCE)
+    planner = gn.plan_group_norm
+    rows, worst = {}, 0.0
+    for key in sorted(keys):
+        shape, groups, eps, silu = key
+        b, c = shape[:2]
+        hw = math.prod(shape[2:])
+        plan = planner(b, c, groups, hw, bf16, backward, k_max)
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(bf16)
+        ga = torch.randn(c, generator=gen, device=dev) * 0.2 + 1
+        be = torch.randn(c, generator=gen, device=dev) * 0.1
+        if backward:
+            dy = torch.randn(shape, generator=gen, device=dev).to(bf16)
+            _, mu, rs = gn.group_norm_forward(x, ga, be, groups, eps=eps, silu=silu)
+            ref = gn.group_norm_backward_reference(x, ga, be, mu, rs, dy, groups, eps, silu).float()
+
+            def kernel(xx, dd):
+                return gn.group_norm_backward(xx, ga, be, mu, rs, dd, groups, eps, silu)
+
+            def check(out):
+                err = (out.float() - ref).abs()
+                return err, bool((err <= GN_BWD_ATOL + GN_BWD_RTOL * ref.abs()).all())
+
+            inputs = (x, dy)
+            # The library's input gradient: the op F.group_norm's autograd runs.
+            ga16, be16 = ga.to(bf16), be.to(bf16)
+            _, lmu, lrs = torch.ops.aten.native_group_norm(x, ga16, be16, b, c, hw, groups, eps)
+            library_ms = cuda_ms(lambda: torch.ops.aten.native_group_norm_backward(
+                dy, x, lmu, lrs, ga16, b, c, hw, groups, [True, False, False]), 10)
+            del lmu, lrs
+        else:
+            ry, rmu, rrs = gn.group_norm_reference(x, ga, be, groups, eps, silu)
+            ry = ry.float()
+
+            def kernel(xx):
+                return gn.group_norm_forward(xx, ga, be, groups, eps=eps, silu=silu)
+
+            def check(out):
+                err = (out[0].float() - ry).abs()
+                ok = bool((err <= GN_ATOL + GN_RTOL * ry.abs()).all())
+                ok &= bool(((out[1] - rmu).abs() <= GN_STAT_RTOL * rmu.abs() + 1e-6).all())
+                ok &= bool(((out[2] - rrs).abs() <= GN_STAT_RTOL * rrs).all())
+                return err, ok
+
+            inputs = (x,)
+            ga16, be16 = ga.to(bf16), be.to(bf16)
+            library_ms = cuda_ms(lambda: F.group_norm(x, groups, ga16, be16, eps), 10)
+        out, again = kernel(*inputs), kernel(*inputs)
+        torch.cuda.synchronize()
+        pairs = zip(out, again) if isinstance(out, tuple) else [(out, again)]
+        same = all(torch.equal(u, v) for u, v in pairs)
+        err, ok = check(out)
+        if not ok:
+            raise AssertionError(f"{tag} disagrees with its plain version at {key}")
+        if not same:
+            raise AssertionError(f"two calls of {tag} on the same inputs differ at {key}")
+        worst = max(worst, err.max().item())
+        del out, again, err
+        warm = cuda_ms(lambda: kernel(*inputs), 10)
+        shared_ms = None
+        if plan.regs:
+            shared = gn.split_span(plan.span, plan.elem_bytes, plan.tensors, plan.vector,
+                                   plan.cluster, registers=False)
+            gn.plan_group_norm = lambda *args, **kwargs: shared
+            try:
+                if not check(kernel(*inputs))[1]:
+                    raise AssertionError(f"{tag} in shared memory disagrees with its plain "
+                                         f"version at {key}")
+                shared_ms = cuda_ms(lambda: kernel(*inputs), 10)
+            finally:
+                gn.plan_group_norm = planner
+        in_bytes = sum(t.numel() * t.element_size() for t in inputs)
+        copies = [tuple(t.clone() for t in inputs)
+                  for _ in range(max(2, -(-L2_ROTATE_BYTES // in_bytes)))]
+        rotation = itertools.cycle(copies)
+        cold = cuda_ms(lambda: kernel(*next(rotation)), max(10, len(copies)))
+        del copies, rotation
+        rows[key] = {"plan": plan, "ms": warm, "cold_ms": cold, "shared_memory_ms": shared_ms,
+                     "library_ms": library_ms, **group_norm_bound(shape, groups, backward),
+                     "launches": launches[key]}
+        shared_note = "" if shared_ms is None else f" (in shared memory {shared_ms:.4f})"
+        print(f"[{tag}] {'x'.join(map(str, shape))} G={groups} eps={eps:g} silu={int(silu)}: "
+              f"k={plan.cluster} {holds(plan)} {plan.threads} thr; ms {warm:.4f} warm"
+              f"{shared_note} {cold:.4f} cold; bound_ms {rows[key]['bound_ms']:.4f} "
+              f"({rows[key]['bytes']} bytes); {library} {library_ms:.4f}; launches "
+              f"{launches[key]}", flush=True)
+        if plan.streamed:
+            print(f"[{tag} plan] {'x'.join(map(str, shape))}: streamed, re-reads "
+                  f"{plan.reread_bytes(b, groups)} bytes by design (the plan's arithmetic, "
+                  f"not measured)", flush=True)
+        del x, inputs
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def register_sums(rows: dict, path: str) -> dict:
+    """Launch-weighted ms per `path` of the shapes whose plan holds the chunk
+    in registers, with registers and with the same plan in shared memory."""
+    held = [r for r in rows.values() if r["shared_memory_ms"] is not None]
+    return {"launches": sum(r["launches"].get(path, 0) for r in held),
+            "registers_ms": sum(r["launches"].get(path, 0) * r["ms"] for r in held),
+            "shared_memory_ms": sum(r["launches"].get(path, 0) * r["shared_memory_ms"]
+                                    for r in held)}
+
+
+def holds(plan) -> str:
+    """Where a GroupNorm plan keeps its chunk between the sums and the output."""
+    if plan.regs:
+        return f"registers x{plan.regs}"
+    return "streamed" if plan.streamed else "shared memory"
+
+
+def group_norm_json(row: dict) -> dict:
+    """The numbers of one row of `group_norm_table` for the kernels line."""
+    plan = row["plan"]
+    return {"ms": row["ms"], "cold_ms": row["cold_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "cluster": plan.cluster, "holds": holds(plan)}
+
+
+HOST_CALLS = 3000
+
+
+def group_norm_host_us(gen) -> dict:
+    """Host microseconds per call of the GroupNorm launch plan, built anew
+    (`plan_group_norm.__wrapped__`) and from its cache, and of the forward
+    wrapper with each, at the UNet's 8x1280x8x8 (its kernel, a few us,
+    keeps up with the host, so the loop's time on the host's clock is the
+    host's): two rounds, in the order new, cached, cached, new."""
+    import torch
+
+    from textboost_torch.ops import group_norm as gn
+
+    cached = gn.plan_group_norm
+    built = {"new": cached.__wrapped__, "cached": cached}
+    args = (8, 1280, 32, 64, torch.bfloat16, False, gn.max_cluster_of(gn.SOURCE))
+    x = torch.randn(8, 1280, 8, 8, generator=gen, device=gen.device).to(torch.bfloat16)
+    ga, be = torch.ones(1280, device=gen.device), torch.zeros(1280, device=gen.device)
+    out = {f"{what}_{name}": [] for what in ("plan", "forward") for name in built}
+    try:
+        for name in ("new", "cached", "cached", "new"):
+            plan = built[name]
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                plan(*args)
+            out[f"plan_{name}"].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+            gn.plan_group_norm = plan
+            with torch.no_grad():
+                for _ in range(100):
+                    gn.group_norm_forward(x, ga, be, 32)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(HOST_CALLS):
+                    gn.group_norm_forward(x, ga, be, 32)
+                out[f"forward_{name}"].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+                torch.cuda.synchronize()
+    finally:
+        gn.plan_group_norm = cached
+    return {key: sum(v) / len(v) for key, v in out.items()}
+
+
+def group_norm_control(gen, key, backward: bool) -> None:
+    """The GroupNorm limits must fail a kernel that leaves out one cluster
+    rank's partial sums, at `key`'s shape: the plain version given x (or,
+    backward, dy) with that rank's chunks set to 0 (`drop_last_rank`),
+    compared where its output is that kernel's."""
     import torch
 
     from textboost_torch.ops import group_norm as gn
 
     dev, bf16 = gen.device, torch.bfloat16
-    times, worst = {}, 0.0
-    for shp, groups, eps, silu in sorted(shapes):
-        shape = (batch,) + shp
-        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(bf16)
+    shape, groups, eps, silu = key
+    b, c = shape[:2]
+    plan = gn.plan_group_norm(b, c, groups, math.prod(shape[2:]), bf16, backward,
+                              gn.max_cluster_of(gn.BWD_SOURCE if backward else gn.SOURCE))
+    if plan.cluster < 2:
+        raise AssertionError(f"the control needs a split span; the plan at {key} has one CTA")
+    x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(bf16)
+    ga = torch.randn(c, generator=gen, device=dev) * 0.2 + 1
+    be = torch.randn(c, generator=gen, device=dev) * 0.1
+    if backward:
         dy = torch.randn(shape, generator=gen, device=dev).to(bf16)
-        ga = torch.randn(shape[1], generator=gen, device=dev) * 0.2 + 1
-        be = torch.randn(shape[1], generator=gen, device=dev) * 0.1
-        _, mu, rs = gn.group_norm_forward(x, ga, be, groups, eps=eps, silu=silu)
-        dx = gn.group_norm_backward(x, ga, be, mu, rs, dy, groups, eps, silu)
-        torch.cuda.synchronize()
-        ref = gn.group_norm_backward_reference(x, ga, be, mu, rs, dy, groups, eps, silu).float()
-        err = (dx.float() - ref).abs()
-        if not bool((err <= GN_BWD_ATOL + GN_BWD_RTOL * ref.abs()).all()):
-            raise AssertionError(f"group norm backward disagrees with its plain version at "
-                                 f"{shape, groups, eps, silu}")
-        worst = max(worst, err.max().item())
-        times[(shape, groups, eps, silu)] = cuda_ms(
-            lambda: gn.group_norm_backward(x, ga, be, mu, rs, dy, groups, eps, silu), 10)
-    print(f"[group_norm_bwd] {len(times)} distinct (shape, groups, eps, silu) of the UNet's "
-          f"training backward at batch {batch} agree; max|dx err| {worst:.3g}", flush=True)
-    return times, worst
+        _, mu, rs = gn.group_norm_reference(x, ga, be, groups, eps, silu)
+        ref = gn.group_norm_backward_reference(x, ga, be, mu, rs, dy, groups, eps, silu)
+        dropped, start = drop_last_rank(dy, plan, groups)
+        got = gn.group_norm_backward_reference(x, ga, be, mu, rs, dropped, groups, eps, silu)
+        atol, rtol = GN_BWD_ATOL, GN_BWD_RTOL
+    else:
+        ref = gn.group_norm_reference(x, ga, be, groups, eps, silu)[0]
+        dropped, start = drop_last_rank(x, plan, groups)
+        got = gn.group_norm_reference(dropped, ga, be, groups, eps, silu)[0]
+        atol, rtol = GN_ATOL, GN_RTOL
+    ref, got = (t.float().reshape(b, groups, -1)[..., :start] for t in (ref, got))
+    passes = bool(((got - ref).abs() <= atol + rtol * ref.abs()).all())
+    print(f"[{'group_norm_bwd' if backward else 'group_norm'}] control at {key}: rank "
+          f"{plan.cluster - 1} of {plan.cluster} dropped, max|err| "
+          f"{(got - ref).abs().max().item():.3g}; fails the limits: {not passes}", flush=True)
+    if passes:
+        raise AssertionError(f"the GroupNorm limits would pass a kernel that drops a cluster "
+                             f"rank's partial sums at {key}")
 
 
 def train_main_path(instance_dir: str, output_dir: str):
@@ -715,26 +988,48 @@ def main() -> int:
         raise AssertionError(f"VAE decode gave {tuple(images.shape)} / non-finite values")
     del out_kernel, out_math, images
 
-    gn_err, gn_shape_ms = 0.0, {}
-    for shape, eps, silu in sorted(set(seen["unet"]) | set(seen["vae"])):
-        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(bf16)
-        ga = torch.randn(shape[1], generator=gen, device=dev) * 0.2 + 1
-        be = torch.randn(shape[1], generator=gen, device=dev) * 0.1
-        y, mu, rs = gn.group_norm_forward(x, ga, be, 32, eps=eps, silu=silu)
-        torch.cuda.synchronize()
-        ry, rmu, rrs = gn.group_norm_reference(x, ga, be, 32, eps, silu)
-        ey = (y.float() - ry.float()).abs()
-        ok = bool((ey <= GN_ATOL + GN_RTOL * ry.float().abs()).all())
-        ok &= bool(((mu - rmu).abs() <= GN_STAT_RTOL * rmu.abs() + 1e-6).all())
-        ok &= bool(((rs - rrs).abs() <= GN_STAT_RTOL * rrs).all())
-        if not ok:
-            raise AssertionError(f"group norm disagrees with its plain version at {shape, eps, silu}")
-        gn_err = max(gn_err, ey.max().item())
-        gn_shape_ms[(shape, eps, silu)] = cuda_ms(
-            lambda: gn.group_norm_forward(x, ga, be, 32, eps=eps, silu=silu), 10)
-    print(f"[group_norm] {len(gn_shape_ms)} distinct (shape, eps, silu) of one UNet forward "
-          f"and one VAE decode agree; max|y err| {gn_err:.3g}", flush=True)
-    del x, y, ry
+    # GroupNorm forward (K3) at every shape of both main paths: the calls
+    # derived from the config must be those the run just made.
+    steps, seeds = 25, [0, 1, 2, 3]
+    calls = group_norm_calls("sd15")
+    for name, part in (("unet", "unet"), ("vae", "decode")):
+        derived = collections.Counter()
+        for (shape, _, eps, silu), n in calls[part].items():
+            derived[(shape, eps, silu)] += n
+        if derived != seen[name]:
+            raise AssertionError(f"the GroupNorm calls of one {name} pass derived from the "
+                                 f"config differ from the run's")
+    fwd_keys = set(calls["unet"]) | set(calls["decode"]) | set(calls["encode"])
+    gn_rows, gn_err = group_norm_table(gen, fwd_keys, {
+        key: {"generate": steps * calls["unet"][key] + calls["decode"][key],
+              "train_step": calls["unet"][key] + calls["encode"][key]} for key in fwd_keys},
+        backward=False)
+    level0 = ((8, 320, 64, 64), 32, 1e-5, True)  # ResnetBlock norm, UNet level 0
+    # The control needs a span split over a cluster: at level 0 the forward
+    # splits the up path's 640-channel norms.
+    group_norm_control(gen, ((8, 640, 64, 64), 32, 1e-5, True), backward=False)
+    gn_regs = {path: register_sums(gn_rows, path) for path in ("generate", "train_step")}
+    print(f"[group_norm registers] the {gn_regs['generate']['launches']} launches per generate "
+          f"whose plan holds the chunk in registers: {gn_regs['generate']['registers_ms']:.3f} "
+          f"ms, the same plans in shared memory {gn_regs['generate']['shared_memory_ms']:.3f} "
+          f"ms (L2-warm, launch-weighted)", flush=True)
+    gn_host = group_norm_host_us(gen)
+    print(f"[group_norm host] us per call at 8x1280x8x8 (host clock): plan built anew "
+          f"{gn_host['plan_new']:.2f}, from the cache {gn_host['plan_cached']:.2f}; forward "
+          f"wrapper with a new plan {gn_host['forward_new']:.2f}, with the cached one "
+          f"{gn_host['forward_cached']:.2f}", flush=True)
+    gn_sums = {path: {field: sum(r["launches"][path] * r[field] for r in gn_rows.values())
+                      for field in ("ms", "cold_ms", "bound_ms", "library_ms")}
+               for path in ("generate", "train_step")}
+    print(f"[group_norm] {len(gn_rows)} distinct (shape, groups, eps, silu) of sampling and "
+          f"training agree, two calls bit-identical; max|y err| {gn_err:.3g}; launch-weighted "
+          f"per generate ({sum(r['launches']['generate'] for r in gn_rows.values())} launches): "
+          f"{gn_sums['generate']['ms']:.3f} ms warm, {gn_sums['generate']['cold_ms']:.3f} cold, "
+          f"bound {gn_sums['generate']['bound_ms']:.3f}, F.group_norm "
+          f"{gn_sums['generate']['library_ms']:.3f}; per train step "
+          f"({sum(r['launches']['train_step'] for r in gn_rows.values())}): "
+          f"{gn_sums['train_step']['ms']:.3f} warm, {gn_sums['train_step']['cold_ms']:.3f} "
+          f"cold, bound {gn_sums['train_step']['bound_ms']:.3f}", flush=True)
 
     # 5. main path: inference.generate on a model dir ------------------------
     work = tempfile.TemporaryDirectory()
@@ -749,7 +1044,6 @@ def main() -> int:
     del bundle, te, unet, vae
     torch.cuda.empty_cache()
 
-    steps, seeds = 25, [0, 1, 2, 3]
     args = parse_args([work.name, "--model", "sd15", "--prompt", "photo of a <v*> dog",
                        "--seeds", *map(str, seeds), "--steps", str(steps),
                        "--guidance-scale", "7.5", "--lora-rank", "4"])
@@ -842,31 +1136,12 @@ def main() -> int:
     flash_ms = (steps * 5 * (fa_t["unet_level0_8x4096x8x40"]["ms"]
                              + fa_t["unet_level1_8x1024x8x80"]["ms"])
                 + fa_t["vae_mid_4x4096x1x512"]["ms"])
-    gn_call_ms = {name: sum(c * gn_shape_ms[key] for key, c in seen[name].items())
-                  for name in seen}
-    gn_total_ms = steps * gn_call_ms["unet"] + gn_call_ms["vae"]
-
-    shape, eps, silu = (8, 320, 64, 64), 1e-6, False  # Transformer2D norm, level 0
-    x = torch.randn(shape, generator=gen, device=dev).to(bf16)
+    main_key = ((8, 320, 64, 64), 32, 1e-6, False)  # Transformer2D norm, UNet level 0
+    x = torch.randn(main_key[0], generator=gen, device=dev).to(bf16)
     ga = torch.randn(320, generator=gen, device=dev) * 0.2 + 1
     be = torch.randn(320, generator=gen, device=dev) * 0.1
-    gn_ms = cuda_ms(lambda: gn.group_norm_forward(x, ga, be, 32, eps=eps, silu=silu), 20)
-    gn_plain = cuda_ms(lambda: gn.group_norm_reference(x, ga, be, 32, eps, silu), 10)
-    ga16, be16 = ga.to(bf16), be.to(bf16)
-    gn_lib = cuda_ms(lambda: F.group_norm(x, 32, ga16, be16, eps), 20)
-    gn_bytes = 2 * x.numel() * 2 + 2 * 320 * 4 + 2 * 8 * 32 * 4
-    gn_ops = 7 * x.numel()  # stats 3, normalize+affine 4 per element
-    gn_bound = max(gn_bytes / H100_BYTES_PER_S, gn_ops / H100_FP32_FLOPS) * 1e3
-    extra = {}
-    for name, (shp, e, s) in {"resnet_silu_8x320x64x64": ((8, 320, 64, 64), 1e-5, True),
-                              "vae_silu_4x128x512x512": ((4, 128, 512, 512), 1e-6, True)}.items():
-        xx = torch.randn(shp, generator=gen, device=dev).to(bf16)
-        g1, b1 = torch.ones(shp[1], device=dev), torch.zeros(shp[1], device=dev)
-        extra[name] = {
-            "ms": cuda_ms(lambda: gn.group_norm_forward(xx, g1, b1, 32, eps=e, silu=s), 10),
-            "bound_ms": 2 * xx.numel() * 2 / H100_BYTES_PER_S * 1e3,
-        }
-        del xx
+    gn_plain = cuda_ms(lambda: gn.group_norm_reference(x, ga, be, 32, 1e-6, False), 10)
+    del x
 
     # 7. flash backward vs fp32 autograd, and its times -----------------------
     flash_bwd_err = check_flash_backward(gen)
@@ -888,30 +1163,32 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 9. group norm backward vs its plain version, training shapes at batch 8 --
-    gn_bwd_shape_ms, gn_bwd_err = check_group_norm_backward(gen, gn_train_shapes, 8)
-    shape, eps = (8, 320, 64, 64), 1e-6  # Transformer2D norm, level 0, no SiLU
-    x = torch.randn(shape, generator=gen, device=dev).to(bf16)
-    dy = torch.randn(shape, generator=gen, device=dev).to(bf16)
-    ga = torch.randn(320, generator=gen, device=dev) * 0.2 + 1
-    be = torch.randn(320, generator=gen, device=dev) * 0.1
-    _, mu, rs = gn.group_norm_forward(x, ga, be, 32, eps=eps, silu=False)
-    xg, ga16, be16 = x.clone().requires_grad_(), ga.to(bf16), be.to(bf16)
-
-    def library_gn_fwd():
-        return F.group_norm(xg, 32, ga16, be16, eps)
-
-    gn_bwd_ms = cuda_ms(lambda: gn.group_norm_backward(x, ga, be, mu, rs, dy, 32, eps, False), 20)
+    if {(k[0][1:],) + k[1:] for k in calls["unet_backward"]} != gn_train_shapes:
+        raise AssertionError("the UNet norms of the train step's backward differ from those "
+                             "derived from the config")
+    gn_bwd_rows, gn_bwd_err = group_norm_table(
+        gen, set(calls["unet_backward"]),
+        {key: {"train_step": n} for key, n in calls["unet_backward"].items()}, backward=True)
+    group_norm_control(gen, level0, backward=True)
+    gn_bwd_sums = {field: sum(r["launches"]["train_step"] * r[field] for r in gn_bwd_rows.values())
+                   for field in ("ms", "cold_ms", "bound_ms", "library_ms")}
+    print(f"[group_norm_bwd] {len(gn_bwd_rows)} distinct (shape, groups, eps, silu) of the "
+          f"UNet's training backward at batch 8 agree, two calls bit-identical; max|dx err| "
+          f"{gn_bwd_err:.3g}; launch-weighted per train step "
+          f"({sum(calls['unet_backward'].values())} launches): {gn_bwd_sums['ms']:.3f} ms warm, "
+          f"{gn_bwd_sums['cold_ms']:.3f} cold, bound {gn_bwd_sums['bound_ms']:.3f}, "
+          f"native_group_norm_backward {gn_bwd_sums['library_ms']:.3f}", flush=True)
+    gn_bwd_regs = register_sums(gn_bwd_rows, "train_step")
+    print(f"[group_norm_bwd registers] the {gn_bwd_regs['launches']} launches per train step "
+          f"whose plan holds the chunks in registers: {gn_bwd_regs['registers_ms']:.3f} ms, "
+          f"the same plans in shared memory {gn_bwd_regs['shared_memory_ms']:.3f} ms (L2-warm, "
+          f"launch-weighted)", flush=True)
+    x = torch.randn(main_key[0], generator=gen, device=dev).to(bf16)
+    dy = torch.randn(main_key[0], generator=gen, device=dev).to(bf16)
+    _, mu, rs = gn.group_norm_forward(x, ga, be, 32, eps=1e-6, silu=False)
     gn_bwd_plain = cuda_ms(
-        lambda: gn.group_norm_backward_reference(x, ga, be, mu, rs, dy, 32, eps, False), 10)
-    gn_bwd_lib = (cuda_ms(lambda: torch.autograd.grad(library_gn_fwd(), xg, dy), 20)
-                  - cuda_ms(library_gn_fwd, 20))
-    gn_bwd_bytes = 3 * x.numel() * 2 + 2 * 320 * 4 + 2 * 8 * 32 * 4  # x, dy in; dx out
-    gn_bwd_ops = 12 * x.numel()  # two passes of x_hat, the sums, dx
-    gn_bwd_bound = max(gn_bwd_bytes / H100_BYTES_PER_S, gn_bwd_ops / H100_FP32_FLOPS) * 1e3
-    resnet_key = ((8, 320, 64, 64), 32, 1e-5, True)
-    gn_bwd_extra = {"resnet_silu_8x320x64x64": {
-        "ms": gn_bwd_shape_ms[resnet_key], "bound_ms": gn_bwd_bytes / H100_BYTES_PER_S * 1e3}}
-    del x, dy, xg, mu, rs
+        lambda: gn.group_norm_backward_reference(x, ga, be, mu, rs, dy, 32, 1e-6, False), 10)
+    del x, dy, mu, rs
 
     # 10. main path: textboost_torch.train.main, then sampling from its output -
     want = expected_train_launches(spec)
@@ -983,20 +1260,22 @@ def main() -> int:
          "source": "textboost_torch/csrc/group_norm_fwd.cu",
          "replaces": "textboost_tpu/ops/group_norm.py:58",
          "launches": launches["gn"], "max_abs_err": gn_err,
-         "ms": gn_ms, "plain_ms": gn_plain, "bound_ms": gn_bound,
-         "bound_by": "bytes" if gn_bytes / H100_BYTES_PER_S > gn_ops / H100_FP32_FLOPS else "operations",
-         "library_ms": gn_lib,
-         "shape": "8x320x64x64 bf16 G=32 eps=1e-6 silu=off", "other_shapes": extra, "per_generate_ms": gn_total_ms,
-         "train_launches": tr["launches"]["gn"]},
+         **group_norm_json(gn_rows[main_key]), "plain_ms": gn_plain,
+         "shape": "8x320x64x64 bf16 G=32 eps=1e-6 silu=off",
+         "other_shapes": {name: group_norm_json(gn_rows[key]) for name, key in (
+             ("resnet_silu_8x320x64x64", level0),
+             ("vae_silu_4x128x512x512", ((4, 128, 512, 512), 32, 1e-6, True)))},
+         "per_generate": gn_sums["generate"], "per_train_step": gn_sums["train_step"],
+         "train_launches": tr["launches"]["gn"], "registers": gn_regs,
+         "host_us_8x1280x8x8": gn_host},
         {"name": "group_norm_bwd", "route": "cuda",
          "source": "textboost_torch/csrc/group_norm_bwd.cu",
          "replaces": "textboost_tpu/ops/group_norm.py:93",
          "launches": tr["launches"]["gn_bwd"], "max_abs_err": gn_bwd_err,
-         "ms": gn_bwd_ms, "plain_ms": gn_bwd_plain, "bound_ms": gn_bwd_bound,
-         "bound_by": ("bytes" if gn_bwd_bytes / H100_BYTES_PER_S > gn_bwd_ops / H100_FP32_FLOPS
-                      else "operations"),
-         "library_ms": gn_bwd_lib,
-         "shape": "8x320x64x64 bf16 G=32 eps=1e-6 silu=off", "other_shapes": gn_bwd_extra,
+         **group_norm_json(gn_bwd_rows[main_key]), "plain_ms": gn_bwd_plain,
+         "shape": "8x320x64x64 bf16 G=32 eps=1e-6 silu=off",
+         "other_shapes": {"resnet_silu_8x320x64x64": group_norm_json(gn_bwd_rows[level0])},
+         "per_train_step": gn_bwd_sums, "registers": gn_bwd_regs,
          "launches_per_train_step": tr["launches"]["gn_bwd"] / TRAIN_STEPS},
     ], "sd15_images_per_s": len(seeds) / warm_s, "sd15_images_per_s_cold": len(seeds) / cold_s,
         "generate_ms": warm_s * 1e3, "load_ms": load_s * 1e3,

@@ -6,6 +6,8 @@ imports no JAX, so it also runs on a machine that has none:
 
     python -m pytest tests/test_torch_port_kernels.py -m cuda -q --noconftest
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -140,3 +142,70 @@ def test_backward_kernels_match_plain_versions_on_the_card():
             torch.testing.assert_close(dx, ref, atol=1e-5, rtol=1e-5)
         else:
             torch.testing.assert_close(dx.float(), ref.float(), atol=1e-3, rtol=2.0**-7)
+
+
+@pytest.mark.cuda
+def test_group_norm_cluster_plans_match_plain_versions_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (run on the card)")
+    g = torch.Generator("cuda").manual_seed(2)
+    fwd_k, bwd_k = gn.max_cluster_of(gn.SOURCE), gn.max_cluster_of(gn.BWD_SOURCE)
+    assert fwd_k >= 2 and bwd_k >= 2
+    # (shape, silu, storage offset of x in elements, what the plans must be):
+    # a span over several CTAs (UNet level 0), small spans held in
+    # registers over two CTAs and in one (UNet 16x16 and 8x8), a VAE decoder
+    # span in the shared memory of a cluster and one larger than its
+    # cluster's shared memory (streamed), spans whose HW % 8 != 0 (element
+    # by element, a chunk of 3 channels of 5x3), and a contiguous x that
+    # starts off a 16-byte boundary over a split span (element by element
+    # although HW % 8 == 0).
+    cases = (((2, 960, 64, 64), True, 0, lambda p: p.cluster > 1 and p.regs == 0),
+             ((1, 1280, 16, 16), False, 0, lambda p: p.cluster > 1 and p.regs > 0),
+             ((2, 1280, 8, 8), False, 0, lambda p: p.cluster == 1 and p.regs > 0),
+             ((1, 128, 512, 512), True, 0, lambda p: p.cluster > 1 and p.regs == 0),
+             ((1, 256, 512, 512), True, 0, lambda p: p.streamed),
+             ((2, 96, 5, 3), True, 0, lambda p: not p.vector),
+             ((1, 320, 33, 35), False, 0, lambda p: not p.vector and p.cluster > 1),
+             ((1, 640, 64, 64), True, 1, lambda p: not p.vector and p.cluster > 1))
+    for shape, silu, offset, want in cases:
+        b, c = shape[:2]
+        hw = shape[2] * shape[3]
+        plan = gn.plan_group_norm(b, c, 32, hw, torch.bfloat16, False, fwd_k, aligned=offset == 0)
+        assert want(plan), shape
+        x = torch.empty(b * c * hw + offset, device="cuda", dtype=torch.bfloat16)[offset:]
+        x = x.view(shape).copy_(torch.randn(shape, generator=g, device="cuda") * 2 + 0.5)
+        assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
+        dy = torch.randn(shape, generator=g, device="cuda").bfloat16()
+        gamma = torch.rand(c, generator=g, device="cuda") + 0.5
+        beta = torch.randn(c, generator=g, device="cuda")
+        y, mean, rstd = gn.group_norm_forward(x, gamma, beta, 32, eps=1e-6, silu=silu)
+        again = gn.group_norm_forward(x, gamma, beta, 32, eps=1e-6, silu=silu)
+        assert all(torch.equal(u, v) for u, v in zip((y, mean, rstd), again)), shape
+        ry, rmean, rrstd = gn.group_norm_reference(x, gamma, beta, 32, 1e-6, silu)
+        torch.testing.assert_close(y.float(), ry.float(), atol=1e-3, rtol=2.0**-7)
+        torch.testing.assert_close(mean, rmean, atol=1e-6, rtol=1e-4)
+        torch.testing.assert_close(rstd, rrstd, atol=0, rtol=1e-4)
+        dx = gn.group_norm_backward(x, gamma, beta, mean, rstd, dy, 32, 1e-6, silu)
+        assert torch.equal(dx, gn.group_norm_backward(x, gamma, beta, mean, rstd, dy, 32, 1e-6,
+                                                      silu)), shape
+        ref = gn.group_norm_backward_reference(x, gamma, beta, mean, rstd, dy, 32, 1e-6, silu)
+        torch.testing.assert_close(dx.float(), ref.float(), atol=1e-3, rtol=2.0**-7)
+    # A plan the C side finds inconsistent is refused, and the wrapper
+    # raises: chunks that leave the span's end uncovered, and 16-byte
+    # vectors over an x that starts off a 16-byte boundary.
+    x = torch.randn(2, 320, 16, 16, device="cuda").bfloat16()
+    x_off = torch.empty(x.numel() + 1, device="cuda", dtype=torch.bfloat16)[1:]
+    x_off = x_off.view(x.shape).copy_(x)
+    ones, zeros = torch.ones(320, device="cuda"), torch.zeros(320, device="cuda")
+    short = gn.split_span(10 * 256, 2, 1, True, 2)
+    short = dataclasses.replace(short, chunk=short.chunk // 2)
+    vector = gn.plan_group_norm(2, 320, 32, 256, torch.bfloat16, False, fwd_k)
+    assert vector.vector
+    real = gn.plan_group_norm
+    try:
+        for bad, xx in ((short, x), (vector, x_off)):
+            gn.plan_group_norm = lambda *args, bad=bad, **kwargs: bad
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                gn.group_norm_forward(xx, ones, zeros, 32)
+    finally:
+        gn.plan_group_norm = real

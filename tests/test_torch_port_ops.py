@@ -310,7 +310,9 @@ def test_the_flash_sources_hash_their_shared_header():
 
     for source in (fa.SOURCE, fa.BWD_SOURCE):
         assert _build.included_headers(source) == ["hopper.cuh"]
-    assert _build.included_headers("group_norm_fwd.cu") == []
+    # The GroupNorm kernels share their cluster body and reuse its mbarriers.
+    for source in (gn.SOURCE, gn.BWD_SOURCE):
+        assert _build.included_headers(source) == ["group_norm.cuh", "hopper.cuh"]
     # The forward reports the variant it chose through its last argument.
     assert _build.SIGNATURES[fa.SOURCE]["tb_flash_attention_fwd"][-1] == ctypes.POINTER(ctypes.c_int)
 

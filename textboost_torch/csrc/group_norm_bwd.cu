@@ -19,201 +19,144 @@
 // (sample, group) is one contiguous span (the TPU kernel's [C, G]
 // group-assignment matmuls are not needed).
 //
-// Bound on the card: bytes.  The least traffic is one read of x and dy and
-// one write of dx (about 20 operations per element, far below the card's
-// ~295 operations per byte).  dx needs the two group sums before any
-// element can be written, so this simple version reads x and dy twice: one
-// pass for the sums, one to write dx (1.67x the bound's bytes at worst; the
-// second pass often hits L2: at the UNet's level 0 a span of x and of dy is
-// 10 x 64 x 64 bf16 = 80 KB each, and the L2 holds 50 MB).
-//
-// Design: as the forward, one CTA of 1024 threads per (sample, group),
-// 16-byte vector loads and stores where the span allows, a warp-shuffle +
-// shared-memory block reduction for the two sums.
+// Bound on the card: bytes (about 20 operations per element).  dx needs the
+// two group sums before any element can be written; the cluster design of
+// group_norm.cuh keeps each CTA's chunk of x and dy in shared memory between
+// the sums and the output, so a resident span reads x and dy once and
+// writes dx once: the bound's bytes.  x_hat and dxh are computed twice (for
+// the sums, then for dx), which costs operations, not bytes.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-#include <stdint.h>
+#include "group_norm.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
+using gn::Plan;
 
-template <typename T> __device__ __forceinline__ float to_float(T x);
-template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_float<__half>(__half x) { return __half2float(x); }
-template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+template <bool SILU> struct BwdOp {
+  static constexpr int kTensors = 2;
+  static constexpr bool kStatsUseChannel = true;
+  float mean, rstd;
+  float m1 = 0.f, m2 = 0.f;  // mean_g(dxh), mean_g(dxh * x_hat)
 
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// 16 bytes of T, loaded and stored as one vector.
-template <typename T> struct alignas(16) Vec {
-  static constexpr int kN = 16 / sizeof(T);
-  T v[kN];
+  // (x_hat, dxh) of one element.
+  __device__ __forceinline__ void grad(float x, float dy, float ga, float be, float& xh,
+                                       float& dxh) const {
+    xh = (x - mean) * rstd;
+    if (SILU) {
+      const float z = xh * ga + be;
+      const float s = gn::fast_sigmoid(z);
+      dy = dy * s * (1.f + z * (1.f - s));
+    }
+    dxh = dy * ga;
+  }
+  __device__ __forceinline__ void sums(float x, float dy, float ga, float be, float& s1,
+                                       float& s2) const {
+    float xh, dxh;
+    grad(x, dy, ga, be, xh, dxh);
+    s1 += dxh;
+    s2 = fmaf(dxh, xh, s2);
+  }
+  __device__ __forceinline__ void finish(float t1, float t2, float inv_n, int, bool) {
+    m1 = t1 * inv_n;
+    m2 = t2 * inv_n;
+  }
+  __device__ __forceinline__ float out(float x, float dy, float ga, float be) const {
+    float xh, dxh;
+    grad(x, dy, ga, be, xh, dxh);
+    return rstd * (dxh - m1 - xh * m2);
+  }
 };
 
-__device__ __forceinline__ float block_sum(float x, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();  // red may still be read from a previous call
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  x = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;  // every thread holds the total
-}
-
-// (x_hat, dxh) of one element.
-template <bool SILU>
-__device__ __forceinline__ void grad_xhat(float x, float dy, float mean, float rstd, float g,
-                                          float b, float& xh, float& dxh) {
-  xh = (x - mean) * rstd;
-  if (SILU) {
-    const float z = xh * g + b;
-    const float s = 1.f / (1.f + __expf(-z));
-    dy = dy * s * (1.f + z * (1.f - s));
-  }
-  dxh = dy * g;
-}
-
-template <typename T, bool SILU>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, bool SILU, int V>
+__global__ void __launch_bounds__(gn::kMaxThreads)
 group_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                       const float* __restrict__ beta, const float* __restrict__ mean_in,
                       const float* __restrict__ rstd_in, const T* __restrict__ dy,
-                      T* __restrict__ dx, int C, int G, int HW) {
-  __shared__ float red[32];
-  const int bg = blockIdx.x;
-  const int b = bg / G;
-  const int g = bg - b * G;
-  const int cg = C / G;
-  const int span = cg * HW;
-  const long long base = ((long long)b * C + (long long)g * cg) * HW;
-  const T* xs = x + base;
-  const T* dys = dy + base;
-  T* dxs = dx + base;
-  const float mean = mean_in[bg];
-  const float rstd = rstd_in[bg];
-  const float* gam = gamma + g * cg;
-  const float* bet = beta + g * cg;
-  constexpr int kV = Vec<T>::kN;
-  // HW % kV == 0 keeps every vector inside one channel.
-  const bool vec = (HW % kV == 0) &&
-                   (((reinterpret_cast<uintptr_t>(xs) | reinterpret_cast<uintptr_t>(dys) |
-                      reinterpret_cast<uintptr_t>(dxs)) & 15) == 0);
-
-  // Pass 1: the two group sums.
-  float s1 = 0.f, s2 = 0.f;
-  if (vec) {
-    const Vec<T>* xv = reinterpret_cast<const Vec<T>*>(xs);
-    const Vec<T>* dyv = reinterpret_cast<const Vec<T>*>(dys);
-    for (int i = threadIdx.x; i < span / kV; i += kThreads) {
-      const int c = (i * kV) / HW;
-      const float ga = gam[c], be = bet[c];
-      const Vec<T> tx = xv[i];
-      const Vec<T> td = dyv[i];
-#pragma unroll
-      for (int e = 0; e < kV; ++e) {
-        float xh, dxh;
-        grad_xhat<SILU>(to_float<T>(tx.v[e]), to_float<T>(td.v[e]), mean, rstd, ga, be, xh, dxh);
-        s1 += dxh;
-        s2 = fmaf(dxh, xh, s2);
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < span; i += kThreads) {
-      const int c = i / HW;
-      float xh, dxh;
-      grad_xhat<SILU>(to_float<T>(xs[i]), to_float<T>(dys[i]), mean, rstd, gam[c], bet[c], xh,
-                      dxh);
-      s1 += dxh;
-      s2 = fmaf(dxh, xh, s2);
-    }
-  }
-  s1 = block_sum(s1, red);
-  s2 = block_sum(s2, red);
-  const float inv_n = 1.f / (float)span;
-  const float m1 = s1 * inv_n;  // mean_g(dxh)
-  const float m2 = s2 * inv_n;  // mean_g(dxh * x_hat)
-
-  // Pass 2: dx.
-  if (vec) {
-    const Vec<T>* xv = reinterpret_cast<const Vec<T>*>(xs);
-    const Vec<T>* dyv = reinterpret_cast<const Vec<T>*>(dys);
-    Vec<T>* dxv = reinterpret_cast<Vec<T>*>(dxs);
-    for (int i = threadIdx.x; i < span / kV; i += kThreads) {
-      const int c = (i * kV) / HW;
-      const float ga = gam[c], be = bet[c];
-      const Vec<T> tx = xv[i];
-      const Vec<T> td = dyv[i];
-      Vec<T> out;
-#pragma unroll
-      for (int e = 0; e < kV; ++e) {
-        float xh, dxh;
-        grad_xhat<SILU>(to_float<T>(tx.v[e]), to_float<T>(td.v[e]), mean, rstd, ga, be, xh, dxh);
-        out.v[e] = from_float<T>(rstd * (dxh - m1 - xh * m2));
-      }
-      dxv[i] = out;
-    }
-  } else {
-    for (int i = threadIdx.x; i < span; i += kThreads) {
-      const int c = i / HW;
-      float xh, dxh;
-      grad_xhat<SILU>(to_float<T>(xs[i]), to_float<T>(dys[i]), mean, rstd, gam[c], bet[c], xh,
-                      dxh);
-      dxs[i] = from_float<T>(rstd * (dxh - m1 - xh * m2));
-    }
-  }
+                      T* __restrict__ dx, int C, int G, int HW, Plan plan) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ gn::Scratch sh;
+  const int bg = blockIdx.x / plan.cluster;
+  BwdOp<SILU> op{mean_in[bg], rstd_in[bg]};
+  gn::span_body<V, T>(op, x, dy, dx, gamma, beta, C, G, HW, plan, smem, sh);
 }
 
-template <typename T>
+template <typename T, bool SILU, int V>
+cudaError_t launch_variant(const void* x, const float* gamma, const float* beta,
+                           const float* mean, const float* rstd, const void* dy, void* dx, int B,
+                           int C, int G, int HW, const Plan& plan, cudaStream_t stream) {
+  constexpr auto kernel = group_norm_bwd_kernel<T, SILU, V>;
+  cudaError_t err = gn::prepare<kernel>();
+  if (err != cudaSuccess) return err;
+  // 16-byte vectors need 16-byte aligned tensors (check_plan has the rest).
+  if (plan.vector && ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy) |
+                       reinterpret_cast<uintptr_t>(dx)) & 15) != 0)
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  gn::cluster_config(cfg, attr, B * G * plan.cluster, plan.cluster, plan.threads, plan.smem,
+                     stream);
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), gamma, beta, mean, rstd,
+                           static_cast<const T*>(dy), static_cast<T*>(dx), C, G, HW, plan);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The variant the plan names: its chunk in registers (16-bit types) or in
+// shared memory.
+template <typename T, bool SILU>
 cudaError_t launch(const void* x, const float* gamma, const float* beta, const float* mean,
                    const float* rstd, const void* dy, void* dx, int B, int C, int G, int HW,
-                   int silu, cudaStream_t stream) {
-  const dim3 grid(B * G);
-  if (silu) {
-    group_norm_bwd_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), gamma, beta, mean, rstd, static_cast<const T*>(dy),
-        static_cast<T*>(dx), C, G, HW);
-  } else {
-    group_norm_bwd_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), gamma, beta, mean, rstd, static_cast<const T*>(dy),
-        static_cast<T*>(dx), C, G, HW);
+                   const Plan& plan, cudaStream_t stream) {
+#define TB_GN_VARIANT(V) \
+  launch_variant<T, SILU, V>(x, gamma, beta, mean, rstd, dy, dx, B, C, G, HW, plan, stream)
+  if constexpr (sizeof(T) == 2) {
+    switch (plan.regs) {
+      case 1: return TB_GN_VARIANT(1);
+      case 2: return TB_GN_VARIANT(2);
+      case 4: return TB_GN_VARIANT(4);
+      default: break;
+    }
   }
-  return cudaGetLastError();
+  return TB_GN_VARIANT(0);
+#undef TB_GN_VARIANT
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 float16, 2 bfloat16.  x, dy and dx are [B, C, HW]
 // contiguous in one dtype; gamma/beta fp32 [C]; mean/rstd fp32 [B, G] from
-// the forward.  The caller checks that (C / G) * HW fits in an int.
-// Returns the launch's cudaError_t.
+// the forward.  The plan's fields come from
+// ops/group_norm.py::plan_group_norm(..., backward=True); an inconsistent
+// plan returns cudaErrorInvalidValue.  Returns the launch's cudaError_t.
 extern "C" int tb_group_norm_bwd(int dtype, const void* x, const void* gamma, const void* beta,
                                  const void* mean, const void* rstd, const void* dy, void* dx,
-                                 int B, int C, int G, int HW, int silu, void* stream) {
-  if (B <= 0 || C <= 0 || G <= 0 || HW <= 0 || C % G != 0) return (int)cudaErrorInvalidValue;
+                                 int B, int C, int G, int HW, int silu, int cluster, int chunk,
+                                 int resident, int threads, int smem, int regs, int vector,
+                                 void* stream) {
+  const Plan plan{cluster, chunk, resident, threads, smem, regs, vector};
+  const int elem = dtype == 0 ? 4 : 2;
+  if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
+  const cudaError_t ok = gn::check_plan(plan, B, C, G, HW, elem, 2);
+  if (ok != cudaSuccess) return (int)ok;
   const float* ga = static_cast<const float*>(gamma);
   const float* be = static_cast<const float*>(beta);
   const float* mu = static_cast<const float*>(mean);
   const float* rs = static_cast<const float*>(rstd);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TB_GN_BWD(T)                                                                          \
+  return (int)(silu ? launch<T, true>(x, ga, be, mu, rs, dy, dx, B, C, G, HW, plan, s)        \
+                    : launch<T, false>(x, ga, be, mu, rs, dy, dx, B, C, G, HW, plan, s))
   switch (dtype) {
-    case 0: return (int)launch<float>(x, ga, be, mu, rs, dy, dx, B, C, G, HW, silu, s);
-    case 1: return (int)launch<__half>(x, ga, be, mu, rs, dy, dx, B, C, G, HW, silu, s);
-    case 2: return (int)launch<__nv_bfloat16>(x, ga, be, mu, rs, dy, dx, B, C, G, HW, silu, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 0: TB_GN_BWD(float);
+    case 1: TB_GN_BWD(__half);
+    default: TB_GN_BWD(__nv_bfloat16);
   }
+#undef TB_GN_BWD
+}
+
+// How many clusters of `cluster` CTAs (`threads` threads, `smem` bytes of
+// dynamic shared memory each) of the backward kernel the card holds at once,
+// in *out (0: it cannot schedule one).
+extern "C" int tb_group_norm_bwd_active_clusters(int cluster, int threads, int smem, int* out) {
+  return (int)gn::active_clusters<group_norm_bwd_kernel<__nv_bfloat16, true, 0>>(cluster, threads,
+                                                                             smem, out);
 }

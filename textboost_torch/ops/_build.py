@@ -46,10 +46,12 @@ SIGNATURES = {
     },
     "group_norm_fwd.cu": {
         "tb_group_norm_fwd": [_c_int] + [_c_ptr] * 6 + [_c_int] * 4
-        + [_c_float, _c_int, _c_ptr],
+        + [_c_float] + [_c_int] * 8 + [_c_ptr],
+        "tb_group_norm_fwd_active_clusters": [_c_int] * 3 + [ctypes.POINTER(_c_int)],
     },
     "group_norm_bwd.cu": {
-        "tb_group_norm_bwd": [_c_int] + [_c_ptr] * 7 + [_c_int] * 5 + [_c_ptr],
+        "tb_group_norm_bwd": [_c_int] + [_c_ptr] * 7 + [_c_int] * 12 + [_c_ptr],
+        "tb_group_norm_bwd_active_clusters": [_c_int] * 3 + [ctypes.POINTER(_c_int)],
     },
 }
 
