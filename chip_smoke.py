@@ -7,7 +7,7 @@ Builds the CUDA kernels from textboost_torch/csrc/ (four: flash-attention
 forward and backward, GroupNorm forward and input-gradient backward) and
 holds each against its plain PyTorch version at the shapes sd15 gives it,
 and the two flash kernels also at shapes that cross their tiles' edges.
-Then it drives the port's two main paths through their entry points, each
+Then it drives the port's main paths through their entry points, each
 with the launch counts set to 0 just before and read just after:
 
   * sampling: `textboost_torch.inference.generate` on a model dir written
@@ -16,17 +16,30 @@ with the launch counts set to 0 just before and read just after:
   * training: `textboost_torch.train.main` for 10 steps (sd15, 512 px,
     batch 8, bf16, LoRA r=4, KPL 0.1, --augment none) on a synthetic
     instance image; its exported model dir then samples through
-    `textboost_torch.inference.generate`.
+    `textboost_torch.inference.generate`;
+  * the paper's run: `textboost_torch.train.main` with the flags of
+    `run_textboost_db.py::build_cmd` at sd21base (512 px, batch 8, bf16,
+    LoRA r=4, --augment pda --augment_p 0.5 --augment_inversion,
+    imagenet_small, null_prob 0.1, KPL 0.1, the runner's four validation
+    prompts, 4 images each), 10 steps with a checkpoint and a validation
+    grid every 5; then a second run resumes from a copy of its
+    checkpoint-5 to step 10 and must land on the same trajectory.  The
+    run records the shape of every kernel call; after it, each kernel is
+    held against its plain version at every shape the run gave it (the
+    validation rounds' UNet batch 32 and decoder batch 16 among them; the
+    GroupNorm calls must also be those derived from the config), and its
+    artifacts, the augmentation tokens in its captions, and the native
+    image ops against this machine's PIL are checked.
 
 Before them: one sd15 UNet forward and one sd15 train step (batch 2) with
 the kernels and with plain math.  The GroupNorm kernels are held against
-their plain versions at every GroupNorm shape of both paths (derived from
-the config by running the models on the meta device, and checked against
-the calls the run makes), two calls must be bit-identical, and a plain
-version that drops one cluster rank's partial sums must fail the limits;
-a table gives each shape's plan, L2-warm and L2-cold times, bytes moved,
-bound and `F.group_norm` time, with launch-weighted sums per generate call
-and per train step.  It checks the outputs, that each path
+their plain versions at every GroupNorm shape of the sd15 paths (derived
+from the config by running the models on the meta device, and checked
+against the calls the run makes), two calls must be bit-identical, and a
+plain version that drops one cluster rank's partial sums must fail the
+limits; a table gives each shape's plan, L2-warm and L2-cold times, bytes
+moved, bound and `F.group_norm` time, with launch-weighted sums per
+generate call and per train step.  It checks the outputs, that each path
 launched each kernel exactly as often as the model spec says and that every
 flash forward launch went through a wgmma variant, then prints
 the card (name and power limit from nvidia-smi), one JSON line of
@@ -44,10 +57,12 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 # Tolerances, bf16 inputs on the card.  Flash o is held to the plain version
 # computed in fp32 (not cast), as a relative L2 error over the whole output
@@ -80,6 +95,19 @@ GN_BWD_RTOL, GN_BWD_ATOL = 2.0**-7, 1e-3
 TRAIN_LOSS_REL = 1e-2
 TRAIN_GRAD_REL_L2 = 5e-2
 TRAIN_STEPS = 10
+# The paper's run at sd21base: steps, and the cadence of checkpoints and
+# validation rounds (cut from the sweep runner's 250 and 50).
+PAPER_STEPS = 10
+PAPER_CADENCE = 5
+PAPER_PROMPTS = ("photo of a <0>", "a <0> in the jungle", "a <0> in the bucket",
+                 "painting of a <0> in the Monet style")  # run_textboost_db.py::build_cmd
+PAPER_VALIDATION_IMAGES = 4  # --num_validation_images, the runner leaves the default
+# A run resumed from checkpoint-5 against the straight run, at step 10: the
+# loss within 1e-2 relative, the exported LoRA and added rows within 1e-2
+# relative L2.  cuDNN and cuBLAS may pick other algorithms in a new process,
+# so bit-identity is reported, not required (the CPU tests require it).
+RESUME_LOSS_REL = 1e-2
+RESUME_REL_L2 = 1e-2
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (H100 SXM)
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
@@ -297,17 +325,18 @@ def train_flags(instance_dir: str, output_dir: str, batch: int, steps: int):
             "--seed", "0"]
 
 
-def check_flash_backward(gen) -> float:
-    """K2 against fp32 autograd of plain attention at sd15's two training
-    shapes and one masked KV tail; returns the largest |error|."""
+def check_flash_backward(gen, shapes=((8, 4096, 8, 40, 4096, 4096), (8, 1024, 8, 80, 1024, 1024),
+                                       (2, 1024, 8, 64, 1024, 700))) -> float:
+    """K2 against fp32 autograd of plain attention at each (B, N, H, D, M,
+    kv_len) of `shapes` (by default sd15's two training shapes and one
+    masked KV tail); returns the largest |error|."""
     import torch
 
     from textboost_torch.ops import flash_attention as fa
 
     dev, bf16 = gen.device, torch.bfloat16
     worst = 0.0
-    for b, n, h, d, m, kv in ((8, 4096, 8, 40, 4096, 4096), (8, 1024, 8, 80, 1024, 1024),
-                              (2, 1024, 8, 64, 1024, 700)):
+    for b, n, h, d, m, kv in shapes:
         q, do = (torch.randn(b, n, h, d, generator=gen, device=dev).to(bf16) for _ in range(2))
         k, v = (torch.randn(b, m, h, d, generator=gen, device=dev).to(bf16) for _ in range(2))
         o, lse = fa.flash_attention_forward(q, k, v, scale=d**-0.5, kv_len=kv)
@@ -336,6 +365,43 @@ def check_flash_backward(gen) -> float:
               f"(limits {FLASH_BWD_REL_L2} / {FLASH_BWD_ROW_REL_L2}; control: first 64 keys "
               f"skipped): " + "; ".join(report) + "; two calls bit-identical", flush=True)
         del q, k, v, do, o, lse, grads, ref, control
+    return worst
+
+
+def check_flash_forward(gen, shapes) -> float:
+    """K1 against its plain version computed in fp32 at each (B, N, H, D, M)
+    of `shapes`, with the P-in-bf16 and dropped-tile controls printed; the
+    dropped tile must fail the limits.  Returns the largest |o error|."""
+    import torch
+
+    from textboost_torch.ops import flash_attention as fa
+
+    dev, bf16 = gen.device, torch.bfloat16
+    worst = 0.0
+    for b, n, h, d, m in shapes:
+        q = torch.randn(b, n, h, d, generator=gen, device=dev).to(bf16)
+        k = torch.randn(b, m, h, d, generator=gen, device=dev).to(bf16)
+        v = torch.randn(b, m, h, d, generator=gen, device=dev).to(bf16)
+        o, lse = fa.flash_attention_forward(q, k, v, scale=d**-0.5)
+        torch.cuda.synchronize()
+        ro, rl = fa.flash_attention_reference(q.float(), k.float(), v.float(), d**-0.5)
+        eo = (o.float() - ro).abs().max().item()
+        el = (lse - rl).abs().max().item()
+        rel, row = flash_errors(o, ro)
+        p_bf16 = flash_errors(attention_fp32(q, k, v, d**-0.5, p_dtype=bf16).to(bf16), ro)
+        dropped = flash_errors(attention_fp32(q, k, v, d**-0.5, drop_keys=64).to(bf16), ro)
+        print(f"[flash] B,N,H,D,M={b},{n},{h},{d},{m}: o rel L2 {rel:.3g} (limit "
+              f"{FLASH_REL_L2}), worst row {row:.3g} (limit {FLASH_ROW_REL_L2}), max|o err| "
+              f"{eo:.3g} of max|o| {ro.abs().max().item():.3g}, max|lse err| {el:.3g}; "
+              f"controls rel L2 / worst row: P in bf16 {p_bf16[0]:.3g} / {p_bf16[1]:.3g}, "
+              f"first 64 keys dropped {dropped[0]:.3g} / {dropped[1]:.3g}", flush=True)
+        if not (dropped[0] > FLASH_REL_L2 and dropped[1] > FLASH_ROW_REL_L2):
+            raise AssertionError("the flash limits would pass a kernel that drops a key tile")
+        if not (rel <= FLASH_REL_L2 and row <= FLASH_ROW_REL_L2 and el <= FLASH_LSE_ATOL):
+            raise AssertionError(f"flash attention disagrees with its plain version at "
+                                 f"{b, n, h, d, m}")
+        worst = max(worst, eo)
+        del q, k, v, o, lse, ro, rl
     return worst
 
 
@@ -402,6 +468,34 @@ def check_flash_edges() -> None:
             report.append("each sample bit-identical to its own call")
         print(f"[flash_edges] B,N,H,D,M,kv_len={b},{n},{h},{d},{m},{kv} {dtype}: rel L2 / worst "
               f"row: " + "; ".join(report), flush=True)
+
+
+def flash_forward_times(gen, b: int, n: int, h: int, d: int, card: dict) -> dict:
+    """K1 at [b, n, h, d] (self-attention, bf16): its time, its plain
+    version's, SDPA's and the bound; raises unless a wgmma variant serves
+    the shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from textboost_torch.ops import flash_attention as fa
+
+    dev, bf16 = gen.device, torch.bfloat16
+    q, k, v = (torch.randn(b, n, h, d, generator=gen, device=dev).to(bf16) for _ in range(3))
+    qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+    fa.variant_counts.clear()
+    fa.flash_attention_forward(q, k, v, scale=d**-0.5)
+    if set(fa.variant_counts) - WGMMA_VARIANTS:
+        raise AssertionError(f"the main-path shape {b, n, h, d} was served by "
+                             f"{dict(fa.variant_counts)}, not by wgmma")
+    out = {
+        "ms": cuda_ms(lambda: fa.flash_attention_forward(q, k, v, scale=d**-0.5), 10),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(q, k, v, d**-0.5), 3, 1),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 10),
+        **bound_of(flash_floors_ms(b, n, n, h, d, backward=False, **card)),
+    }
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
 
 
 def flash_backward_times(gen, b: int, n: int, h: int, d: int, card: dict) -> dict:
@@ -516,12 +610,14 @@ def train_step_parity(gen, instance_dir: str, output_dir: str):
     return out, shapes
 
 
-def group_norm_calls(model: str):
+def group_norm_calls(model: str, unet_batch: int = 8, decode_batch: int = 4,
+                     encode_batch: int = 8):
     """The GroupNorm calls of the port's main paths at `model`'s full width,
     found by running its UNet and VAE on the meta device (shapes only: no
-    memory, no arithmetic), at the main paths' batches: the UNet at 8 (four
-    seeds under CFG; the train step), the VAE decoder at 4, the encoder at 8.
-    Returns {"unet": one UNet forward, "unet_backward": the UNet norms a
+    memory, no arithmetic), at the main paths' batches: by default the UNet
+    at 8 (four seeds under CFG; the train step), the VAE decoder at 4, the
+    encoder at 8; a validation round of the paper's run samples at other
+    batches (`paper_validation_batches`).  Returns {"unet": one UNet forward, "unet_backward": the UNet norms a
     train step's backward runs through (those downstream of the text, the
     trainable input), "decode": one VAE decode, "encode": one VAE encode},
     each a Counter of (shape, groups, eps, silu) -> calls."""
@@ -551,15 +647,24 @@ def group_norm_calls(model: str):
             if isinstance(m, GroupNorm):
                 m.register_forward_pre_hook(record)
     s, r, meta = spec.unet.sample_size, spec.resolution, torch.device("meta")
-    ctx = torch.empty(8, 77, spec.unet.cross_attention_dim, device=meta, requires_grad=True)
-    unet(torch.empty(8, spec.unet.in_channels, s, s, device=meta),
-         torch.zeros(8, dtype=torch.long, device=meta), ctx)
+    ctx = torch.empty(unet_batch, 77, spec.unet.cross_attention_dim, device=meta,
+                      requires_grad=True)
+    unet(torch.empty(unet_batch, spec.unet.in_channels, s, s, device=meta),
+         torch.zeros(unet_batch, dtype=torch.long, device=meta), ctx)
     with torch.no_grad():
         part[0] = "decode"
-        vae.decode(torch.empty(4, spec.vae.latent_channels, s, s, device=meta))
+        vae.decode(torch.empty(decode_batch, spec.vae.latent_channels, s, s, device=meta))
         part[0] = "encode"
-        vae.encode_moments(torch.empty(8, 3, r, r, device=meta))
+        vae.encode_moments(torch.empty(encode_batch, 3, r, r, device=meta))
     return calls
+
+
+def paper_validation_batches() -> dict:
+    """The batches of a validation round of the paper's run: the UNet
+    samples every image of every prompt under CFG (2 x prompts x images),
+    the VAE decodes them all at once."""
+    images = len(PAPER_PROMPTS) * PAPER_VALIDATION_IMAGES
+    return {"unet_batch": 2 * images, "decode_batch": images}
 
 
 def drop_last_rank(t, plan, groups: int):
@@ -814,12 +919,12 @@ def group_norm_control(gen, key, backward: bool) -> None:
                              f"rank's partial sums at {key}")
 
 
-def train_main_path(instance_dir: str, output_dir: str):
-    """The training main path: `textboost_torch.train.main` for TRAIN_STEPS
-    steps at batch 8, with the launch counts set to 0 just before and read
-    just after.  CUDA events after each step give the warm step time (steps
-    3-9); the last step is traced with torch.profiler after the queue has
-    drained."""
+def instrumented_train(argv, trace_call=None, capture_call=None):
+    """`textboost_torch.train.main(argv)` with the launch counts set to 0
+    just before and read just after.  A CUDA event is recorded after each
+    step call; call `trace_call` (0-based) is traced with torch.profiler
+    after the queue has drained; call `capture_call` has its batch and draws
+    copied to the host."""
     import torch
     import torch.profiler
 
@@ -828,14 +933,17 @@ def train_main_path(instance_dir: str, output_dir: str):
     from textboost_torch.ops import group_norm as gn
     from textboost_torch.train import trainer as trainer_mod
 
-    events, traced = [], {}
+    events, traced, captured = [], {}, {}
     real_make = trainer_mod.make_train_step
 
     def timed_make(config):
         step = real_make(config)
 
         def timed_step(state, batch, draws):
-            if len(events) == TRAIN_STEPS - 1:
+            if len(events) == capture_call:
+                captured.update({name: {k: v.detach().cpu().clone() for k, v in d.items()}
+                                 for name, d in (("batch", batch), ("draws", draws))})
+            if len(events) == trace_call:
                 torch.cuda.synchronize()
                 with torch.profiler.profile(
                         activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -853,15 +961,40 @@ def train_main_path(instance_dir: str, output_dir: str):
 
         return timed_step
 
+    # The shapes each kernel wrapper is called at: flash (B, N, H, D, M),
+    # GroupNorm (shape, groups, eps, silu), the keys of the checks.
+    shapes = {name: collections.Counter() for name in ("flash", "flash_bwd", "gn", "gn_bwd")}
+    wrappers = {"flash": (fa, "flash_attention_forward"),
+                "flash_bwd": (fa, "flash_attention_backward"),
+                "gn": (gn, "group_norm_forward"), "gn_bwd": (gn, "group_norm_backward")}
+    real = {name: getattr(mod, attr) for name, (mod, attr) in wrappers.items()}
+
+    def recording(name):
+        def call(*args, **kwargs):
+            if name.startswith("flash"):
+                q, k = args[:2]
+                key = (*q.shape, k.shape[1])
+            elif name == "gn":
+                key = (tuple(args[0].shape), args[3], kwargs["eps"], kwargs["silu"])
+            else:
+                key = (tuple(args[0].shape), *args[6:9])
+            shapes[name][key] += 1
+            return real[name](*args, **kwargs)
+        return call
+
     trainer_mod.make_train_step = timed_make
+    for name, (mod, attr) in wrappers.items():
+        setattr(mod, attr, recording(name))
     fa.launches = fa.bwd_launches = gn.launches = gn.bwd_launches = 0
     fa.variant_counts.clear()
     torch.cuda.synchronize()
     t0 = time.time()
     try:
-        metrics = train_pkg.main(train_flags(instance_dir, output_dir, 8, TRAIN_STEPS))
+        metrics = train_pkg.main(argv)
     finally:
         trainer_mod.make_train_step = real_make
+        for name, (mod, attr) in wrappers.items():
+            setattr(mod, attr, real[name])
     torch.cuda.synchronize()
     run_s = time.time() - t0
     launches = {"flash": fa.launches, "flash_bwd": fa.bwd_launches, "gn": gn.launches,
@@ -871,13 +1004,354 @@ def train_main_path(instance_dir: str, output_dir: str):
         raise AssertionError(f"training's flash forward launches went through {variants}, "
                              f"not all through {sorted(WGMMA_VARIANTS)}")
     kernel_ms = collections.Counter()
-    for e in traced["prof"].key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernel_ms[e.key] += e.self_device_time_total / 1e3
+    if "prof" in traced:
+        for e in traced["prof"].key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                kernel_ms[e.key] += e.self_device_time_total / 1e3
+    if {name: sum(c.values()) for name, c in shapes.items()} != launches:
+        raise AssertionError(f"training called the kernel wrappers other than it launched: "
+                             f"{launches}")
+    return {"metrics": metrics, "launches": launches, "variants": variants, "run_s": run_s,
+            "events": events, "traced_wall_ms": traced.get("wall_ms"), "kernel_ms": kernel_ms,
+            "captured": captured, "shapes": shapes}
+
+
+def train_main_path(instance_dir: str, output_dir: str):
+    """The sd15 training main path: TRAIN_STEPS steps at batch 8; the warm
+    step time averages steps 3-9, the last step is traced."""
+    tr = instrumented_train(train_flags(instance_dir, output_dir, 8, TRAIN_STEPS),
+                            trace_call=TRAIN_STEPS - 1)
+    events = tr.pop("events")
+    tr["warm_step_ms"] = events[1].elapsed_time(events[TRAIN_STEPS - 2]) / (TRAIN_STEPS - 3)
+    return tr
+
+
+def paper_flags(instance_dir: str, output_dir: str, *extra):
+    """The flags `run_textboost_db.py::build_cmd` passes with the runner's
+    defaults (sd21base, 512 px, batch 8, LoRA r=4, lr 1e-4, embedding lr
+    1e-3, --augment pda --augment_p 0.5 --augment_inversion, imagenet_small,
+    null_prob 0.1, KPL 0.1, bf16, its four validation prompts), cut from 250
+    steps and a cadence of 50 to PAPER_STEPS steps and a cadence of
+    PAPER_CADENCE; no tracker."""
+    return [
+        "--model_preset=sd21base", f"--instance_data_dir={instance_dir}",
+        f"--output_dir={output_dir}", "--class_token=teapot", "--instance_token=<0>",
+        f"--validation_steps={PAPER_CADENCE}", "--placeholder_token=<teapot>",
+        "--initializer_token=brown teapot", "--validation_prompts", *PAPER_PROMPTS,
+        "--resolution=512", "--lora_rank=4", "--learning_rate=0.0001",
+        "--emb_learning_rate=0.001", "--train_batch_size=8", f"--max_train_steps={PAPER_STEPS}",
+        f"--checkpointing_steps={PAPER_CADENCE}", "--gradient_accumulation_steps=1",
+        "--unet_params_to_train=none", "--augment=pda", "--augment_p=0.5", "--null_prob=0.1",
+        "--kpl_weight=0.1", "--template=imagenet_small", "--mixed_precision=bf16",
+        "--mesh_tp=1", "--num_samples=1", "--augment_inversion", "--report_to=none",
+        "--seed=0", *extra]
+
+
+def check_native_image_ops(existed_before_run: bool) -> dict:
+    """The native bicubic op (built from textboost_torch/csrc/image_ops.cpp,
+    at first use, by the paper run's loader unless it was there before) against this machine's PIL: the 25 seeded cases of the CPU
+    tests, and adjust_scale at 512 px against its PIL plain version.
+    Bit-exact."""
+    import numpy as np
+    import PIL
+    from PIL import Image
+
+    from textboost_torch.data import augment, native
+
+    path = native.library_path()
+    if not path.exists():
+        raise AssertionError("the paper run's augmentation left no native image library")
+    built = not existed_before_run
+    native.get_lib()
+    rng = np.random.default_rng(3)
+    cases = 0
+    for _ in range(25):
+        w, h = int(rng.integers(8, 90)), int(rng.integers(8, 90))
+        src = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        inv = 1.0 / rng.uniform(0.3, 2.0)
+        pad_w, pad_h = int(rng.integers(0, 25)), int(rng.integers(0, 25))
+        pw, ph = w + 2 * pad_w, h + 2 * pad_h
+        m2 = inv * (-pw * 0.5) + pw * 0.5 + rng.uniform(-3, 3)
+        m5 = inv * (-ph * 0.5) + ph * 0.5 + rng.uniform(-3, 3)
+        out_w, out_h = int(rng.integers(4, w + 8)), int(rng.integers(4, h + 8))
+        padded = np.pad(src, ((pad_h, pad_h), (pad_w, pad_w), (0, 0)), mode="edge")
+        pil = np.asarray(Image.fromarray(padded).transform(
+            (out_w, out_h), Image.AFFINE, (inv, 0, m2, 0, inv, m5), resample=Image.BICUBIC))
+        got = native.affine_scale_bicubic(src, pad_w, pad_h, out_w, out_h, inv, m2, inv, m5)
+        if not np.array_equal(got, pil):
+            raise AssertionError(f"the native bicubic op differs from PIL {PIL.__version__}")
+        cases += 1
+    image = Image.fromarray(rng.integers(0, 256, (512, 512, 3), dtype=np.uint8))
+    for trial in range(4):
+        plan, _ = augment.plan_adjust_scale(image.size, "x", False,
+                                            np.random.default_rng((21, trial)), {})
+        if not np.array_equal(np.asarray(augment.exec_adjust_scale(image, plan)),
+                              np.asarray(augment.exec_adjust_scale_pil(image, plan))):
+            raise AssertionError(f"adjust_scale at 512 px differs from PIL at {plan}")
+        cases += 1
+    print(f"[native] {path.name} built by the run's workers: {built}; bicubic bit-exact with PIL "
+          f"{PIL.__version__} in {cases} seeded cases (25 of the CPU tests, 4 zooms at 512 px)",
+          flush=True)
+    return {"library": str(path.relative_to(Path(__file__).resolve().parent)),
+            "built_by_run": built, "pil": PIL.__version__, "cases": cases}
+
+
+def loader_host_ms(instance_dir: str, captured: dict) -> float:
+    """Host time of one augmented batch (8 samples, one thread) of the paper
+    run's dataset, built here as the trainer builds it; its batch 5 must be
+    the batch that step 6 of the run trained on."""
+    import numpy as np
+
+    from textboost_torch.data.augment import PairedAugmentation
+    from textboost_torch.data.datasets import TextBoostDataset
+    from textboost_torch.data.tokenizer import load_tokenizer
+    from textboost_torch.train.trainer import plan_tokens
+
+    tok = load_tokenizer(None)
+    plan = plan_tokens(tok, [{"instance_token": "<0>", "placeholder_token": "<teapot>",
+                              "initializer_token": "brown teapot"}], "dog",
+                       augment_inversion=True)
+    ds = TextBoostDataset(
+        [{"instance_data_dir": instance_dir, "instance_token": plan.concept_tokens["<0>"]}],
+        tok, num_instance=1, template="imagenet_small", size=512,
+        augment_pipe=PairedAugmentation(hflip="inversion", inversion=True, p=0.5,
+                                        caption_map=plan.caption_map, seed=0),
+        seed=0)
+    t0 = time.perf_counter()
+    batches = [TextBoostDataset.collate([ds.__getitem__(0, rng=np.random.default_rng((0, step, i)))
+                                         for i in range(8)]) for step in range(PAPER_STEPS)]
+    ms = (time.perf_counter() - t0) * 1e3 / PAPER_STEPS
+    for key in ("pixel_values", "input_ids"):
+        if not np.array_equal(batches[5][key].astype(np.int64),
+                              captured["batch"][key].numpy().astype(np.int64)):
+            raise AssertionError(f"step 6 of the paper run did not train on its dataset's "
+                                 f"batch 5 ({key})")
+    return ms
+
+
+def paper_run_phase(gen, card: dict, work: str, gn_rows: dict, gn_bwd_rows: dict) -> dict:
+    """The paper's one-shot run at sd21base (see the module docstring): the
+    kernels timed at its D = 64 attention shapes, the run, every kernel held
+    against its plain version at every shape the run called it at (the
+    GroupNorm shapes also derived from the config; `gn_rows` and
+    `gn_bwd_rows`, the sd15 tables, are the shapes already held), its
+    artifacts, the augmentation, the native image ops, and a resume from
+    checkpoint-5."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from textboost_torch.data.tokenizer import load_tokenizer
+    from textboost_torch.lora.peft_io import import_token_embeddings, load_safetensors
+    from textboost_torch.models.configs import get_spec
+    from textboost_torch.train.trainer import plan_tokens
+
+    spec = get_spec("sd21base")
+    per_step = expected_train_launches(spec)
+    val_launches = expected_launches(spec, 25)
+    if per_step != (11, 9, 83, 58) or val_launches != (251, 1555):
+        raise AssertionError(f"sd21base spec-derived launch counts {per_step} per train step, "
+                             f"{val_launches} per validation round")
+
+    # a. K1 and K2 timed at the run's 64-wide heads ---------------------------
+    shapes = {"unet_level0_8x4096x5x64": (8, 4096, 5, 64), "unet_level1_8x1024x10x64": (8, 1024, 10, 64)}
+    fwd_t = {name: flash_forward_times(gen, *shp, card) for name, shp in shapes.items()}
+    bwd_t = {name: flash_backward_times(gen, *shp, card) for name, shp in shapes.items()}
+    for name in shapes:
+        f, b = fwd_t[name], bwd_t[name]
+        print(f"[paper flash] {name}: forward {f['ms']:.4f} ms (bound {f['bound_ms']:.4f}, "
+              f"{f['bound_floor']}; SDPA {f['library_ms']:.4f}; plain {f['plain_ms']:.3f}); "
+              f"backward {b['ms']:.4f} ms (bound {b['bound_ms']:.4f}, {b['bound_floor']}; SDPA "
+              f"{b['library_ms']:.4f}; plain {b['plain_ms']:.3f})", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # b. the run -------------------------------------------------------------
+    from textboost_torch.data import native
+
+    native_existed = native.library_path().exists()
+    instance_dir = os.path.join(work, "instance")
+    os.makedirs(instance_dir)
+    write_instance_image(os.path.join(instance_dir, "teapot.png"), seed=1)
+    out = os.path.join(work, "run")
+    run = instrumented_train(paper_flags(instance_dir, out), trace_call=PAPER_STEPS - 1,
+                             capture_call=PAPER_CADENCE)
+    m = run["metrics"]
+    rounds = PAPER_STEPS // PAPER_CADENCE
+    want = {"flash": PAPER_STEPS * per_step[0] + rounds * val_launches[0],
+            "flash_bwd": PAPER_STEPS * per_step[1],
+            "gn": PAPER_STEPS * per_step[2] + rounds * val_launches[1],
+            "gn_bwd": PAPER_STEPS * per_step[3]}
+    ev = run["events"]
+    # Step s runs between events s-1 and s; step 6 also holds the checkpoint
+    # and the validation round of step 5.
+    warm = [ev[s - 2].elapsed_time(ev[s - 1]) for s in range(3, PAPER_STEPS)
+            if (s - 1) % PAPER_CADENCE]
+    busy = sum(run["kernel_ms"].values())
+    port_ms = {name: sum(ms for key, ms in run["kernel_ms"].items() if tag in key)
+               for name, tag in (("flash_attention_fwd", "flash_fwd"),
+                                 ("flash_attention_bwd", "flash_bwd_"),
+                                 ("group_norm_fwd", "group_norm_fwd_kernel"),
+                                 ("group_norm_bwd", "group_norm_bwd_kernel"))}
+    print(f"[paper] {PAPER_STEPS} steps sd21base 512 px batch 8 bf16, --augment pda "
+          f"--augment_inversion, checkpoint and validation every {PAPER_CADENCE}, in "
+          f"{run['run_s']:.1f} s (model init, validation and export included): loss "
+          f"{m['loss']:.5g}, kpl {m['kpl']:.3g}; warm step {np.mean(warm):.1f} ms (steps 3-9 "
+          f"but 6, CUDA events; each {[round(w, 1) for w in warm]}); launches {run['launches']} "
+          f"(expected {want}); flash forward by variant {run['variants']}", flush=True)
+    print(f"[paper breakdown] traced step {PAPER_STEPS}: {run['traced_wall_ms']:.1f} ms wall, {busy:.1f} ms "
+          f"of kernels (idle {1 - busy / run['traced_wall_ms']:.3f}); " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in port_ms.items()), flush=True)
+    for name, ms in run["kernel_ms"].most_common(8):
+        print(f"[paper breakdown]   {ms:8.2f} ms  {name[:100]}", flush=True)
+    print(f"[paper] checkpoint: snapshot {m['checkpoint_snapshot_ms']:.1f} ms on the loop, write "
+          f"{m['checkpoint_write_ms']:.1f} ms on its thread; validation round "
+          f"{m['validation_ms']:.1f} ms (16 images, 25 steps, CFG 7.5)", flush=True)
+    waits = m["host_wait_ms_by_step"]
+    print(f"[paper loader] the loop's wait for host batches: {waits[0]:.1f} ms before step 1 "
+          f"(the producers' start), {waits[1]:.2f} ms after step 1, then mean "
+          f"{np.mean(waits[2:]):.2f} ms, max {max(waits[2:]):.2f} ms per step "
+          f"(each {[round(w, 2) for w in waits[1:]]})", flush=True)
+    if run["launches"] != want:
+        raise AssertionError(f"the paper run launched {run['launches']}, expected {want}")
+    if m["steps"] != PAPER_STEPS or not all(
+            math.isfinite(m[k]) for k in ("loss", "kpl", "grad_norm", "added_embedding_norm")):
+        raise AssertionError(f"the paper run returned {m}")
+
+    # c. every kernel against its plain version at every shape the run gave it.
+    # The GroupNorm calls, derived from the config at the train step's and
+    # the validation round's batches, must be the run's.
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_calls = group_norm_calls("sd21base")
+    val_calls = group_norm_calls("sd21base", **paper_validation_batches())
+    derived = collections.Counter()
+    for part, n in (("unet", PAPER_STEPS), ("encode", PAPER_STEPS)):
+        derived.update({key: n * c for key, c in train_calls[part].items()})
+    for part, n in (("unet", rounds * 25), ("decode", rounds)):
+        derived.update({key: n * c for key, c in val_calls[part].items()})
+    derived_bwd = collections.Counter(
+        {key: PAPER_STEPS * c for key, c in train_calls["unet_backward"].items()})
+    seen = run["shapes"]
+    if seen["gn"] != derived or seen["gn_bwd"] != derived_bwd:
+        raise AssertionError(f"the paper run's GroupNorm calls differ from those derived from "
+                             f"the config: forward {dict(seen['gn'] - derived)} / "
+                             f"{dict(derived - seen['gn'])}, backward "
+                             f"{dict(seen['gn_bwd'] - derived_bwd)} / "
+                             f"{dict(derived_bwd - seen['gn_bwd'])}")
+    new_rows, gn_err = group_norm_table(gen, set(derived) - set(gn_rows),
+                                        {key: {"paper": n} for key, n in derived.items()},
+                                        backward=False)
+    new_bwd_rows, gn_bwd_err = group_norm_table(
+        gen, set(derived_bwd) - set(gn_bwd_rows),
+        {key: {"paper": n} for key, n in derived_bwd.items()}, backward=True)
+    gn_paper = {}
+    for name, calls, rows in (("group_norm_fwd", derived, {**gn_rows, **new_rows}),
+                              ("group_norm_bwd", derived_bwd, {**gn_bwd_rows, **new_bwd_rows})):
+        gn_paper[name] = {field: sum(n * rows[key][field] for key, n in calls.items())
+                          for field in ("ms", "cold_ms", "bound_ms", "library_ms")}
+        gn_paper[name]["launches"] = sum(calls.values())
+    print(f"[paper group_norm] the run's {len(derived)} forward and {len(derived_bwd)} backward "
+          f"(shape, groups, eps, silu) are those derived from the config at batch 8 and at the "
+          f"validation batches {paper_validation_batches()}; {len(new_rows)} forward and "
+          f"{len(new_bwd_rows)} backward not among the sd15 shapes held above now agree too; "
+          f"launch-weighted over the run: " + "; ".join(
+              f"{name} {v['launches']} launches {v['ms']:.2f} ms warm, {v['cold_ms']:.2f} cold, "
+              f"bound {v['bound_ms']:.2f}, library {v['library_ms']:.2f}"
+              for name, v in gn_paper.items()), flush=True)
+    k1_err = check_flash_forward(gen, sorted(seen["flash"]))
+    k2_err = check_flash_backward(gen, [(b, n, h, d, m, m) for b, n, h, d, m in
+                                        sorted(seen["flash_bwd"])])
+    timed = {(*shp, shp[1]) for shp in shapes.values()}
+    if not timed <= set(seen["flash_bwd"]) <= set(seen["flash"]):
+        raise AssertionError(f"the paper run's attention shapes {dict(seen['flash'])} / "
+                             f"{dict(seen['flash_bwd'])} do not hold the timed ones")
+    print(f"[paper flash] K1 held at each of the run's {len(seen['flash'])} forward shapes "
+          f"(B,N,H,D,M: launches) {dict(seen['flash'])}, K2 at its {len(seen['flash_bwd'])} "
+          f"backward shapes {dict(seen['flash_bwd'])}", flush=True)
+
+    # d. what the run leaves -------------------------------------------------
+    plan = plan_tokens(load_tokenizer(None), [{"instance_token": "<0>",
+                                               "placeholder_token": "<teapot>",
+                                               "initializer_token": "brown teapot"}], "dog",
+                       augment_inversion=True)
+    bins = [t.strip("<>") + ".bin" for t in plan.token_to_id]
+    adapter = ["text_encoder/adapter_model.safetensors", "text_encoder/adapter_config.json"]
+    for step in range(PAPER_CADENCE, PAPER_STEPS + 1, PAPER_CADENCE):
+        for name in adapter + bins + ["state.pt", "meta.json"]:
+            if not os.path.isfile(os.path.join(out, f"checkpoint-{step}", name)):
+                raise AssertionError(f"checkpoint-{step} holds no {name}")
+        size = Image.open(os.path.join(out, f"validation_{step}.jpg")).size
+        if size != (4 * 512, 4 * 512):
+            raise AssertionError(f"validation_{step}.jpg is {size}, not 4 x 4 images of 512 px")
+    for name in adapter + bins:
+        if not os.path.isfile(os.path.join(out, name)):
+            raise AssertionError(f"the run exported no {name}")
+    for tok in plan.token_to_id:
+        row = torch.load(os.path.join(out, tok.strip("<>") + ".bin"), weights_only=True)[tok]
+        shape = (1, 1024) if tok in plan.aug_tokens else (1024,)
+        if tuple(row.shape) != shape or not torch.isfinite(row).all():
+            raise AssertionError(f"{tok}.bin holds {tuple(row.shape)}, expected {shape}")
+    aug = {k[4:]: int(v) for k, v in m.items() if k.startswith("aug:")}
+    print(f"[paper] artifacts: checkpoint-5/ and checkpoint-10/ (state, text_encoder/, "
+          f"{len(bins)} token bins each), validation_5.jpg and validation_10.jpg 2048x2048, the "
+          f"final text_encoder/ and {len(bins)} bins ({len(plan.aug_tokens)} augmentation "
+          f"sub-tokens [1, 1024]); captions with augmentation tokens, by op: {aug}", flush=True)
+    if aug.get("samples") != 8 * PAPER_STEPS or not aug.get("augmented"):
+        raise AssertionError(f"the run's captions carry no augmentation tokens: {aug}")
+
+    # e. the native image ops and the augmented loader's host time ------------
+    native_ops = check_native_image_ops(native_existed)
+    host_ms = loader_host_ms(instance_dir, run["captured"])
+    print(f"[paper] augmented batch on the host: {host_ms:.1f} ms per batch of 8 (one thread); "
+          f"its batch 5 is the one step 6 trained on", flush=True)
+
+    # f. resume from checkpoint-5 onto the same trajectory --------------------
+    resumed = os.path.join(work, "resumed")
+    shutil.copytree(os.path.join(out, f"checkpoint-{PAPER_CADENCE}"),
+                    os.path.join(resumed, f"checkpoint-{PAPER_CADENCE}"))
+    res = instrumented_train(paper_flags(instance_dir, resumed, "--resume_from_checkpoint=latest"),
+                             capture_call=0)
+    rest = PAPER_STEPS - PAPER_CADENCE
+    want_res = {"flash": rest * per_step[0] + val_launches[0], "flash_bwd": rest * per_step[1],
+                "gn": rest * per_step[2] + val_launches[1], "gn_bwd": rest * per_step[3]}
+    if res["launches"] != want_res:
+        raise AssertionError(f"the resumed run launched {res['launches']}, expected {want_res}")
+    first, again = run["captured"], res["captured"]
+    same_batch = all(torch.equal(first["batch"][k], again["batch"][k]) for k in first["batch"])
+    same_draws = all(torch.equal(first["draws"][k], again["draws"][k]) for k in first["draws"])
+    loss_gap = abs(res["metrics"]["loss"] - m["loss"]) / abs(m["loss"])
+    lora = [load_safetensors(os.path.join(d, "text_encoder", "adapter_model.safetensors"))
+            for d in (out, resumed)]
+    rows = [import_token_embeddings([os.path.join(d, b) for b in bins]) for d in (out, resumed)]
+    lora_gap = rel_l2(*(torch.cat([torch.from_numpy(t[k]).flatten() for k in sorted(t)])
+                        for t in reversed(lora)))
+    rows_gap = rel_l2(*(torch.from_numpy(np.stack([r[t] for t in sorted(r)]))
+                        for r in reversed(rows)))
+    print(f"[paper resume] from checkpoint-{PAPER_CADENCE} to step {PAPER_STEPS}: step 6's batch "
+          f"{'the same bytes' if same_batch else 'DIFFERS'}, its draws (noise, VAE eps, "
+          f"timesteps) {'the same bits' if same_draws else 'DIFFER'}; step-10 loss "
+          f"{res['metrics']['loss']:.6g} vs {m['loss']:.6g}: relative gap {loss_gap:.3g} (limit "
+          f"{RESUME_LOSS_REL}); rel L2 gap of the exported LoRA {lora_gap:.3g}, of the added rows "
+          f"{rows_gap:.3g} (limit {RESUME_REL_L2})" + (
+              "; all gaps are zero" if loss_gap == lora_gap == rows_gap == 0 else ""), flush=True)
+    if not (same_batch and same_draws and loss_gap <= RESUME_LOSS_REL
+            and lora_gap <= RESUME_REL_L2 and rows_gap <= RESUME_REL_L2):
+        raise AssertionError("the resumed run left the straight run's trajectory")
     return {
-        "metrics": metrics, "launches": launches, "variants": variants, "run_s": run_s,
-        "warm_step_ms": events[1].elapsed_time(events[TRAIN_STEPS - 2]) / (TRAIN_STEPS - 3),
-        "traced_wall_ms": traced["wall_ms"], "kernel_ms": kernel_ms,
+        "launches": run["launches"], "resumed_launches": res["launches"],
+        "variants": run["variants"], "run_s": run["run_s"], "resumed_run_s": res["run_s"],
+        "warm_step_ms": float(np.mean(warm)), "warm_steps_ms": warm,
+        "traced_step_wall_ms": run["traced_wall_ms"], "traced_step_kernel_ms": busy,
+        "traced_port_kernel_ms": port_ms, "idle_share": 1 - busy / run["traced_wall_ms"],
+        "final_loss": m["loss"], "checkpoint_snapshot_ms": m["checkpoint_snapshot_ms"],
+        "checkpoint_write_ms": m["checkpoint_write_ms"], "validation_ms": m["validation_ms"],
+        "host_wait_ms_by_step": waits, "loader_host_ms_per_batch": host_ms,
+        "group_norm": gn_paper, "gn_max_abs_err": gn_err, "gn_bwd_max_abs_err": gn_bwd_err,
+        "augmentation": aug, "native": native_ops,
+        "resume": {"same_batch": same_batch, "same_draws": same_draws, "loss_gap": loss_gap,
+                   "lora_gap": lora_gap, "rows_gap": rows_gap},
+        "k1": fwd_t, "k2": bwd_t, "k1_max_abs_err": k1_err, "k2_max_abs_err": k2_err,
     }
 
 
@@ -923,31 +1397,8 @@ def main() -> int:
           f"(the exponentials' floor: {EX2_PER_SM_CLOCK} ex2 per SM and clock)", flush=True)
 
     # 2. flash attention vs its plain version ------------------------------
-    flash_err = 0.0
-    for b, n, h, d, m in ((8, 4096, 8, 40, 4096), (8, 1024, 8, 80, 1024),
-                          (4, 4096, 1, 512, 4096), (8, 4096, 8, 40, 77)):
-        q = torch.randn(b, n, h, d, generator=gen, device=dev).to(bf16)
-        k = torch.randn(b, m, h, d, generator=gen, device=dev).to(bf16)
-        v = torch.randn(b, m, h, d, generator=gen, device=dev).to(bf16)
-        o, lse = fa.flash_attention_forward(q, k, v, scale=d**-0.5)
-        torch.cuda.synchronize()
-        ro, rl = fa.flash_attention_reference(q.float(), k.float(), v.float(), d**-0.5)
-        eo = (o.float() - ro).abs().max().item()
-        el = (lse - rl).abs().max().item()
-        rel, row = flash_errors(o, ro)
-        p_bf16 = flash_errors(attention_fp32(q, k, v, d**-0.5, p_dtype=bf16).to(bf16), ro)
-        dropped = flash_errors(attention_fp32(q, k, v, d**-0.5, drop_keys=64).to(bf16), ro)
-        print(f"[flash] B,N,H,D,M={b},{n},{h},{d},{m}: o rel L2 {rel:.3g} (limit "
-              f"{FLASH_REL_L2}), worst row {row:.3g} (limit {FLASH_ROW_REL_L2}), max|o err| "
-              f"{eo:.3g} of max|o| {ro.abs().max().item():.3g}, max|lse err| {el:.3g}; "
-              f"controls rel L2 / worst row: P in bf16 {p_bf16[0]:.3g} / {p_bf16[1]:.3g}, "
-              f"first 64 keys dropped {dropped[0]:.3g} / {dropped[1]:.3g}", flush=True)
-        if not (dropped[0] > FLASH_REL_L2 and dropped[1] > FLASH_ROW_REL_L2):
-            raise AssertionError("the flash limits would pass a kernel that drops a key tile")
-        if not (rel <= FLASH_REL_L2 and row <= FLASH_ROW_REL_L2 and el <= FLASH_LSE_ATOL):
-            raise AssertionError(f"flash attention disagrees with its plain version at {b, n, h, d, m}")
-        flash_err = max(flash_err, eo)
-        del q, k, v, o, lse, ro, rl
+    flash_err = check_flash_forward(gen, ((8, 4096, 8, 40, 4096), (8, 1024, 8, 80, 1024),
+                                          (4, 4096, 1, 512, 4096), (8, 4096, 8, 40, 77)))
     check_flash_edges()
 
     # 3-4. sd15 UNet (kernels vs math) and VAE decode, GN shapes recorded ----
@@ -1114,25 +1565,10 @@ def main() -> int:
     work.cleanup()
 
     # 6. kernel times at the main path's shapes ------------------------------
-    def flash_times(b, n, h, d):
-        q, k, v = (torch.randn(b, n, h, d, generator=gen, device=dev).to(bf16) for _ in range(3))
-        qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
-        fa.variant_counts.clear()
-        fa.flash_attention_forward(q, k, v, scale=d**-0.5)
-        if set(fa.variant_counts) - WGMMA_VARIANTS:
-            raise AssertionError(f"the main-path shape {b, n, h, d} was served by "
-                                 f"{dict(fa.variant_counts)}, not by wgmma")
-        return {
-            "ms": cuda_ms(lambda: fa.flash_attention_forward(q, k, v, scale=d**-0.5), 10),
-            "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(q, k, v, d**-0.5), 3, 1),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 10),
-            **bound_of(flash_floors_ms(b, n, n, h, d, backward=False, **card)),
-        }
-
     fa_shapes = {"unet_level0_8x4096x8x40": (8, 4096, 8, 40),
                  "unet_level1_8x1024x8x80": (8, 1024, 8, 80),
                  "vae_mid_4x4096x1x512": (4, 4096, 1, 512)}
-    fa_t = {name: flash_times(*shp) for name, shp in fa_shapes.items()}
+    fa_t = {name: flash_forward_times(gen, *shp, card) for name, shp in fa_shapes.items()}
     flash_ms = (steps * 5 * (fa_t["unet_level0_8x4096x8x40"]["ms"]
                              + fa_t["unet_level1_8x1024x8x80"]["ms"])
                 + fa_t["vae_mid_4x4096x1x512"]["ms"])
@@ -1240,42 +1676,64 @@ def main() -> int:
           f"{images.shape}", flush=True)
     train_work.cleanup()
 
+    # 11. main path: the paper's run at sd21base, then its resume --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    paper_work = tempfile.TemporaryDirectory()
+    paper = paper_run_phase(gen, card, paper_work.name, gn_rows, gn_bwd_rows)
+    paper_work.cleanup()
+    by_path = {name: {"generate_sd15": launches.get(key, 0), "train_sd15": tr["launches"][key],
+                      "paper_sd21base": paper["launches"][key],
+                      "paper_sd21base_resumed": paper["resumed_launches"][key]}
+               for name, key in (("flash_attention_fwd", "flash"), ("flash_attention_bwd", "flash_bwd"),
+                                 ("group_norm_fwd", "gn"), ("group_norm_bwd", "gn_bwd"))}
+    k1_main, k2_main = "unet_level0_8x4096x5x64", "unet_level0_8x4096x5x64"
+
     kernels = {"kernels": [
         dict({"name": "flash_attention_fwd", "route": "cuda",
               "source": "textboost_torch/csrc/flash_attention_fwd.cu",
               "replaces": "textboost_tpu/ops/flash_attention.py:42",
-              "launches": launches["flash"], "max_abs_err": flash_err},
-             **fa_t["unet_level0_8x4096x8x40"], shape="B,N,H,D=8,4096,8,40 bf16",
-             other_shapes={k: fa_t[k] for k in list(fa_t)[1:]},
-             per_generate_ms=flash_ms, train_launches=tr["launches"]["flash"],
-             variants={"generate": variants, "train": tr["variants"]}),
+              "launches": paper["launches"]["flash"],
+              "max_abs_err": max(flash_err, paper["k1_max_abs_err"])},
+             **paper["k1"][k1_main], shape="B,N,H,D=8,4096,5,64 bf16 (sd21base UNet level 0)",
+             other_shapes={**{k: v for k, v in paper["k1"].items() if k != k1_main},
+                           **{f"sd15_{k}": v for k, v in fa_t.items()}},
+             per_generate_ms=flash_ms, launches_by_path=by_path["flash_attention_fwd"],
+             variants={"generate": variants, "train": tr["variants"],
+                       "paper": paper["variants"]}),
         dict({"name": "flash_attention_bwd", "route": "cuda",
               "source": "textboost_torch/csrc/flash_attention_bwd.cu",
               "replaces": "textboost_tpu/ops/flash_attention.py:119",
-              "launches": tr["launches"]["flash_bwd"], "max_abs_err": flash_bwd_err},
-             **fb_t["unet_level0_8x4096x8x40"], shape="B,N,H,D=8,4096,8,40 bf16",
-             other_shapes={k: fb_t[k] for k in list(fb_t)[1:]},
-             launches_per_train_step=tr["launches"]["flash_bwd"] / TRAIN_STEPS),
+              "launches": paper["launches"]["flash_bwd"],
+              "max_abs_err": max(flash_bwd_err, paper["k2_max_abs_err"])},
+             **paper["k2"][k2_main], shape="B,N,H,D=8,4096,5,64 bf16 (sd21base UNet level 0)",
+             other_shapes={**{k: v for k, v in paper["k2"].items() if k != k2_main},
+                           **{f"sd15_{k}": v for k, v in fb_t.items()}},
+             launches_by_path=by_path["flash_attention_bwd"],
+             launches_per_train_step=paper["launches"]["flash_bwd"] / PAPER_STEPS),
         {"name": "group_norm_fwd", "route": "cuda",
          "source": "textboost_torch/csrc/group_norm_fwd.cu",
          "replaces": "textboost_tpu/ops/group_norm.py:58",
-         "launches": launches["gn"], "max_abs_err": gn_err,
+         "launches": paper["launches"]["gn"],
+         "max_abs_err": max(gn_err, paper["gn_max_abs_err"]),
          **group_norm_json(gn_rows[main_key]), "plain_ms": gn_plain,
          "shape": "8x320x64x64 bf16 G=32 eps=1e-6 silu=off",
          "other_shapes": {name: group_norm_json(gn_rows[key]) for name, key in (
              ("resnet_silu_8x320x64x64", level0),
              ("vae_silu_4x128x512x512", ((4, 128, 512, 512), 32, 1e-6, True)))},
          "per_generate": gn_sums["generate"], "per_train_step": gn_sums["train_step"],
-         "train_launches": tr["launches"]["gn"], "registers": gn_regs,
+         "launches_by_path": by_path["group_norm_fwd"], "registers": gn_regs,
          "host_us_8x1280x8x8": gn_host},
         {"name": "group_norm_bwd", "route": "cuda",
          "source": "textboost_torch/csrc/group_norm_bwd.cu",
          "replaces": "textboost_tpu/ops/group_norm.py:93",
-         "launches": tr["launches"]["gn_bwd"], "max_abs_err": gn_bwd_err,
+         "launches": paper["launches"]["gn_bwd"],
+         "max_abs_err": max(gn_bwd_err, paper["gn_bwd_max_abs_err"]),
          **group_norm_json(gn_bwd_rows[main_key]), "plain_ms": gn_bwd_plain,
          "shape": "8x320x64x64 bf16 G=32 eps=1e-6 silu=off",
          "other_shapes": {"resnet_silu_8x320x64x64": group_norm_json(gn_bwd_rows[level0])},
          "per_train_step": gn_bwd_sums, "registers": gn_bwd_regs,
+         "launches_by_path": by_path["group_norm_bwd"],
          "launches_per_train_step": tr["launches"]["gn_bwd"] / TRAIN_STEPS},
     ], "sd15_images_per_s": len(seeds) / warm_s, "sd15_images_per_s_cold": len(seeds) / cold_s,
         "generate_ms": warm_s * 1e3, "load_ms": load_s * 1e3,
@@ -1287,7 +1745,9 @@ def main() -> int:
         "train": {"steps": TRAIN_STEPS, "batch": 8, "run_s": tr["run_s"],
                   "warm_step_ms": tr["warm_step_ms"], "traced_step_wall_ms": tr["traced_wall_ms"],
                   "traced_step_kernel_ms": busy, "traced_port_kernel_ms": new_ms,
-                  "final_loss": m["loss"], "step_parity_batch2": parity}}
+                  "final_loss": m["loss"], "step_parity_batch2": parity},
+        "paper_run_sd21base": {k: v for k, v in paper.items()
+                               if not (k in ("k1", "k2") or k.endswith("max_abs_err"))}}
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,7 +5,9 @@ dropped-rank control held against the JAX package.
 The shapes come from running the port's models on the meta device
 (chip_smoke.group_norm_calls), at the batches of the main paths: the UNet
 at 8 (CFG-doubled sampling, training), the VAE decoder at 4, the encoder at
-8.  The kernels themselves run only on the card (tests/test_torch_port_kernels.py
+8; and at sd21base at the batches of the paper run's validation round (the
+UNet at 32, the decoder at 16), whose launches are fewer CTAs' worth apart
+from the batch, so the plan may split spans otherwise.  The kernels themselves run only on the card (tests/test_torch_port_kernels.py
 and chip_smoke.py); what runs here is the arithmetic around them.
 """
 import re
@@ -25,13 +27,20 @@ from textboost_torch.ops import group_norm as gn
 SMEM_LIMIT = 227 * 1024  # shared memory a CTA may use on sm_90
 
 
-@pytest.fixture(scope="module", params=["sd15", "sd21base", "sd21"])
+BATCHES = {"unet_batch": 8, "decode_batch": 4, "encode_batch": 8}
+VALIDATION = dict(BATCHES, **chip_smoke.paper_validation_batches())
+
+
+@pytest.fixture(scope="module", params=[("sd15", BATCHES), ("sd21base", BATCHES),
+                                        ("sd21", BATCHES), ("sd21base", VALIDATION)],
+                ids=["sd15", "sd21base", "sd21", "sd21base_validation"])
 def model_calls(request):
-    return request.param, chip_smoke.group_norm_calls(request.param)
+    model, batches = request.param
+    return model, batches, chip_smoke.group_norm_calls(model, **batches)
 
 
 def test_the_derived_calls_are_the_launches_of_the_main_paths(model_calls):
-    model, calls = model_calls
+    model, batches, calls = model_calls
     spec = get_spec(model)
     _, per_generate = chip_smoke.expected_launches(spec, 1)
     assert sum(calls["unet"].values()) + sum(calls["decode"].values()) == per_generate
@@ -40,14 +49,17 @@ def test_the_derived_calls_are_the_launches_of_the_main_paths(model_calls):
     _, _, fwd, bwd = chip_smoke.expected_train_launches(spec)
     assert sum(calls["unet"].values()) + sum(calls["encode"].values()) == fwd
     assert sum(calls["unet_backward"].values()) == bwd
-    for name, batch in (("unet", 8), ("unet_backward", 8), ("decode", 4), ("encode", 8)):
+    for name, batch in (("unet", batches["unet_batch"]), ("unet_backward", batches["unet_batch"]),
+                        ("decode", batches["decode_batch"]), ("encode", batches["encode_batch"])):
         assert {key[0][0] for key in calls[name]} == {batch}
+    if batches is VALIDATION:  # the runner's 4 prompts x 4 images, under CFG
+        assert (batches["unet_batch"], batches["decode_batch"]) == (32, 16)
 
 
 @pytest.mark.parametrize("max_cluster", [8, 16])
 @pytest.mark.parametrize("backward", [False, True])
 def test_plans_tile_each_span_within_the_card(model_calls, backward, max_cluster):
-    _, calls = model_calls
+    _, _, calls = model_calls
     parts = ("unet_backward",) if backward else ("unet", "decode", "encode")
     for part in parts:
         for shape, groups, _, _ in calls[part]:
@@ -94,7 +106,7 @@ def test_a_split_that_leaves_a_cta_empty_is_refused():
 def test_a_register_plan_has_a_shared_memory_twin(model_calls):
     """chip_smoke.py times each register plan against the plan that holds
     the same chunks in shared memory: the same split, other storage."""
-    _, calls = model_calls
+    _, _, calls = model_calls
     twins = 0
     for backward, parts in ((False, ("unet", "decode", "encode")), (True, ("unet_backward",))):
         for part in parts:

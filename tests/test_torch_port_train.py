@@ -22,6 +22,7 @@ import torch
 from textboost_tpu.data.datasets import PriorDataset as JaxPriorDataset
 from textboost_tpu.data.datasets import InstructPix2PixDataset as JaxIP2P
 from textboost_tpu.data.datasets import TextBoostDataset as JaxTextBoostDataset
+from textboost_tpu.data.augment import PairedAugmentation as JaxPairedAugmentation
 from textboost_tpu.data.loader import PrefetchLoader as JaxPrefetchLoader
 from textboost_tpu.data.tokenizer import HashTokenizer as JaxHashTokenizer
 from textboost_tpu.lora import partition as jax_partition
@@ -32,6 +33,7 @@ from textboost_tpu.ops.schedule import NoiseSchedule as JaxSchedule
 from textboost_tpu.ops.schedule import snr_timestep_weights as jax_snr_weights
 from textboost_tpu.pipelines.loading import load_textboost_pipeline as jax_load_pipeline
 from textboost_tpu.train import config as jax_config
+from textboost_torch.data.augment import PairedAugmentation
 from textboost_torch.data.datasets import InstructPix2PixDataset, PriorDataset, TextBoostDataset
 from textboost_torch.data.loader import PrefetchLoader
 from textboost_torch import inference
@@ -47,6 +49,18 @@ from textboost_torch.ops.attention import math_attention, multi_head_attention
 from textboost_torch.ops.schedule import NoiseSchedule, sample_timesteps, snr_timestep_weights
 from textboost_torch.train import config as port_config
 from textboost_torch.train import main as train_main
+from textboost_torch.train.trainer import plan_tokens
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny models run thousands of small ops; with the suite's other
+    processes on every core, torch's thread pool waits on its own threads
+    at each op far longer than one thread takes to do the work."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _randn(rng, *shape):
@@ -332,23 +346,45 @@ def instance_dir(tmp_path_factory):
     return str(d)
 
 
-@pytest.mark.parametrize("num_workers", [1, 3])
-def test_batches_byte_identical_to_the_jax_loader(instance_dir, num_workers):
+@pytest.mark.parametrize("num_workers,augmented,start_step", [
+    pytest.param(1, False, 0, id="1"),
+    pytest.param(3, False, 0, id="3"),
+    pytest.param(3, True, 0, id="pda-inversion-threads"),
+    pytest.param(3, True, 5, id="pda-inversion-threads-from-step-5"),
+])
+def test_batches_byte_identical_to_the_jax_loader(instance_dir, num_workers, augmented,
+                                                   start_step):
+    """The port's loader, with --augment pda --augment_inversion or without,
+    against the JAX loader's thread producer; a loader started at step s
+    (resume) yields the JAX stream's batches from s on."""
     concepts = [{"instance_data_dir": instance_dir, "instance_token": "<v*>"}]
     streams = []
-    for ds_cls, ip2p_cls, prior_cls, loader_cls, tok_cls in (
-            (JaxTextBoostDataset, JaxIP2P, JaxPriorDataset, JaxPrefetchLoader, JaxHashTokenizer),
-            (TextBoostDataset, InstructPix2PixDataset, PriorDataset, PrefetchLoader, HashTokenizer)):
+    for ds_cls, ip2p_cls, prior_cls, loader_cls, tok_cls, aug_cls in (
+            (JaxTextBoostDataset, JaxIP2P, JaxPriorDataset, JaxPrefetchLoader, JaxHashTokenizer,
+             JaxPairedAugmentation),
+            (TextBoostDataset, InstructPix2PixDataset, PriorDataset, PrefetchLoader, HashTokenizer,
+             PairedAugmentation)):
         tok = tok_cls()
         tok.add_tokens("<v*>")
-        ds = ds_cls(concepts, tok, template="textboost", size=64, seed=3)
+        kwargs = {}
+        if augmented:
+            caption_map = plan_tokens(tok, [], "dog", augment_inversion=True).caption_map
+            kwargs["augment_pipe"] = aug_cls(hflip="inversion", inversion=True, p=0.5,
+                                             caption_map=caption_map, seed=3)
+        ds = ds_cls(concepts, tok, template="textboost", size=64, seed=3, **kwargs)
         prior = prior_cls(ip2p_cls(None), tok, additional_template="textboost",
                           additional_category=["dog"], seed=4)
         loaders = [loader_cls(ds, 3, ds_cls.collate, seed=3, num_workers=num_workers),
                    loader_cls(prior, 3, prior_cls.collate, seed=4, num_workers=num_workers)]
+        skip = start_step  # the JAX stream is read past them, the port's starts there
+        if loader_cls is PrefetchLoader:
+            for ld in loaders:
+                ld.set_start_step(start_step)
+            skip = 0
         try:
             its = [iter(ld) for ld in loaders]
-            streams.append([(next(its[0]), next(its[1])) for _ in range(4)])
+            batches = [(next(its[0]), next(its[1])) for _ in range(skip + 4)]
+            streams.append(batches[skip:])
         finally:
             for ld in loaders:
                 ld.stop()
@@ -357,6 +393,9 @@ def test_batches_byte_identical_to_the_jax_loader(instance_dir, num_workers):
         for key in ("pixel_values", "input_ids"):
             assert np.array_equal(pb[key], jb[key]), key
         assert np.array_equal(pp["input_ids"], jp["input_ids"]) and pp["prompt"] == jp["prompt"]
+    if augmented:  # the captions carry augmentation tokens
+        prompts = [p for pb, _ in streams[1] for p in pb["prompt"]]
+        assert any(tok in p for p in prompts for tok in ("<collage", "<zoom", "<crop>", "<hflip>"))
 
 
 # ---------------------------------------------------------------------------
@@ -373,14 +412,9 @@ def test_config_has_flag_parity_with_the_jax_cli():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--augment", "pda"], "paired augmentation"),
-    (["--augment_inversion"], "augmentation tokens"),
     (["--with_image_prior", "--class_data_dir", "x", "--class_token", "dog"], "image prior"),
     (["--unet_params_to_train", "crossattn_kv"], "kv-LoRA"),
     (["--gradient_checkpointing"], "gradient_checkpointing"),
-    (["--validation_prompts", "a photo"], "run_validation"),
-    (["--resume_from_checkpoint", "latest"], "resume"),
-    (["--checkpointing_steps", "5"], "checkpointing_steps"),
     (["--mesh_tp", "2"], "multi-card"),
     (["--text_encoder_use_attention_mask"], "attention_mask"),
     (["--augment_device"], "device-side augmentation"),
@@ -397,7 +431,7 @@ def test_cli_trains_on_cpu_and_the_jax_pipeline_loads_its_output(instance_dir, t
         "--device", "cpu", "--model_preset", "tiny", "--instance_data_dir", instance_dir,
         "--output_dir", out, "--placeholder_token", "<v*>", "--initializer_token", "dog",
         "--max_train_steps", "2", "--train_batch_size", "2", "--resolution", "128",
-        "--checkpointing_steps", "0", "--report_to", "none", "--learning_rate", "1e-2",
+        "--checkpointing_steps", "2", "--report_to", "none", "--learning_rate", "1e-2",
     ])
     assert metrics["steps"] == 2 and np.isfinite(metrics["loss"])
     recs = [line for line in open(os.path.join(out, "metrics.jsonl"))]
@@ -412,6 +446,10 @@ def test_cli_trains_on_cpu_and_the_jax_pipeline_loads_its_output(instance_dir, t
     assert emb.shape[0] == 49409 and np.array_equal(emb[tid], learned)
     lora_b = np.asarray(pipe.te_params["params"]["layers_0"]["self_attn"]["q_proj"]["lora_b"])
     assert np.abs(lora_b).max() > 0  # the trained adapter was loaded
+    # The periodic checkpoint of the last step loads on its own, to the same weights.
+    ckpt = jax_load_pipeline(out, "tiny", checkpoint=2, lora_rank=4, dtype=jnp.float32)
+    for a, b in zip(jax.tree.leaves(ckpt.te_params), jax.tree.leaves(pipe.te_params)):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
     images = inference.generate(inference.parse_args(
         [out, "--model", "tiny", "--seeds", "0", "--steps", "1", "--device", "cpu"]))
     assert images.dtype == np.uint8 and images.shape == (1, 128, 128, 3)

@@ -6,7 +6,9 @@ the same uint8 batch, and draw the same numbers: the port is handed the
 noise, timesteps and posterior epsilon that the JAX step draws from its
 threefry key.  Three fp32 steps on the CPU; loss, kpl, grad_norm and
 added_embedding_norm are compared after each, the LoRA weights and the
-added embedding row after the last.
+added embedding row after the last.  A batch that carries an augmentation
+mask takes the masked loss on both sides.  One JAX model and jitted step
+serve every test of the file.
 """
 import jax
 import jax.numpy as jnp
@@ -26,11 +28,47 @@ from textboost_torch.models.configs import get_spec
 from textboost_torch.models.convert import state_dict_from_jax
 from textboost_torch.models.pretrained import build_models
 from textboost_torch.ops.schedule import NoiseSchedule
-from textboost_torch.train.step import StepConfig, TrainState, make_train_step
+from textboost_torch.train.step import StepConfig, TrainState, forward_backward, make_train_step
 
 SPEC = get_spec("tiny")
 FIRST_ADDED = 49408
 BATCH = 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny models run thousands of small ops; with the suite's other
+    processes on every core, torch's thread pool waits on its own threads
+    at each op far longer than one thread takes to do the work."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    return _jax_side(np.random.default_rng(0))
+
+
+def _batch(rng, kpl_prompt="text"):
+    ids = np.full((BATCH, 77), 49407, np.int32)
+    ids[:, 0] = 49406
+    ids[:, 1] = [2000, 2001]
+    ids[:, 2] = FIRST_ADDED  # the added token trains
+    ids[:, 3] = 3000
+    prior = np.full((BATCH, 77), 49407, np.int32)
+    prior[:, 0] = 49406
+    prior[0, 1:4] = [4000, 4001, 4002]
+    if kpl_prompt == "text":
+        prior[1, 1:3] = [5000, 5001]  # else row 1 is the null prompt (patched)
+    return {"pixel_values": rng.integers(0, 256, (BATCH, 128, 128, 3), dtype=np.uint8),
+            "input_ids": ids, "prior_input_ids": prior}
+
+
+def _to_torch(batch):
+    return {k: torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v)
+            for k, v in batch.items()}
 
 
 def _jax_side(rng):
@@ -91,10 +129,12 @@ def _port_side(bundle, base_params, te_params, null_emb, target_norm):
         schedule=NoiseSchedule.create(), null_embedding=torch.from_numpy(null_emb.copy()),
         target_norm=torch.tensor(target_norm), original_rows=emb[:FIRST_ADDED].clone(),
     )
-    step = make_train_step(StepConfig(vae_scaling=SPEC.vae.scaling_factor,
-                                      first_added_token_id=FIRST_ADDED, kpl_weight=0.1,
-                                      max_grad_norm=1.0))
-    return step, state
+    return make_train_step(port_step_config()), state
+
+
+def port_step_config(**kwargs):
+    return StepConfig(vae_scaling=SPEC.vae.scaling_factor, first_added_token_id=FIRST_ADDED,
+                      kpl_weight=0.1, max_grad_norm=1.0, **kwargs)
 
 
 def _jax_draws(state):
@@ -110,26 +150,12 @@ def _jax_draws(state):
 
 
 @pytest.mark.parametrize("kpl_prompt", ["text", "null"])
-def test_port_step_matches_jax_make_train_step(kpl_prompt):
-    rng = np.random.default_rng(0)
-    bundle, base, te_params, null_emb, target_norm, jax_step, jstate, frozen = _jax_side(rng)
+def test_port_step_matches_jax_make_train_step(jax_side, kpl_prompt):
+    bundle, base, te_params, null_emb, target_norm, jax_step, jstate, frozen = jax_side
     port_step, pstate = _port_side(bundle, base, te_params, null_emb, target_norm)
-
-    ids = np.full((BATCH, 77), 49407, np.int32)
-    ids[:, 0] = 49406
-    ids[:, 1] = [2000, 2001]
-    ids[:, 2] = FIRST_ADDED  # the added token trains
-    ids[:, 3] = 3000
-    prior = np.full((BATCH, 77), 49407, np.int32)
-    prior[:, 0] = 49406
-    prior[0, 1:4] = [4000, 4001, 4002]
-    if kpl_prompt == "text":
-        prior[1, 1:3] = [5000, 5001]  # else row 1 is the null prompt (patched)
-    batch = {"pixel_values": rng.integers(0, 256, (BATCH, 128, 128, 3), dtype=np.uint8),
-             "input_ids": ids, "prior_input_ids": prior}
+    batch = _batch(np.random.default_rng(1), kpl_prompt)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    tbatch = {k: torch.from_numpy(v) if v.dtype == np.uint8 else torch.from_numpy(v).long()
-              for k, v in batch.items()}
+    tbatch = _to_torch(batch)
 
     for i in range(3):
         draws = _jax_draws(jstate)
@@ -163,12 +189,37 @@ def test_port_step_matches_jax_make_train_step(kpl_prompt):
                                        np.asarray(leaf["lora_b"]).T, rtol=0, atol=2e-5)
 
 
-def test_accumulation_averages_micro_batches():
+def test_masked_loss_matches_jax(jax_side):
+    """A hand-built batch with a per-sample mask [B, h, w, 1] at the latent
+    resolution (what TextBoostDataset.collate stacks when the augmentation
+    returns one) takes the JAX step's masked mean (step.py:159-167)."""
+    bundle, base, te_params, null_emb, target_norm, jax_step, jstate, frozen = jax_side
+    port_step, pstate = _port_side(bundle, base, te_params, null_emb, target_norm)
+    rng = np.random.default_rng(2)
+    batch = _batch(rng)
+    mask = np.zeros((BATCH, 16, 16, 1), np.float32)
+    mask[0, 2:12, 4:14] = 1.0
+    mask[1] = rng.random((16, 16, 1)) < 0.3
+    batch["mask"] = mask
+    draws = _jax_draws(jstate)
+    _, jm = jax_step(jstate, {k: jnp.asarray(v) for k, v in batch.items()}, frozen)
+    pm = port_step(pstate, _to_torch(batch), draws)
+    for key in ("loss", "kpl", "grad_norm", "added_embedding_norm", "den_loss"):
+        np.testing.assert_allclose(float(pm[key]), float(jm[key]), rtol=2e-4, atol=1e-6,
+                                   err_msg=key)
+    # The mask changes the loss: the masked branch really ran.
+    _, fresh = _port_side(bundle, base, te_params, null_emb, target_norm)
+    unmasked, _ = forward_backward(fresh, port_step_config(), _to_torch(
+        {k: v for k, v in batch.items() if k != "mask"}), draws)
+    assert abs(float(pm["loss"]) - float(unmasked)) > 1e-3
+
+
+def test_accumulation_averages_micro_batches(jax_side):
     """With --gradient_accumulation_steps 2, two identical micro-batches
     update the weights once, exactly as one step of accumulation 1 does
     (optax MultiSteps semantics: the mean of the micro-batch gradients)."""
     rng = np.random.default_rng(1)
-    bundle, base, te_params, null_emb, _, _, _, _ = _jax_side(rng)
+    bundle, base, te_params, null_emb, _, _, _, _ = jax_side
     ids = np.full((BATCH, 77), 49407, np.int64)
     ids[:, 0], ids[:, 1] = 49406, 2000
     prior = ids.copy()
@@ -183,9 +234,7 @@ def test_accumulation_averages_micro_batches():
     results = []
     for accum in (1, 2):
         _, state = _port_side(bundle, base, te_params, null_emb, 1e3)  # renorm inactive
-        step = make_train_step(StepConfig(vae_scaling=SPEC.vae.scaling_factor,
-                                          first_added_token_id=FIRST_ADDED, kpl_weight=0.1,
-                                          max_grad_norm=1.0, accumulate_steps=accum))
+        step = make_train_step(port_step_config(accumulate_steps=accum))
         before = state.text_encoder.token_embedding.weight.detach().clone()
         for i in range(accum):
             step(state, batch, draws)

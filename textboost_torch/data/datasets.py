@@ -1,12 +1,12 @@
 """Datasets: instance images and the KPL prompt stream.
 
 Counterpart of textboost_tpu/data/datasets.py (TextBoostDataset :118-289
-without augmentation and without the class-prior images of
---with_image_prior, both ROADMAP.md queue A slice 3; InstructPix2PixDataset
-:292, PriorDataset :322), drawing the same numbers from the same per-sample
-numpy generators, so the two packages give byte-identical batches for one
-seed.  Host-side numpy; images decode with PIL, imported when an image is
-read.  Batches carry uint8 NHWC pixels, normalized on the device by the
+with paired augmentation, without the class-prior images of
+--with_image_prior and the plans of --augment_device, both ROADMAP.md queue
+A slice 3; InstructPix2PixDataset :292, PriorDataset :322), drawing the
+same numbers from the same per-sample numpy generators, so the two packages
+give byte-identical batches for one seed.  Host-side numpy; images decode
+with PIL, imported when an image is read.  Batches carry uint8 NHWC pixels, normalized on the device by the
 train step.
 """
 from __future__ import annotations
@@ -48,7 +48,7 @@ def load_rgb(path):
 class _DecodedImageCache:
     """Small thread-safe LRU of decoded images: one-shot training reads the
     same instance image every step.  Copies are returned so that the caller
-    cannot change the cached original."""
+    (augmentation) cannot change the cached original."""
 
     def __init__(self, capacity: int = 64):
         self._cap = capacity
@@ -99,9 +99,11 @@ def crop_with_offsets(image, size: int, center: bool,
 
 
 class TextBoostDataset:
-    """Instance images with templated captions.
+    """Instance images with templated, optionally augmented captions.
 
-    Returns per-sample dicts of numpy arrays; batching via `collate`."""
+    Returns per-sample dicts of numpy arrays; batching via `collate`.
+    `augment_pipe` (data/augment.py::PairedAugmentation) transforms the
+    decoded image and its caption before the resize and crop."""
 
     def __init__(
         self,
@@ -111,12 +113,14 @@ class TextBoostDataset:
         template="a {}",
         size: int = 512,
         center_crop: bool = False,
+        augment_pipe=None,
         seed: int = 0,
     ):
         self.size = size
         self.center_crop = center_crop
         self.tokenizer = tokenizer
         self.template = resolve_template(template)
+        self.augment_pipe = augment_pipe
         self.seed = seed
         self._cache = _DecodedImageCache()
 
@@ -142,6 +146,10 @@ class TextBoostDataset:
         prompt_idx = int(rng.integers(0, len(self.template)))
         prompt = self.template[prompt_idx].format(instance_token)
         image = self._cache.get(path)
+        if self.augment_pipe is not None:
+            image, prompt, mask = self.augment_pipe(image, prompt, rng)
+            if mask is not None:  # [h, w] at the latent resolution
+                sample["mask"] = np.asarray(mask, dtype=np.float32)[..., None]
         sample["original_size"] = (image.width, image.height)
         sample["image"], top, left = self._prep_image(image, rng)
         sample["crop_top_left"] = (top, left)
@@ -151,10 +159,14 @@ class TextBoostDataset:
 
     @staticmethod
     def collate(samples: Sequence[Dict]) -> Dict:
-        return {
+        batch = {
             "input_ids": np.stack([s["input_ids"] for s in samples]).astype(np.int32),
             "pixel_values": np.stack([s["image"] for s in samples]),  # uint8 NHWC
+            "prompt": [s["prompt"] for s in samples],
         }
+        if "mask" in samples[0]:
+            batch["mask"] = np.stack([s["mask"] for s in samples]).astype(np.float32)
+        return batch
 
 
 class InstructPix2PixDataset:

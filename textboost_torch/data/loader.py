@@ -5,11 +5,12 @@ of the reference's DataLoader + Wrapper stack (train_textboost.py:872-909):
 an infinite stream of collated numpy batches, produced ahead of the train
 step by a thread pool.  Determinism: sample i of step s uses
 rng = default_rng((seed, s, i)), whatever the threads' scheduling, so the
-two packages yield the same bytes.
+two packages yield the same bytes, and a resumed run that starts at step s
+(`set_start_step`) yields the batches a straight run yields there.
 
-Not ported yet: the JAX loader's worker processes (`num_procs`), which let
-paired augmentation escape the GIL, come with augmentation (ROADMAP.md
-queue A, slice 3); the threads never touch CUDA.  The JAX package's
+The JAX loader's worker processes (`num_procs`) are not ported: on an H100
+host the paper run's step was no faster with them, and they took seconds
+to start (PERF.md).  The threads never touch CUDA.  The JAX package's
 DeviceBatchPrefetcher (a ring of device batches) is not ported: the trainer
 copies each host batch to the card one step ahead, from pinned memory with
 non_blocking.
@@ -55,12 +56,22 @@ class PrefetchLoader:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._start_step = 0
+
+    def set_start_step(self, step: int) -> None:
+        """Start the stream at batch `step` (a resumed run carries on where
+        the checkpoint left it instead of replaying batch 0)."""
+        if self._thread is not None:
+            raise RuntimeError("set_start_step must come before iteration starts")
+        self._start_step = int(step)
 
     def _produce(self):
         pool = ThreadPoolExecutor(max_workers=self.num_workers)
         try:
             index_iter = iter(self.indices)
-            step = 0
+            step = self._start_step
+            for _ in range(step * self.batch_size):
+                next(index_iter)
             while not self._stop.is_set():
                 idxs = [next(index_iter) for _ in range(self.batch_size)]
                 samples = list(pool.map(

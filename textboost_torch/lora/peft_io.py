@@ -88,15 +88,8 @@ def _lora_modules(text_encoder: CLIPTextModel):
     return out
 
 
-def export_lora_adapter(
-    text_encoder: CLIPTextModel,
-    out_dir: str,
-    rank: int,
-    alpha: float = None,
-    base_model_name: str = "",
-    target_modules: Sequence[str] = ("q_proj", "k_proj", "v_proj"),
-) -> str:
-    """Write a PEFT-compatible LoRA adapter dir from the encoder's adapters."""
+def lora_tensors(text_encoder: CLIPTextModel) -> Dict[str, np.ndarray]:
+    """{PEFT key: fp32 numpy copy} of the encoder's q/k/v adapters."""
     tensors: Dict[str, np.ndarray] = {}
     for (layer, proj), mod in _lora_modules(text_encoder).items():
         if mod.lora_rank == 0:
@@ -105,6 +98,18 @@ def export_lora_adapter(
             tensors[f"{PEFT_PREFIX}.{layer}.self_attn.{proj}.lora_{ab}.weight"] = (
                 lin.weight.detach().float().cpu().numpy()
             )
+    return tensors
+
+
+def write_lora_adapter(
+    tensors: Dict[str, np.ndarray],
+    out_dir: str,
+    rank: int,
+    alpha: float = None,
+    base_model_name: str = "",
+    target_modules: Sequence[str] = ("q_proj", "k_proj", "v_proj"),
+) -> str:
+    """Write a PEFT-compatible LoRA adapter dir from `lora_tensors` output."""
     os.makedirs(out_dir, exist_ok=True)
     save_safetensors(tensors, os.path.join(out_dir, "adapter_model.safetensors"))
     config = {
@@ -125,6 +130,12 @@ def export_lora_adapter(
     with open(os.path.join(out_dir, "adapter_config.json"), "w") as f:
         json.dump(config, f, indent=2)
     return out_dir
+
+
+def export_lora_adapter(text_encoder: CLIPTextModel, out_dir: str, rank: int, **kwargs) -> str:
+    """Write a PEFT-compatible LoRA adapter dir from the encoder's adapters
+    (`write_lora_adapter`'s keyword arguments pass through)."""
+    return write_lora_adapter(lora_tensors(text_encoder), out_dir, rank, **kwargs)
 
 
 @torch.no_grad()

@@ -39,19 +39,24 @@ class TextToImagePipeline:
         unet: UNet2DCondition,
         vae: AutoencoderKL,
         *,
-        null_embedding: Optional[np.ndarray] = None,
+        null_embedding=None,
         fixed_special: bool = False,
         device: Union[str, torch.device] = "cuda",
+        freeze: bool = True,
     ):
+        """`freeze` moves the modules to `device`, puts them in eval mode
+        and turns their gradients off; freeze=False takes them as they are
+        (the trainer's validation samples through its live modules)."""
         self.spec = get_spec(spec) if isinstance(spec, str) else spec
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
-        self.text_encoder, self.unet, self.vae = (
-            m.to(self.device).eval().requires_grad_(False) for m in (text_encoder, unet, vae)
-        )
+        modules = (text_encoder, unet, vae)
+        if freeze:
+            modules = (m.to(self.device).eval().requires_grad_(False) for m in modules)
+        self.text_encoder, self.unet, self.vae = modules
         self.null_embedding = (
             None if null_embedding is None
-            else torch.as_tensor(np.asarray(null_embedding, np.float32), device=self.device)
+            else torch.as_tensor(null_embedding, dtype=torch.float32, device=self.device)
         )
         self.fixed_special = fixed_special
         sch = self.spec.scheduler

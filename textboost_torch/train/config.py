@@ -209,10 +209,6 @@ def unsupported_flags(cfg: TrainConfig) -> List[str]:
     served)."""
     slice3 = "ROADMAP.md queue A, slice 3"
     out = []
-    if cfg.augment.lower() not in ("none", ""):
-        out.append(f"--augment {cfg.augment}: paired augmentation ({slice3})")
-    if cfg.augment_inversion:
-        out.append(f"--augment_inversion: augmentation tokens ({slice3})")
     if cfg.augment_device:
         out.append(f"--augment_device: device-side augmentation ({slice3})")
     if cfg.with_image_prior:
@@ -222,14 +218,10 @@ def unsupported_flags(cfg: TrainConfig) -> List[str]:
                    f"the UNet kv-LoRA ({slice3})")
     if cfg.gradient_checkpointing:
         out.append(f"--gradient_checkpointing ({slice3})")
-    if cfg.validation_prompts:
-        out.append(f"--validation_prompts: Trainer.run_validation ({slice3})")
-    if cfg.resume_from_checkpoint:
-        out.append(f"--resume_from_checkpoint: checkpoint and resume ({slice3})")
-    if cfg.checkpointing_steps and cfg.checkpointing_steps <= cfg.max_train_steps:
-        out.append(f"--checkpointing_steps {cfg.checkpointing_steps} fires within "
-                   f"--max_train_steps {cfg.max_train_steps}: checkpoint and resume "
-                   f"({slice3}); pass --checkpointing_steps 0")
+    if cfg.validation_prompts and cfg.validation_scheduler not in (
+            "dpm++2m", "DPMSolverMultistepScheduler"):
+        out.append(f"--validation_scheduler {cfg.validation_scheduler}: the port samples with "
+                   "DPM-Solver++ only (ROADMAP.md queue A: DDIM, DDPM and PNDM samplers)")
     if cfg.mesh_tp > 1 or (cfg.mesh_dp or 1) > 1:
         out.append("--mesh_tp/--mesh_dp > 1: multi-card training (ROADMAP.md queue A)")
     if cfg.text_encoder_use_attention_mask:

@@ -4,10 +4,11 @@ Counterpart of textboost_tpu/train/step.py (step.py:195-280 and `loss_fn`
 :117-193), eager PyTorch on the port's modules: VAE encode -> noise ->
 text encode (null-patched) -> frozen UNet prediction -> MSE +
 knowledge-preservation loss -> backward -> gradient surgery -> AdamW (two
-groups) -> pin original rows -> renorm added rows.  Not yet ported, with
-the features that need them (ROADMAP.md queue A, slice 3): the image-prior
-split of the batch and the augmentation masks of the loss.  The JAX step's
-min-SNR weighting is off in every config and not ported.
+groups) -> pin original rows -> renorm added rows.  A batch that carries a
+`mask` [B, h, w, 1] (latent resolution) takes the masked mean of the JAX
+step (step.py:159-167).  Not yet ported (ROADMAP.md queue A, slice 3): the
+image-prior split of the batch.  The JAX step's min-SNR weighting is off in
+every config and not ported.
 
 The random draws (posterior epsilon, noise, timesteps) come in as an
 argument, made by `sample_draws` from a `torch.Generator`, so that a test
@@ -112,7 +113,14 @@ def _loss(state: TrainState, config: StepConfig, batch, noisy, noise, latents,
     model_pred = state.unet(noisy, timesteps, hidden)
     target = (noise if config.prediction_type == "epsilon"
               else schedule.velocity(latents, noise, timesteps))
-    loss = (model_pred.float() - target.float()).square().mean()
+    sq = (model_pred.float() - target.float()).square()
+    if "mask" in batch:
+        # Per-sample masked mean over the latent, then the batch mean.
+        mask = batch["mask"].float().permute(0, 3, 1, 2)
+        loss = ((sq * mask).sum(dim=(1, 2, 3))
+                / torch.clamp(mask.sum(dim=(1, 2, 3)), min=1e-6)).mean()
+    else:
+        loss = sq.mean()
 
     kpl = torch.zeros((), device=noisy.device)
     if config.kpl_weight > 0.0:
@@ -163,7 +171,7 @@ def forward_backward(state: TrainState, config: StepConfig, batch: Dict,
 def make_train_step(config: StepConfig) -> Callable[[TrainState, Dict, Draws], Dict]:
     """The step fn(state, batch, draws) -> metrics (0-dim tensors, not
     synchronised).  `batch` holds `pixel_values` (uint8 or float NHWC),
-    `input_ids` and `prior_input_ids`, on the device."""
+    `input_ids`, `prior_input_ids` and optionally `mask`, on the device."""
     first_added = config.first_added_token_id
 
     def train_step(state: TrainState, batch: Dict, draws: Draws) -> Dict[str, torch.Tensor]:

@@ -1,30 +1,39 @@
-"""Trainer: set-up, the loop, and the final export.
+"""Trainer: set-up, the loop, checkpoints, validation and the final export.
 
 Counterpart of textboost_tpu/train/trainer.py (`_setup` :184-814 without
-the AOT, mesh, relay and warm-up machinery; the loop :853-1026;
-`save_final` :1076-1115): tokenizer -> token surgery -> models -> frozen
-text encoder captured before surgery -> embedding growth and norm stats ->
-null embedding -> schedule -> optimizer -> loaders; then one eager train
-step per (micro-)batch, metrics every 10 steps to `metrics.jsonl`, and at
-the end the PEFT `text_encoder/` adapter and `{token}.bin` files that
-`textboost_torch.inference` and the JAX `load_textboost_pipeline` load.
+the AOT, mesh, relay and warm-up machinery; the loop :853-1026; `save`
+:1032-1075; `save_final` :1076-1115; validation :1157-1321): tokenizer ->
+token surgery (placeholders, and with --augment_inversion the bank of
+augmentation tokens) -> models -> frozen text encoder captured before
+surgery -> embedding growth and norm stats -> null embedding -> schedule ->
+optimizer -> paired augmentation and loaders -> resume; then one eager
+train step per (micro-)batch, metrics every 10 steps to `metrics.jsonl`, a
+compact checkpoint every --checkpointing_steps and a validation grid every
+--validation_steps (both written on writer threads, joined at the end),
+and at the end the PEFT `text_encoder/` adapter and `{token}.bin` files
+that `textboost_torch.inference` and the JAX `load_textboost_pipeline`
+load.
 
 Flags the port does not serve yet raise NotImplementedError here
 (train/config.py::unsupported_flags).
 """
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import json
 import logging
 import os
+import re
+import threading
 import time
-from typing import Dict, List, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
+from ..data.augment import PairedAugmentation
 from ..data.datasets import InstructPix2PixDataset, PriorDataset, TextBoostDataset
 from ..data.loader import PrefetchLoader
 from ..data.sharding import process_shard_info
@@ -36,15 +45,72 @@ from ..models.layers import set_impl
 from ..models.pretrained import load_models
 from ..models.textboost import load_null_embedding_asset
 from ..ops.schedule import NoiseSchedule
-from ..tokens.surgery import plan_token_addition
+from ..pipelines.text_to_image import TextToImagePipeline
+from ..tokens.surgery import OBJECT_AUGMENTATIONS, STYLE_AUGMENTATIONS, plan_token_addition
 from ..utils.profiling import StepTimer, device_memory_stats
 from ..utils.trackers import Trackers
+from . import checkpoint
 from .config import TrainConfig, unsupported_flags
 from .step import StepConfig, TrainState, make_train_step, sample_draws
 
 logger = logging.getLogger("textboost_torch")
 
 ATTENTION_IMPLS = {"auto": "auto", "xla": "math"}  # --attention_impl -> the port's impl
+WRITER_TIMEOUT_S = 600.0
+
+
+def _join_writers(threads: List[threading.Thread], kind: str) -> None:
+    """Join writer threads; a thread's kept exception is raised here, so a
+    failed write fails the run (as the reference's synchronous save would)."""
+    for t in threads:
+        t.join(WRITER_TIMEOUT_S)
+        if t.is_alive():
+            raise RuntimeError(f"{kind} writer {t.name} did not finish within "
+                               f"{WRITER_TIMEOUT_S:.0f} s")
+        if t.exception is not None:
+            raise RuntimeError(f"{kind} writer {t.name} failed") from t.exception
+
+
+@dataclasses.dataclass
+class TokenPlan:
+    """The tokens a run adds, registered with the tokenizer in id order."""
+
+    token_to_id: Dict[str, int]  # every added token -> its id
+    concept_tokens: Dict[str, str]  # instance/placeholder token -> its joined sub-tokens
+    caption_map: Optional[Dict[str, str]]  # augmentation placeholder -> its joined sub-tokens
+    aug_tokens: List[str]  # the augmentation sub-tokens ([1, hidden] bins at export)
+    init_row_ids: List[int]  # the initializer rows the added rows copy
+    new_row_ids: List[int]  # the added rows
+
+
+def plan_tokens(tokenizer, concepts: List[Dict], initializer_token: str, *,
+                augment_inversion: bool = False, augment_ops: str = "object") -> TokenPlan:
+    """Tokenizer side of the token surgery (textboost_tpu/train/trainer.py:
+    213-275): each concept's placeholder, then with `augment_inversion` the
+    bank of augmentation tokens (OBJECT_AUGMENTATIONS or STYLE_AUGMENTATIONS
+    by `augment_ops`), each expanded to one token per initializer
+    sub-token.  Prompts use the sub-tokens joined by spaces."""
+    plan = TokenPlan({}, {}, None, [], [], [])
+    for concept in concepts:
+        placeholder = concept.get("placeholder_token") or concept["instance_token"]
+        initializer = concept.get("initializer_token") or initializer_token
+        toks, pids, iids = plan_token_addition(tokenizer, placeholder, initializer)
+        plan.init_row_ids += iids
+        plan.new_row_ids += pids
+        plan.token_to_id.update(zip(toks, pids))
+        plan.concept_tokens[concept["instance_token"]] = " ".join(toks)
+        plan.concept_tokens[placeholder] = " ".join(toks)
+    if augment_inversion:
+        bank = OBJECT_AUGMENTATIONS if augment_ops == "object" else STYLE_AUGMENTATIONS
+        plan.caption_map = {}
+        for placeholder, initializer in bank.items():
+            toks, pids, iids = plan_token_addition(tokenizer, placeholder, initializer)
+            plan.init_row_ids += iids
+            plan.new_row_ids += pids
+            plan.token_to_id.update(zip(toks, pids))
+            plan.aug_tokens += toks
+            plan.caption_map[placeholder] = " ".join(toks)
+    return plan
 
 
 class Trainer:
@@ -110,21 +176,12 @@ class Trainer:
             )
         self.concepts = cfg.resolve_concepts()
         first_added_id = len(self.tokenizer)
-        self.token_to_id: Dict[str, int] = {}
-        self.concept_tokens: Dict[str, str] = {}
-        init_row_ids: List[int] = []
-        new_row_ids: List[int] = []
-        for concept in self.concepts:
-            placeholder = concept.get("placeholder_token") or concept["instance_token"]
-            initializer = concept.get("initializer_token") or cfg.initializer_token
-            toks, pids, iids = plan_token_addition(self.tokenizer, placeholder, initializer)
-            init_row_ids += iids
-            new_row_ids += pids
-            for tok, tid in zip(toks, pids):
-                self.token_to_id[tok] = tid
-            joined = " ".join(toks)  # multi-vector prompts use the expanded identifier
-            self.concept_tokens[concept["instance_token"]] = joined
-            self.concept_tokens[placeholder] = joined
+        plan = plan_tokens(self.tokenizer, self.concepts, cfg.initializer_token,
+                           augment_inversion=cfg.augment_inversion,
+                           augment_ops=cfg.augment_ops)
+        self.token_to_id, self.concept_tokens = plan.token_to_id, plan.concept_tokens
+        self.caption_map, self.aug_tokens = plan.caption_map, plan.aug_tokens
+        init_row_ids, new_row_ids = plan.init_row_ids, plan.new_row_ids
         assert new_row_ids == list(range(first_added_id, first_added_id + len(new_row_ids))), (
             f"non-sequential added token ids: {new_row_ids}")
         if init_row_ids and max(init_row_ids) >= first_added_id:
@@ -197,13 +254,25 @@ class Trainer:
               f"(LoRA r={cfg.lora_rank} + {len(self.token_to_id)} token embeddings)")
 
         # ---- data (:857-909) ----
+        augment_pipe = None
+        if cfg.augment.lower() in ("pda", "paug"):
+            augment_pipe = PairedAugmentation(
+                # hflip joins the geometric bank under inversion, so that the
+                # <hflip> token trains (train_textboost.py:857-870).
+                hflip="inversion" if cfg.augment_inversion else "false",
+                inversion=cfg.augment_inversion, p=cfg.augment_p,
+                augment_prompt=bool(cfg.augment_prompt), ops=cfg.augment_ops,
+                caption_map=self.caption_map, seed=cfg.seed,
+            )
+        elif cfg.augment.lower() not in ("none", ""):
+            raise ValueError(f"Unknown augment mode: {cfg.augment}")
         concepts_for_ds = [{**c, "instance_token": self.concept_tokens[c["instance_token"]]}
                            for c in self.concepts]
         shard_id, num_shards = process_shard_info()
         dataset = TextBoostDataset(
             concepts_for_ds, self.tokenizer, num_instance=cfg.num_samples,
             template=cfg.template, size=cfg.resolution, center_crop=cfg.center_crop,
-            seed=cfg.seed,
+            augment_pipe=augment_pipe, seed=cfg.seed,
         )
         cpus = os.cpu_count() or 1
         self.train_loader = PrefetchLoader(
@@ -250,6 +319,34 @@ class Trainer:
         self.latent_shape = (spec.vae.latent_channels, cfg.resolution // 8, cfg.resolution // 8)
         mark("step + state built")
 
+        self._ckpt_threads: List[threading.Thread] = []
+        self._val_threads: List[threading.Thread] = []
+        self._val_pipe: Optional[TextToImagePipeline] = None
+        # Seconds of each checkpoint (snapshot on the loop, write on its
+        # thread) and validation round (sampling, on the loop).
+        self.timings: Dict[str, List[float]] = collections.defaultdict(list)
+        self.augmentation_counts: collections.Counter = collections.Counter()
+
+        # ---- resume (:759-781) ----
+        self.start_step = 0
+        if cfg.resume_from_checkpoint:
+            path = (cfg.output_dir if cfg.resume_from_checkpoint == "latest"
+                    else cfg.resume_from_checkpoint)
+            ckpt = checkpoint.resolve_checkpoint(path)
+            if ckpt is None:
+                logger.info("No checkpoint found at %s; starting fresh", path)
+            else:
+                restored = checkpoint.restore_checkpoint(
+                    ckpt, te, optimizer, scheduler, self.generator, first_added_id)
+                self.start_step = restored["step"]
+                self.state.step = restored["micro_step"]
+                # Carry on the data stream instead of replaying batch 0 (the
+                # loaders count micro-batches).
+                accum = max(cfg.gradient_accumulation_steps, 1)
+                self.train_loader.set_start_step(self.start_step * accum)
+                self.prior_loader.set_start_step(self.start_step * accum)
+                logger.info("Resumed from %s at step %d", ckpt, self.start_step)
+
     # ------------------------------------------------------------------
     def _device_batch(self, batch: Dict, prior_batch: Dict) -> Dict[str, torch.Tensor]:
         """Host numpy batch -> tensors on the device (pinned, non_blocking
@@ -259,6 +356,8 @@ class Trainer:
             "input_ids": batch["input_ids"].astype(np.int64),
             "prior_input_ids": prior_batch["input_ids"].astype(np.int64),
         }
+        if "mask" in batch:
+            arrays["mask"] = batch["mask"]
         cuda = self.device.type == "cuda"
         out = {}
         for k, v in arrays.items():
@@ -271,6 +370,14 @@ class Trainer:
                             latent_shape=self.latent_shape, schedule=self.schedule,
                             weighted_timesteps=self.step_config.weighted_timesteps)
 
+    def _count_augmentations(self, prompts: List[str]) -> None:
+        """Count the samples whose caption carries each augmentation token."""
+        self.augmentation_counts["samples"] += len(prompts)
+        for prompt in prompts:
+            found = [p for p, toks in (self.caption_map or {}).items() if toks in prompt]
+            self.augmentation_counts.update(found)
+            self.augmentation_counts["augmented"] += bool(found)
+
     def train(self) -> Dict[str, float]:
         try:
             return self._train()
@@ -282,34 +389,41 @@ class Trainer:
         cfg = self.config
         train_iter, prior_iter = iter(self.train_loader), iter(self.prior_loader)
         self._log_metrics(0, {"max_norm": 0.0, "mean_norm": self.mean_norm})
-        step = 0
+        step = self.start_step
         start_time = time.perf_counter()
         timer = StepTimer()
         last_metrics: Dict[str, float] = {}
         accum = max(cfg.gradient_accumulation_steps, 1)
         loop_t = {"dispatch_ms": 0.0, "host_wait_ms": 0.0, "h2d_ms": 0.0}
-        window_start = 0
+        window_start = step
         profiler = None
-        next_batch = self._device_batch(next(train_iter), next(prior_iter))
+        t0 = time.perf_counter()
+        host = (next(train_iter), next(prior_iter))
+        # The wait for each step's host batches, the first (before the loop:
+        # the producers' start) apart.
+        host_waits = [(time.perf_counter() - t0) * 1000]
+        next_batch, next_prompts = self._device_batch(*host), host[0]["prompt"]
         while step < cfg.max_train_steps:
-            if cfg.profile_dir and step == 5:  # trace steps [5, 15) of the run
+            if cfg.profile_dir and step - self.start_step == 5:  # trace steps [5, 15) of the run
                 profiler = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
                 profiler.start()
             for _ in range(accum):
                 batch = next_batch
+                self._count_augmentations(next_prompts)
                 t0 = time.perf_counter()
                 metrics = self.train_step(self.state, batch, self._draws())
                 t1 = time.perf_counter()
                 host = (next(train_iter), next(prior_iter))
                 t2 = time.perf_counter()
-                next_batch = self._device_batch(*host)
+                next_batch, next_prompts = self._device_batch(*host), host[0]["prompt"]
                 t3 = time.perf_counter()
                 loop_t["dispatch_ms"] += (t1 - t0) * 1000
                 loop_t["host_wait_ms"] += (t2 - t1) * 1000
+                host_waits.append((t2 - t1) * 1000)
                 loop_t["h2d_ms"] += (t3 - t2) * 1000
             step += 1
-            if profiler is not None and step == 15:
+            if profiler is not None and step - self.start_step == 15:
                 profiler.stop()
                 os.makedirs(cfg.profile_dir, exist_ok=True)
                 profiler.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
@@ -328,16 +442,148 @@ class Trainer:
                 if step % 100 == 0:
                     last_metrics.update(device_memory_stats(self.device))
                 self._log_metrics(step, last_metrics)
+            if cfg.checkpointing_steps and step % cfg.checkpointing_steps == 0:
+                self.save(step)
+            if (cfg.validation_prompts and cfg.validation_steps
+                    and step % cfg.validation_steps == 0):
+                self.run_validation(step)
         if profiler is not None:
             profiler.stop()
 
         wall = time.perf_counter() - start_time
         logger.info("Training took %.1f seconds.", wall)
         print(f"Training took {wall:.1f} seconds.")
+        # The writers' time overlapped the loop; they land before the run
+        # is declared done (:1016-1022).
+        self.join_checkpoint_writers()
+        self.join_validation_writers()
+        if self.caption_map:
+            logger.info("Augmentation tokens in the captions: %s", dict(self.augmentation_counts))
         self.save_final()
         self._trackers.finish()
         self._metrics_file.close()
-        return {"wall_time_s": wall, "steps": step, **last_metrics}
+        result = {"wall_time_s": wall, "steps": step, **last_metrics,
+                  "host_wait_ms_by_step": host_waits}
+        result.update({f"{key}_ms": 1e3 * sum(values) / len(values)
+                       for key, values in self.timings.items() if values})
+        result.update({f"aug:{k}": float(n) for k, n in self.augmentation_counts.items()})
+        return result
+
+    # ------------------------------------------------------------------
+    def save(self, step: int) -> str:
+        """Compact checkpoint `checkpoint-{step}/` (train/checkpoint.py): the
+        snapshot is copied to the host here, the files are written on a
+        writer thread.  The previous writer is joined first, before the
+        pruning can remove a dir it is writing."""
+        self.join_checkpoint_writers()
+        cfg = self.config
+        t0 = time.perf_counter()
+        payload = checkpoint.snapshot(
+            self.text_encoder, self.state.optimizer, self.state.lr_scheduler, self.generator,
+            step=step, micro_step=self.state.step, first_added_id=self.first_added_id)
+        self.timings["checkpoint_snapshot"].append(time.perf_counter() - t0)
+        path, thread = checkpoint.save_checkpoint(
+            cfg.output_dir, step, payload, total_limit=cfg.checkpoints_total_limit,
+            first_added_id=self.first_added_id,
+            token_to_id=self.token_to_id, aug_tokens=self.aug_tokens,
+            lora_rank=cfg.lora_rank,
+            base_model_name=cfg.pretrained_model_name_or_path or self.bundle.spec.name)
+        self._ckpt_threads.append(thread)
+        logger.info("Saving state to %s", path)
+        return path
+
+    def join_checkpoint_writers(self) -> None:
+        """Wait for the checkpoint writers; raise if one failed."""
+        threads, self._ckpt_threads = self._ckpt_threads, []
+        _join_writers(threads, "checkpoint")
+        self.timings["checkpoint_write"] += [t.seconds for t in threads]
+
+    # ------------------------------------------------------------------
+    def validation_prompt_list(self) -> List[str]:
+        """Validation prompts with `<{i}>` replaced by concept i's tokens
+        (train_textboost.py:503-505) and the `<i>` alias by the first
+        concept's, each repeated num_validation_images times (:508-512)."""
+        cfg = self.config
+        first = self.concept_tokens[self.concepts[0]["instance_token"]]
+        subs = []
+        for prompt in cfg.validation_prompts or []:
+            for i, concept in enumerate(self.concepts):
+                prompt = prompt.replace(f"<{i}>", self.concept_tokens[concept["instance_token"]])
+            prompt = prompt.replace("<i>", first)
+            leftover = re.findall(r"<\d+>", prompt)
+            if leftover:
+                logger.warning(
+                    "validation prompt %r keeps unresolved placeholder(s) %s — only indices "
+                    "0..%d are defined (use <0>..<%d> or the <i> alias for the first concept)",
+                    prompt, leftover, len(self.concepts) - 1, len(self.concepts) - 1)
+            subs.append(prompt)
+        if not subs:
+            subs = [f"a photo of {first}"]
+        n = max(cfg.num_validation_images, 1)
+        return [p for p in subs for _ in range(n)]
+
+    def _validation_pipe(self) -> TextToImagePipeline:
+        """The sampling pipeline over the LIVE text encoder, UNet and VAE
+        (no copy of the weights; the grown embedding is read as it is now),
+        built once and kept across rounds."""
+        if self._val_pipe is None:
+            self._val_pipe = TextToImagePipeline(
+                self.bundle.spec, self.tokenizer, self.text_encoder, self.bundle.unet,
+                self.bundle.vae, null_embedding=self.null_embedding, fixed_special=True,
+                device=self.device, freeze=False)
+        return self._val_pipe
+
+    def join_validation_writers(self) -> None:
+        """Wait for the validation writers; raise if one failed."""
+        threads, self._val_threads = self._val_threads, []
+        _join_writers(threads, "validation")
+
+    def run_validation(self, step: int) -> str:
+        """log_validation counterpart (train_textboost.py:453-531): sample
+        num_validation_images per substituted prompt from the live weights
+        (25 DPM-Solver++ steps, CFG 7.5, latents from a generator of its own
+        seeded with --seed, in eval mode, then the modules' modes back) and
+        write a (prompts x images) grid to validation_{step}.jpg.  The grid
+        and the trackers' images are written on a writer thread, joined
+        before the next round and at the end of train()."""
+        cfg = self.config
+        self.join_validation_writers()
+        pipe = self._validation_pipe()
+        prompts = self.validation_prompt_list()
+        logger.info("Running validation with prompts: %s", prompts)
+        modules = (self.text_encoder, self.bundle.unet, self.bundle.vae)
+        modes = [m.training for m in modules]
+        t0 = time.perf_counter()
+        try:
+            for m in modules:
+                m.eval()
+            images = pipe(prompts, num_inference_steps=25, guidance_scale=7.5,
+                          generator=torch.Generator(self.device).manual_seed(cfg.seed))
+        finally:
+            for m, mode in zip(modules, modes):
+                m.train(mode)
+        self.timings["validation"].append(time.perf_counter() - t0)
+        path = os.path.join(cfg.output_dir, f"validation_{step}.jpg")
+        n = max(cfg.num_validation_images, 1)
+
+        def run():
+            from PIL import Image
+
+            try:
+                rows = [np.concatenate(list(images[r:r + n]), axis=1)
+                        for r in range(0, len(prompts), n)]
+                grid = np.concatenate(rows, axis=0)
+                Image.fromarray(grid).save(path)
+                self._trackers.log_images("validation", [grid], step, captions=prompts[:1])
+                logger.info("Wrote validation grid %s", path)
+            except BaseException as e:  # noqa: BLE001 — re-raised at the join
+                thread.exception = e
+
+        thread = threading.Thread(target=run, daemon=True, name=f"val-writer-{step}")
+        thread.exception = None
+        self._val_threads.append(thread)
+        thread.start()
+        return path
 
     # ------------------------------------------------------------------
     def save_final(self):
@@ -352,4 +598,5 @@ class Trainer:
         tokens = list(self.token_to_id)
         ids = torch.as_tensor([self.token_to_id[t] for t in tokens], device=self.device)
         rows = self.text_encoder.token_embedding.weight.detach()[ids]
-        export_token_embeddings(rows, {t: i for i, t in enumerate(tokens)}, cfg.output_dir)
+        export_token_embeddings(rows, {t: i for i, t in enumerate(tokens)}, cfg.output_dir,
+                                aug_tokens=self.aug_tokens)
