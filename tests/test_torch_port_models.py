@@ -28,6 +28,17 @@ from textboost_torch.models.textboost import apply_null_embedding_patch
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny models run thousands of small ops; with the suite's other
+    processes on every core, torch's thread pool waits on its own threads
+    at each op far longer than one thread takes to do the work."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_tiny():
     return jax_load_models(preset="tiny", lora_rank=4, dtype=jnp.float32)

@@ -264,7 +264,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'textboost_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'textboost_tpu', 'transformers'))\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('textboost_torch')]))\n"
     )

@@ -20,11 +20,23 @@ from textboost_tpu.pipelines.loading import load_textboost_pipeline as jax_load_
 from textboost_tpu.pipelines.text_to_image import to_uint8 as jax_to_uint8
 from textboost_torch import inference
 from textboost_torch.lora import peft_io
+from textboost_torch.lora.partition import lora_parameters
 from textboost_torch.models.configs import get_spec
 from textboost_torch.models.convert import state_dict_from_jax
 from textboost_torch.models.pretrained import ModelBundle, build_models, load_models
 from textboost_torch.pipelines import loading
 from textboost_torch.pipelines.text_to_image import to_uint8
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny models run thousands of small ops; with the suite's other
+    processes on every core, torch's thread pool waits on its own threads
+    at each op far longer than one thread takes to do the work."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -115,11 +127,28 @@ def test_generate_and_main_on_cpu(jax_model_dir, tmp_path):
     assert os.path.getsize(out) > 0
 
 
-def test_unet_adapter_dir_is_refused(tmp_path):
-    (tmp_path / "unet").mkdir()
-    (tmp_path / "unet" / "adapter_model.safetensors").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="UNet"):
-        loading.load_textboost_pipeline(str(tmp_path), "tiny", device="cpu")
+def test_unet_adapter_dir_is_loaded(tmp_path):
+    """A model dir with a `unet/` adapter (--unet_params_to_train
+    crossattn_kv) loads into the UNet's cross-attention LoRA, with the
+    adapter's rank, and changes the images."""
+    unet = load_models("tiny", unet_lora_rank=2, dtype=torch.float32, device="cpu").unet
+    with torch.no_grad():
+        for p in lora_parameters(unet):
+            p.normal_(0.0, 0.3)
+    peft_io.export_unet_lora_adapter(unet, str(tmp_path / "model" / "unet"), rank=2)
+    (tmp_path / "base").mkdir()
+    pipes = [loading.load_textboost_pipeline(str(tmp_path / name), "tiny", dtype=torch.float32,
+                                             device="cpu") for name in ("model", "base")]
+    want, got = peft_io.unet_lora_tensors(unet), peft_io.unet_lora_tensors(pipes[0].unet)
+    n_cross = sum(name.endswith(".attn2") for name, _ in unet.named_modules())
+    assert len(want) == 4 * n_cross and got.keys() == want.keys()  # A/B of to_k and to_v
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert pipes[1].unet.cross_lora_rank == 0
+    latents = np.random.default_rng(0).standard_normal((1, 16, 16, 4)).astype(np.float32)
+    images = [pipe(["a photo of a dog"], num_inference_steps=2, latents=latents)
+              for pipe in pipes]
+    assert not np.array_equal(*images)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):

@@ -412,17 +412,40 @@ def test_config_has_flag_parity_with_the_jax_cli():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--with_image_prior", "--class_data_dir", "x", "--class_token", "dog"], "image prior"),
-    (["--unet_params_to_train", "crossattn_kv"], "kv-LoRA"),
-    (["--gradient_checkpointing"], "gradient_checkpointing"),
     (["--mesh_tp", "2"], "multi-card"),
-    (["--text_encoder_use_attention_mask"], "attention_mask"),
     (["--augment_device"], "device-side augmentation"),
 ])
 def test_unserved_flags_raise_at_setup(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         train_main(["--device", "cpu", "--model_preset", "tiny", "--output_dir", str(tmp_path),
                     "--max_train_steps", "10", *flags])
+
+
+@pytest.mark.parametrize("flag", ["image_prior", "kv_lora", "gradient_checkpointing",
+                                  "attention_mask"])
+def test_served_flags_train_one_step_on_cpu(instance_dir, tmp_path, flag):
+    """The four flags the port once refused train one step through the CLI;
+    the image prior first tops its empty class dir up to 2 generated images."""
+    class_dir = tmp_path / "class"
+    extra = {"image_prior": ["--with_image_prior", "--class_data_dir", str(class_dir),
+                             "--class_token", "dog", "--num_prior_images", "2",
+                             "--sample_batch_size", "2"],
+             "kv_lora": ["--unet_params_to_train", "crossattn_kv"],
+             "gradient_checkpointing": ["--gradient_checkpointing"],
+             "attention_mask": ["--text_encoder_use_attention_mask"]}[flag]
+    out = str(tmp_path / "out")
+    metrics = train_main([
+        "--device", "cpu", "--model_preset", "tiny", "--instance_data_dir", instance_dir,
+        "--output_dir", out, "--placeholder_token", "<v*>", "--initializer_token", "dog",
+        "--max_train_steps", "1", "--train_batch_size", "1", "--resolution", "128",
+        "--checkpointing_steps", "0", "--report_to", "none", *extra])
+    assert metrics["steps"] == 1 and np.isfinite(metrics["loss"])
+    assert (metrics["prior_loss"] > 0) == (flag == "image_prior")
+    if flag == "image_prior":
+        names = sorted(os.listdir(class_dir))
+        assert len(names) == 2 and all(n.endswith("-a_photo_of_dog.jpg") for n in names)
+    assert os.path.isfile(os.path.join(out, "unet", "adapter_model.safetensors")) == (
+        flag == "kv_lora")
 
 
 def test_cli_trains_on_cpu_and_the_jax_pipeline_loads_its_output(instance_dir, tmp_path):

@@ -1,11 +1,12 @@
-"""Datasets: instance images and the KPL prompt stream.
+"""Datasets: instance (and class-prior) images, the KPL prompt stream, and
+the prompts of prior generation.
 
 Counterpart of textboost_tpu/data/datasets.py (TextBoostDataset :118-289
-with paired augmentation, without the class-prior images of
---with_image_prior and the plans of --augment_device, both ROADMAP.md queue
-A slice 3; InstructPix2PixDataset :292, PriorDataset :322), drawing the
-same numbers from the same per-sample numpy generators, so the two packages
-give byte-identical batches for one seed.  Host-side numpy; images decode
+with paired augmentation and the class-prior images of --with_image_prior,
+without the plans of --augment_device, ROADMAP.md queue A;
+InstructPix2PixDataset :292, PriorDataset :322, PromptDataset :377),
+drawing the same numbers from the same per-sample numpy generators, so the
+two packages give byte-identical batches for one seed.  Host-side numpy; images decode
 with PIL, imported when an image is read.  Batches carry uint8 NHWC pixels, normalized on the device by the
 train step.
 """
@@ -103,7 +104,12 @@ class TextBoostDataset:
 
     Returns per-sample dicts of numpy arrays; batching via `collate`.
     `augment_pipe` (data/augment.py::PairedAugmentation) transforms the
-    decoded image and its caption before the resize and crop."""
+    decoded image and its caption before the resize and crop.  With
+    `prior_data_root` (--with_image_prior) each sample also carries a class
+    image (the first `num_prior` files of the dir, in name order) with its
+    caption: the instance template filled with `class_token`, else the
+    caption in the file name (`{i}-{sha1}-{caption}.jpg`, written by
+    train/prior_generation.py)."""
 
     def __init__(
         self,
@@ -111,6 +117,9 @@ class TextBoostDataset:
         tokenizer,
         num_instance: Optional[int] = None,
         template="a {}",
+        prior_data_root: Optional[str] = None,
+        class_token: Optional[str] = None,
+        num_prior: Optional[int] = None,
         size: int = 512,
         center_crop: bool = False,
         augment_pipe=None,
@@ -129,9 +138,20 @@ class TextBoostDataset:
             for p in get_images_path(concept["instance_data_dir"], num_instance):
                 self.instance_images_path.append((p, concept["instance_token"]))
         self.num_instance_images = len(self.instance_images_path)
+        self._length = self.num_instance_images
+
+        self.class_token = class_token
+        self.prior_data_root = None
+        if prior_data_root is not None:
+            self.prior_data_root = Path(prior_data_root)
+            self.prior_data_root.mkdir(parents=True, exist_ok=True)
+            self.class_images_path = sorted(self.prior_data_root.iterdir())
+            self.num_prior_images = (min(len(self.class_images_path), num_prior)
+                                     if num_prior is not None else len(self.class_images_path))
+            self._length = max(self.num_prior_images, self.num_instance_images)
 
     def __len__(self):
-        return self.num_instance_images
+        return self._length
 
     def _prep_image(self, image, rng) -> Tuple[np.ndarray, int, int]:
         image = resize_shorter_side(image, self.size)
@@ -155,17 +175,42 @@ class TextBoostDataset:
         sample["crop_top_left"] = (top, left)
         sample["input_ids"] = tokenize_prompt(self.tokenizer, prompt)[0]
         sample["prompt"] = prompt
+
+        if self.prior_data_root:
+            prior_path = self.class_images_path[index % self.num_prior_images]
+            prior_image = self._cache.get(prior_path)
+            if self.class_token is not None:
+                prior_prompt = self.template[prompt_idx].format(self.class_token)
+            else:  # the caption in the generated file name: idx-hash-caption.jpg
+                prior_prompt = (os.path.basename(prior_path).split("-")[1].split(".")[0]
+                                .replace("_", " "))
+            if "mask" in sample:  # class images are not augmented: all of each counts
+                sample["prior_mask"] = np.ones_like(sample["mask"])
+            sample["class_image"], ptop, pleft = self._prep_image(prior_image, rng)
+            sample["class_crop_top_left"] = (ptop, pleft)
+            sample["class_input_ids"] = tokenize_prompt(self.tokenizer, prior_prompt)[0]
         return sample
 
     @staticmethod
-    def collate(samples: Sequence[Dict]) -> Dict:
+    def collate(samples: Sequence[Dict], with_prior_preservation: bool = False) -> Dict:
+        """Class examples are concatenated AFTER the instance examples, so
+        that the image prior runs in the same forward pass
+        (dataset.py:430-436); `prompt` keeps the instance captions."""
+        input_ids = [s["input_ids"] for s in samples]
+        pixel_values = [s["image"] for s in samples]
+        if with_prior_preservation:
+            input_ids += [s["class_input_ids"] for s in samples]
+            pixel_values += [s["class_image"] for s in samples]
         batch = {
-            "input_ids": np.stack([s["input_ids"] for s in samples]).astype(np.int32),
-            "pixel_values": np.stack([s["image"] for s in samples]),  # uint8 NHWC
+            "input_ids": np.stack(input_ids).astype(np.int32),
+            "pixel_values": np.stack(pixel_values),  # uint8 NHWC
             "prompt": [s["prompt"] for s in samples],
         }
         if "mask" in samples[0]:
-            batch["mask"] = np.stack([s["mask"] for s in samples]).astype(np.float32)
+            masks = [s["mask"] for s in samples]
+            if "prior_mask" in samples[0]:
+                masks += [s["prior_mask"] for s in samples]
+            batch["mask"] = np.stack(masks).astype(np.float32)
         return batch
 
 
@@ -248,3 +293,17 @@ class PriorDataset:
             "prompt": [s["prompt"] for s in samples],
             "input_ids": np.stack([s["input_ids"] for s in samples]).astype(np.int32),
         }
+
+
+class PromptDataset:
+    """Index-stamped prompts for prior image generation (dataset.py:694-726)."""
+
+    def __init__(self, prompt: str, num_samples: int):
+        self.prompt = prompt
+        self.num_samples = num_samples
+
+    def __len__(self):
+        return self.num_samples
+
+    def __getitem__(self, index: int):
+        return {"prompt": self.prompt, "index": index}

@@ -4,8 +4,8 @@ plus --device).
     python -m textboost_torch.inference <model dir> --model sd15 \\
         --prompt "photo of a <v*> dog" --seeds 0 1 2 3 --output grid.jpg
 
-Loads a trained TextBoost model dir (PEFT adapter + token bins) over a base
-model, samples one prompt across the seeds with DPM-Solver++ in one batched
+Loads a trained TextBoost model dir (PEFT adapters + token bins) over a base
+model (`--model`: a preset name or a local diffusers snapshot dir), samples one prompt across the seeds with DPM-Solver++ in one batched
 call, and writes per-seed images or a 1xN grid.  Each seed's latent is drawn
 as [1, h, w, 4] from `torch.Generator(device).manual_seed(seed)`: the JAX
 package's threefry latents cannot be reproduced, so the two CLIs give
@@ -21,7 +21,8 @@ import torch
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     parser.add_argument("path", type=str, help="path to model")
-    parser.add_argument("--model", type=str, default="sd21base")
+    parser.add_argument("--model", type=str, default="sd21base",
+                        help="base model: a preset name or a diffusers snapshot dir")
     parser.add_argument(
         "--prompt", type=str, default="photo of a <dog> dog",
         help="[<INSTANCE> SUBJECT] for TextBoost models.",

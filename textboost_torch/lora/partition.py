@@ -2,13 +2,18 @@
 
 Counterpart of textboost_tpu/lora/partition.py, over the port's modules
 instead of param trees.  Two groups train: the token embedding (at
-`emb_learning_rate`) and the text encoder's LoRA adapters (at
-`learning_rate`); everything else is frozen (train_textboost.py:829-854).
+`emb_learning_rate`) and the LoRA adapters (at `learning_rate`): the text
+encoder's, and with `--unet_params_to_train crossattn_kv` the UNet's
+cross-attention to_k/to_v adapters too (the JAX package labels both
+`lora`, `param_labels` :29-42, and trains `split_lora`'s half of the UNet
+beside the text encoder, :168-190); everything else is frozen
+(train_textboost.py:829-854).
 The surgery of the reference's step (:1109-1150) works on `.grad` and the
 weights in place: original-vocab rows get no gradient, the `--mixing` mask
 splits lora_B between object and style, the encoder-only clip runs once on
 the accumulated gradients, original rows are pinned after the AdamW step,
-and added rows are renormalised.
+and added rows are renormalised; of these only the mixing mask, which the
+JAX package applies to every lora_b, reaches the UNet's adapters.
 
 optax's `adamw` and torch's `AdamW` give the same update (decoupled decay,
 the same bias correction), but torch decays every row of the embedding,
@@ -19,12 +24,13 @@ vocabulary exactly after each step, as the JAX step zeroes their updates
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 import torch
 from torch import nn
 
-from ..models.clip import CLIPTextModel, LoRALinear
+from ..models.clip import CLIPTextModel
+from ..models.layers import LoRALinear
 
 EMB_LABEL = "embedding"
 LORA_LABEL = "lora"
@@ -44,13 +50,17 @@ def param_labels(text_encoder: CLIPTextModel) -> Dict[str, str]:
     return {name: label(name) for name, _ in text_encoder.named_parameters()}
 
 
-def lora_parameters(text_encoder: CLIPTextModel) -> List[nn.Parameter]:
-    return [mod.weight for m in text_encoder.modules() if isinstance(m, LoRALinear)
+def lora_parameters(model: nn.Module) -> List[nn.Parameter]:
+    """The A and B weights of every LoRA adapter of `model` (the text
+    encoder's q/k/v, or the UNet's cross-attention to_k/to_v)."""
+    return [mod.weight for m in model.modules() if isinstance(m, LoRALinear)
             and m.lora_rank > 0 for mod in (m.lora_A, m.lora_B)]
 
 
-def set_trainable(text_encoder: CLIPTextModel) -> List[nn.Parameter]:
-    """requires_grad on the token embedding and the LoRA adapters only;
+def set_trainable(text_encoder: CLIPTextModel,
+                  unet: Optional[nn.Module] = None) -> List[nn.Parameter]:
+    """requires_grad on the token embedding and the LoRA adapters only (the
+    UNet's adapters too when `unet` is given; the rest of it stays frozen);
     returns the trainable parameters."""
     labels = param_labels(text_encoder)
     params = []
@@ -58,6 +68,10 @@ def set_trainable(text_encoder: CLIPTextModel) -> List[nn.Parameter]:
         p.requires_grad_(labels[name] != FROZEN_LABEL)
         if p.requires_grad:
             params.append(p)
+    if unet is not None:
+        unet.requires_grad_(False)
+        for p in lora_parameters(unet):
+            params.append(p.requires_grad_(True))
     return params
 
 
@@ -72,13 +86,13 @@ def zero_original_vocab_rows(embedding_grad: torch.Tensor, first_added_id: int) 
 
 
 @torch.no_grad()
-def apply_mixing_mask(text_encoder: CLIPTextModel, augment_ops: str = "object") -> None:
+def apply_mixing_mask(model: nn.Module, augment_ops: str = "object") -> None:
     """Partition lora_B capacity between object and style
-    (train_textboost.py:1119-1126).  torch lora_B.weight is [out, r], so the
-    mask runs over dim 0: object zeroes the odd output rows' gradients,
-    style the even ones."""
+    (train_textboost.py:1119-1126) in every adapter of `model`.  torch
+    lora_B.weight is [out, r], so the mask runs over dim 0: object zeroes
+    the odd output rows' gradients, style the even ones."""
     start = 1 if augment_ops == "object" else 0
-    for m in text_encoder.modules():
+    for m in model.modules():
         if isinstance(m, LoRALinear) and m.lora_rank > 0 and m.lora_B.weight.grad is not None:
             m.lora_B.weight.grad[start::2] = 0.0
 
@@ -131,19 +145,22 @@ def make_optimizer(
     learning_rate: float,
     emb_learning_rate: float,
     *,
+    unet: Optional[nn.Module] = None,
     beta1: float = 0.9,
     beta2: float = 0.999,
     weight_decay: float = 1e-2,
     eps: float = 1e-8,
 ) -> torch.optim.AdamW:
     """AdamW with two groups: the token embedding at emb_learning_rate and
-    the LoRA adapters at learning_rate (train_textboost.py:829-854).
+    the LoRA adapters at learning_rate, the UNet's after the text encoder's
+    when `unet` is given (train_textboost.py:829-854).
     Accumulation and the encoder-only clip are the train step's
     (train/step.py), applied before `step()` as optax's MultiSteps and
     chain do."""
     groups = [
         {"params": [text_encoder.token_embedding.weight], "lr": emb_learning_rate},
-        {"params": lora_parameters(text_encoder), "lr": learning_rate},
+        {"params": lora_parameters(text_encoder)
+                   + (lora_parameters(unet) if unet is not None else []), "lr": learning_rate},
     ]
     return torch.optim.AdamW(groups, betas=(beta1, beta2), eps=eps, weight_decay=weight_decay)
 

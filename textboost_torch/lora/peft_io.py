@@ -4,7 +4,13 @@ Counterpart of textboost_tpu/lora/peft_io.py:
   1. the PEFT text-encoder adapter dir (`adapter_model.safetensors` +
      `adapter_config.json`, keys
      `base_model.model.text_model.encoder.layers.{i}.self_attn.{q,k,v}_proj.lora_{A,B}.weight`);
-  2. per-token textual-inversion files `{token}.bin` holding {token: tensor}.
+  2. the UNet's cross-attention adapter dir `unet/` of
+     `--unet_params_to_train crossattn_kv`, in the same layout, keyed by
+     diffusers module paths (`base_model.model.down_blocks.1.attentions.0.
+     transformer_blocks.0.attn2.to_k.lora_A.weight`, target_modules
+     attn2.to_k / attn2.to_v), as the JAX package writes it in place of the
+     reference's full `unet.save_pretrained`;
+  3. per-token textual-inversion files `{token}.bin` holding {token: tensor}.
 
 The safetensors format is read and written here with numpy and `struct`
 (no safetensors package): an 8-byte little-endian header length, a JSON
@@ -23,10 +29,14 @@ import numpy as np
 import torch
 
 from ..models.clip import CLIPTextModel
+from ..models.layers import LoRALinear
 
 _LAYER_RE = re.compile(r"layers\.(\d+)\.self_attn\.([qkv]_proj)\.lora_([AB])\.weight")
 
 PEFT_PREFIX = "base_model.model.text_model.encoder.layers"
+UNET_PEFT_PREFIX = "base_model.model"
+UNET_TARGETS = ("attn2.to_k", "attn2.to_v")
+_UNET_KEY_RE = re.compile(re.escape(UNET_PEFT_PREFIX) + r"\.(.+)\.lora_([AB])\.weight$")
 
 _ST_DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16,
@@ -36,24 +46,38 @@ _ST_DTYPES = {
 _ST_NAMES = {np.dtype(v): k for k, v in _ST_DTYPES.items()}
 
 
-def load_safetensors(path: str) -> Dict[str, np.ndarray]:
-    """Read a .safetensors file -> {name: numpy array} (BF16 as float32)."""
+def safetensors_header(path: str) -> Dict[str, dict]:
+    """The JSON header of a .safetensors file: {name: {dtype, shape,
+    data_offsets}} (and `__metadata__`), without reading any tensor."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
-        header = json.loads(f.read(n))
-        data = f.read()
-    out: Dict[str, np.ndarray] = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        start, end = info["data_offsets"]
-        raw = data[start:end]
-        if info["dtype"] == "BF16":
-            bits = np.frombuffer(raw, dtype="<u2").astype(np.uint32) << 16
-            arr = bits.view(np.float32)
-        else:
-            arr = np.frombuffer(raw, dtype=np.dtype(_ST_DTYPES[info["dtype"]]).newbyteorder("<"))
-        out[name] = arr.reshape(info["shape"]).copy()
+        return json.loads(f.read(n))
+
+
+def load_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """Read a .safetensors file -> {name: numpy array} (BF16 as float32).
+    Each tensor is read from its offset straight into its own array, so the
+    host holds the tensors once, not the file and then the tensors."""
+    header = safetensors_header(path)
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        out: Dict[str, np.ndarray] = {}
+        for name, info in header.items():
+            if name == "__metadata__":
+                continue
+            start, end = info["data_offsets"]
+            bf16 = info["dtype"] == "BF16"
+            arr = np.empty(info["shape"], dtype="<u2" if bf16 else
+                           np.dtype(_ST_DTYPES[info["dtype"]]).newbyteorder("<"))
+            if arr.nbytes != end - start:
+                raise ValueError(f"{path}: {name} spans {end - start} bytes, its shape and dtype "
+                                 f"{arr.nbytes}")
+            f.seek(8 + n + start)
+            if f.readinto(arr.reshape(-1).view(np.uint8)) != arr.nbytes:
+                raise ValueError(f"{path}: {name} is cut short")
+            if bf16:
+                arr = (arr.astype(np.uint32) << 16).view(np.float32)
+            out[name] = arr.astype(arr.dtype.newbyteorder("="), copy=False)
     return out
 
 
@@ -160,6 +184,66 @@ def import_lora_adapter(text_encoder: CLIPTextModel, adapter_dir: str) -> None:
                 f"Rank mismatch for {name}: adapter {arr.shape} vs model {tuple(weight.shape)}"
             )
         weight.copy_(torch.from_numpy(arr))
+
+
+def unet_lora_weights(unet) -> Dict[str, torch.nn.Parameter]:
+    """{PEFT key: weight} of the UNet's cross-attention adapters (A and B of
+    each LoRA projection built with a rank), in module order: the one
+    enumeration that the `unet/` dir, its importer and the checkpoint's
+    state share."""
+    weights: Dict[str, torch.nn.Parameter] = {}
+    for name, mod in unet.named_modules():
+        if isinstance(mod, LoRALinear) and mod.lora_rank > 0:
+            for ab, lin in (("A", mod.lora_A), ("B", mod.lora_B)):
+                weights[f"{UNET_PEFT_PREFIX}.{name}.lora_{ab}.weight"] = lin.weight
+    return weights
+
+
+def unet_lora_tensors(unet) -> Dict[str, np.ndarray]:
+    """{PEFT key: fp32 numpy copy} of the UNet's cross-attention adapters."""
+    weights = unet_lora_weights(unet)
+    if not weights:
+        raise ValueError("the UNet was built without its cross-attention LoRA")
+    return {key: w.detach().float().cpu().numpy() for key, w in weights.items()}
+
+
+def export_unet_lora_adapter(unet, out_dir: str, rank: int, **kwargs) -> str:
+    """Write the UNet's cross-attention adapters as the PEFT-style `unet/`
+    dir (`write_lora_adapter`'s keyword arguments pass through)."""
+    return write_lora_adapter(unet_lora_tensors(unet), out_dir, rank,
+                              target_modules=UNET_TARGETS, **kwargs)
+
+
+def adapter_rank(adapter_dir: str) -> int:
+    """The rank `r` of an adapter dir's adapter_config.json."""
+    with open(os.path.join(adapter_dir, "adapter_config.json")) as f:
+        return int(json.load(f)["r"])
+
+
+@torch.no_grad()
+def import_unet_lora_adapter(unet, adapter_dir: str) -> None:
+    """Copy a `unet/` adapter's weights into the UNet's cross-attention LoRA
+    modules, in place (the UNet must have been built with the adapter's
+    rank, `cross_lora_rank`).  The adapter must hold every one of the
+    UNet's LoRA weights: a partial one raises before anything is copied."""
+    tensors = load_safetensors(os.path.join(adapter_dir, "adapter_model.safetensors"))
+    weights = unet_lora_weights(unet)
+    for name, arr in tensors.items():
+        m = _UNET_KEY_RE.match(name)
+        if not m:
+            raise ValueError(f"Unrecognized UNet adapter key: {name}")
+        if name not in weights:
+            raise ValueError(f"the UNet has no cross-attention LoRA at {m.group(1)}; was it "
+                             "built with cross_lora_rank > 0?")
+        if tuple(arr.shape) != tuple(weights[name].shape):
+            raise ValueError(f"Rank mismatch for {name}: adapter {arr.shape} vs model "
+                             f"{tuple(weights[name].shape)}")
+    missing = [key for key in weights if key not in tensors]
+    if missing:
+        raise ValueError(f"the adapter in {adapter_dir} lacks {len(missing)} of the UNet's "
+                         f"{len(weights)} LoRA weights, e.g. {missing[:2]}")
+    for name, arr in tensors.items():
+        weights[name].copy_(torch.from_numpy(arr))
 
 
 def token_bin_filename(token: str) -> str:

@@ -25,6 +25,7 @@ from torch import nn
 
 from ..ops.attention import multi_head_attention
 from .configs import CLIPTextConfig
+from .layers import LoRALinear
 
 ACT = {
     "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),
@@ -32,36 +33,12 @@ ACT = {
 }
 
 
-class LoRALinear(nn.Linear):
-    """nn.Linear with an optional low-rank adapter branch."""
-
-    def __init__(self, in_features: int, out_features: int, lora_rank: int = 0,
-                 lora_alpha: Optional[float] = None, bias: bool = True):
-        super().__init__(in_features, out_features, bias=bias)
-        self.lora_rank = lora_rank
-        if lora_rank > 0:
-            alpha = lora_alpha if lora_alpha is not None else lora_rank
-            self.lora_scale = alpha / lora_rank
-            self.lora_A = nn.Linear(in_features, lora_rank, bias=False)
-            self.lora_B = nn.Linear(lora_rank, out_features, bias=False)
-
-    def _apply(self, fn, recurse=True):
-        """Casts and moves the module, but keeps fp32 adapter weights fp32."""
-        kept = ([(lin.weight, lin.weight.data) for lin in (self.lora_A, self.lora_B)]
-                if self.lora_rank > 0 else [])
-        super()._apply(fn, recurse)
-        for param, before in kept:
-            if before.dtype == torch.float32 and param.dtype != torch.float32:
-                param.data = before.to(param.device)
-        return self
-
-    def forward(self, x: torch.Tensor, use_lora: bool = True) -> torch.Tensor:
-        y = super().forward(x)
-        if self.lora_rank > 0 and use_lora:
-            a = self.lora_A.weight.to(x.dtype)
-            b = self.lora_B.weight.to(x.dtype)
-            y = y + F.linear(F.linear(x, a), b) * self.lora_scale
-        return y
+def pad_attention_mask(input_ids: torch.Tensor, eos_token_id: int) -> torch.Tensor:
+    """Bool [B, L] key-padding mask from the ids: True through the first EOS
+    (the tokenizer's attention_mask), as
+    textboost_tpu/models/clip.py::pad_attention_mask computes it."""
+    eos_pos = (input_ids == eos_token_id).int().argmax(dim=-1)
+    return torch.arange(input_ids.shape[-1], device=input_ids.device)[None, :] <= eos_pos[:, None]
 
 
 class CLIPAttention(nn.Module):
@@ -75,7 +52,8 @@ class CLIPAttention(nn.Module):
         self.v_proj = LoRALinear(dim, dim, lora_rank, lora_alpha)
         self.out_proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, use_lora: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_lora: bool = True,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, n, c = x.shape
 
         def split(t):
@@ -86,6 +64,8 @@ class CLIPAttention(nn.Module):
             split(self.k_proj(x, use_lora)),
             split(self.v_proj(x, use_lora)),
             causal=True,
+            # Key-padding mask [B, L] -> [B, 1, 1, L], with the causal one.
+            mask=None if attention_mask is None else attention_mask[:, None, None, :],
         )
         return self.out_proj(out.reshape(b, n, c))
 
@@ -109,8 +89,9 @@ class CLIPEncoderLayer(nn.Module):
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = CLIPMLP(cfg)
 
-    def forward(self, x: torch.Tensor, use_lora: bool = True) -> torch.Tensor:
-        x = x + self.self_attn(self.layer_norm1(x), use_lora)
+    def forward(self, x: torch.Tensor, use_lora: bool = True,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.self_attn(self.layer_norm1(x), use_lora, attention_mask)
         return x + self.mlp(self.layer_norm2(x))
 
 
@@ -156,15 +137,17 @@ class CLIPTextModel(nn.Module):
         emb.weight.requires_grad_(old.requires_grad)
         self.text_model.embeddings.token_embedding = emb
 
-    def forward(self, input_ids: torch.Tensor,
-                use_lora: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, input_ids: torch.Tensor, use_lora: bool = True,
+                attention_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`attention_mask` [B, L] bool, True keeps a key (`pad_attention_mask`)."""
         tm = self.text_model
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)[None, :]
         dtype = tm.embeddings.position_embedding.weight.dtype  # the compute dtype
         hidden = (tm.embeddings.token_embedding(input_ids).to(dtype)
                   + tm.embeddings.position_embedding(pos))
         for layer in tm.encoder.layers:
-            hidden = layer(hidden, use_lora)
+            hidden = layer(hidden, use_lora, attention_mask)
         hidden = tm.final_layer_norm(hidden)
         eos_pos = (input_ids == self.config.eos_token_id).int().argmax(dim=-1)
         pooled = hidden[torch.arange(hidden.shape[0], device=hidden.device), eos_pos]

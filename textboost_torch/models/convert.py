@@ -8,14 +8,24 @@ the layout rules are: Dense kernel [in, out] -> weight [out, in]; Conv
 kernel HWIO -> OIHW; lora_a [in, r] -> lora_A.weight [r, in]; lora_b
 [r, out] -> lora_B.weight [out, r].  Only numpy is needed: the tree is
 flattened here, without flax.
+
+`read_snapshot` reads a local diffusers snapshot (the `model_index.json`
+layout) into the port's state dicts: the counterpart of
+`_load_torch_dir` and `load_diffusers_snapshot` of
+textboost_tpu/models/convert.py.  The port's keys are diffusers' and
+transformers' own, so no name mapping is needed beyond the legacy VAE
+attention names and the text encoder's `position_ids` buffer.
 """
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from ..lora.peft_io import load_safetensors, safetensors_header
 
 Path = Tuple[str, ...]
 
@@ -170,12 +180,10 @@ def state_dict_from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in flatten_tree(tree).items():
         arr = np.asarray(leaf, np.float32)
-        if path[-1] in ("lora_a", "lora_b"):
-            if kind != "text_encoder":
-                raise NotImplementedError(
-                    f"UNet/VAE LoRA leaf {'/'.join(path)}: the UNet kv-LoRA is not ported yet"
-                )
-            base, _ = clip_key(path[:-1] + ("kernel",))
+        if path[-1] in ("lora_a", "lora_b"):  # the TE's q/k/v or the UNet's attn2 to_k/to_v
+            if kind == "vae":
+                raise KeyError(f"No torch mapping for VAE leaf: {'/'.join(path)}")
+            base, _ = mapper(path[:-1] + ("kernel",))
             key = base[: -len("weight")] + ("lora_A.weight" if path[-1] == "lora_a" else "lora_B.weight")
             arr = arr.T  # [in, r] -> [r, in]; [r, out] -> [out, r]
         else:
@@ -215,3 +223,55 @@ def remap_legacy_vae_keys(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, t
                     val = val[:, :, 0, 0]
         out[key] = val
     return out
+
+
+TOKEN_EMBEDDING_KEY = "text_model.embeddings.token_embedding.weight"
+# Older transformers checkpoints carry this buffer; the port's CLIP computes
+# the positions, so the key is dropped by name (and no other).
+POSITION_IDS_KEY = "text_model.embeddings.position_ids"
+FAMILY_BY_WIDTH = {768: "sd15", 1024: "sd21base"}  # the text encoder's width
+
+
+def _weight_files(path: str, suffix: str):
+    return sorted(os.path.join(path, f) for f in os.listdir(path) if f.endswith(suffix))
+
+
+def read_weights_dir(path: str) -> Dict[str, torch.Tensor]:
+    """Every `*.safetensors` file of a snapshot part's folder, else its
+    `.bin` files (torch pickles, loaded with weights_only) -> {key: CPU
+    tensor in the stored dtype (BF16 as float32)}."""
+    files = _weight_files(path, ".safetensors")
+    if files:
+        return {k: torch.from_numpy(v) for f in files for k, v in load_safetensors(f).items()}
+    bins = _weight_files(path, ".bin")
+    if not bins:
+        raise FileNotFoundError(f"No weight files under {path}")
+    out: Dict[str, torch.Tensor] = {}
+    for f in bins:
+        out.update(torch.load(f, map_location="cpu", weights_only=True))
+    return out
+
+
+def snapshot_family(path: str) -> str:
+    """sd15 or sd21base from the text encoder's width (768 / 1024), read from
+    the safetensors header (from the `.bin` file when there is none)."""
+    te_dir = os.path.join(path, "text_encoder")
+    shape = None
+    for f in _weight_files(te_dir, ".safetensors"):
+        info = safetensors_header(f).get(TOKEN_EMBEDDING_KEY)
+        shape = info["shape"] if info else shape
+    if shape is None:
+        shape = list(read_weights_dir(te_dir)[TOKEN_EMBEDDING_KEY].shape)
+    if shape[1] not in FAMILY_BY_WIDTH:
+        raise ValueError(f"{path}: a text encoder of width {shape[1]} is neither sd15 (768) "
+                         "nor sd21base (1024)")
+    return FAMILY_BY_WIDTH[shape[1]]
+
+
+def read_snapshot(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{"text_encoder", "unet", "vae": state dict} of a diffusers snapshot
+    dir, under the port's keys."""
+    te = read_weights_dir(os.path.join(path, "text_encoder"))
+    te.pop(POSITION_IDS_KEY, None)
+    return {"text_encoder": te, "unet": read_weights_dir(os.path.join(path, "unet")),
+            "vae": remap_legacy_vae_keys(read_weights_dir(os.path.join(path, "vae")))}

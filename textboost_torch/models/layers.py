@@ -54,6 +54,38 @@ class GroupNorm(nn.Module):
                           silu=self.silu)
 
 
+class LoRALinear(nn.Linear):
+    """nn.Linear with an optional low-rank adapter branch."""
+
+    def __init__(self, in_features: int, out_features: int, lora_rank: int = 0,
+                 lora_alpha: Optional[float] = None, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
+        self.lora_rank = lora_rank
+        if lora_rank > 0:
+            alpha = lora_alpha if lora_alpha is not None else lora_rank
+            self.lora_scale = alpha / lora_rank
+            self.lora_A = nn.Linear(in_features, lora_rank, bias=False)
+            self.lora_B = nn.Linear(lora_rank, out_features, bias=False)
+
+    def _apply(self, fn, recurse=True):
+        """Casts and moves the module, but keeps fp32 adapter weights fp32."""
+        kept = ([(lin.weight, lin.weight.data) for lin in (self.lora_A, self.lora_B)]
+                if self.lora_rank > 0 else [])
+        super()._apply(fn, recurse)
+        for param, before in kept:
+            if before.dtype == torch.float32 and param.dtype != torch.float32:
+                param.data = before.to(param.device)
+        return self
+
+    def forward(self, x: torch.Tensor, use_lora: bool = True) -> torch.Tensor:
+        y = super().forward(x)
+        if self.lora_rank > 0 and use_lora:
+            a = self.lora_A.weight.to(x.dtype)
+            b = self.lora_B.weight.to(x.dtype)
+            y = y + F.linear(F.linear(x, a), b) * self.lora_scale
+        return y
+
+
 def set_impl(model: nn.Module, impl: str) -> None:
     """impl "auto" (kernels where the rule sends a call) or "math" (plain
     torch) for every GroupNorm and attention layer of `model`."""
@@ -138,16 +170,19 @@ class FeedForward(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Multi-head attention; self-attention when context is None."""
+    """Multi-head attention; self-attention when context is None.
+    `kv_lora_rank` > 0 puts LoRA adapters on to_k/to_v (the UNet's
+    `--unet_params_to_train crossattn_kv`, on the cross-attentions only)."""
 
-    def __init__(self, dim: int, heads: int, context_dim: Optional[int] = None):
+    def __init__(self, dim: int, heads: int, context_dim: Optional[int] = None,
+                 kv_lora_rank: int = 0):
         super().__init__()
         context_dim = context_dim or dim
         self.heads = heads
         self.impl = "auto"
         self.to_q = nn.Linear(dim, dim, bias=False)
-        self.to_k = nn.Linear(context_dim, dim, bias=False)
-        self.to_v = nn.Linear(context_dim, dim, bias=False)
+        self.to_k = LoRALinear(context_dim, dim, kv_lora_rank, bias=False)
+        self.to_v = LoRALinear(context_dim, dim, kv_lora_rank, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -164,12 +199,12 @@ class CrossAttention(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, dim: int, heads: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, context_dim: int, kv_lora_rank: int = 0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn1 = CrossAttention(dim, heads)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = CrossAttention(dim, heads, context_dim)
+        self.attn2 = CrossAttention(dim, heads, context_dim, kv_lora_rank)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
@@ -183,7 +218,8 @@ class Transformer2D(nn.Module):
     """Spatial transformer: GN -> proj_in -> N blocks -> proj_out -> +residual."""
 
     def __init__(self, channels: int, heads: int, context_dim: int, depth: int = 1,
-                 use_linear_projection: bool = False, groups: int = 32):
+                 use_linear_projection: bool = False, groups: int = 32,
+                 kv_lora_rank: int = 0):
         super().__init__()
         self.use_linear_projection = use_linear_projection
         self.norm = GroupNorm(groups, channels, eps=1e-6)
@@ -194,7 +230,8 @@ class Transformer2D(nn.Module):
             self.proj_in = nn.Conv2d(channels, channels, 1)
             self.proj_out = nn.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(channels, heads, context_dim) for _ in range(depth)]
+            [BasicTransformerBlock(channels, heads, context_dim, kv_lora_rank)
+             for _ in range(depth)]
         )
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:

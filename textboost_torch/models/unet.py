@@ -1,13 +1,19 @@
 """UNet2DCondition: the frozen denoiser of the SD family.
 
 Counterpart of textboost_tpu/models/unet.py, NCHW with diffusers'
-UNet2DConditionModel state-dict keys.
+UNet2DConditionModel state-dict keys.  `cross_lora_rank` > 0 puts LoRA
+adapters on every cross-attention's to_k/to_v (`--unet_params_to_train
+crossattn_kv`).  With `gradient_checkpointing` set, every ResnetBlock and
+Transformer2D runs under `torch.utils.checkpoint` while autograd records
+(flax `nn.remat` around the same blocks in the JAX package): their
+activations are recomputed in the backward instead of kept.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .configs import UNetConfig
 from .layers import Downsample, GroupNorm, ResnetBlock, Transformer2D, Upsample, timestep_embedding
@@ -28,9 +34,11 @@ class _Block(nn.Module):
 
 
 class UNet2DCondition(nn.Module):
-    def __init__(self, config: UNetConfig):
+    def __init__(self, config: UNetConfig, cross_lora_rank: int = 0):
         super().__init__()
         self.config = cfg = config
+        self.cross_lora_rank = cross_lora_rank
+        self.gradient_checkpointing = False
         chans = cfg.block_out_channels
         ch0 = chans[0]
         temb_dim = ch0 * 4
@@ -43,6 +51,7 @@ class UNet2DCondition(nn.Module):
                 c, cfg.num_attention_heads[level], cfg.cross_attention_dim,
                 depth=cfg.transformer_layers_per_block,
                 use_linear_projection=cfg.use_linear_projection, groups=groups,
+                kv_lora_rank=cross_lora_rank,
             )
 
         skip_chans = [ch0]
@@ -92,6 +101,12 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNorm(groups, ch0, eps=1e-5, silu=True)
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
+    def _block(self, block: nn.Module, *args) -> torch.Tensor:
+        if self.gradient_checkpointing and torch.is_grad_enabled():
+            # No block draws random numbers: no RNG state to keep.
+            return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+        return block(*args)
+
     def forward(
         self,
         sample: torch.Tensor,  # [B, C_in, H, W] noisy latents
@@ -111,24 +126,24 @@ class UNet2DCondition(nn.Module):
         for blk in self.down_blocks:
             attns = getattr(blk, "attentions", None)
             for j, res in enumerate(blk.resnets):
-                x = res(x, temb)
+                x = self._block(res, x, temb)
                 if attns is not None:
-                    x = attns[j](x, ctx)
+                    x = self._block(attns[j], x, ctx)
                 skips.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
                 skips.append(x)
 
-        x = self.mid_block.resnets[0](x, temb)
-        x = self.mid_block.attentions[0](x, ctx)
-        x = self.mid_block.resnets[1](x, temb)
+        x = self._block(self.mid_block.resnets[0], x, temb)
+        x = self._block(self.mid_block.attentions[0], x, ctx)
+        x = self._block(self.mid_block.resnets[1], x, temb)
 
         for blk in self.up_blocks:
             attns = getattr(blk, "attentions", None)
             for j, res in enumerate(blk.resnets):
-                x = res(torch.cat([x, skips.pop()], dim=1), temb)
+                x = self._block(res, torch.cat([x, skips.pop()], dim=1), temb)
                 if attns is not None:
-                    x = attns[j](x, ctx)
+                    x = self._block(attns[j], x, ctx)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
 

@@ -1,8 +1,10 @@
 """Load a trained TextBoost model directory into a sampling pipeline.
 
-Counterpart of textboost_tpu/pipelines/loading.py: base model + PEFT
-text-encoder adapter + textual-inversion token bins, with the TextBoost
-null-embedding patch active.
+Counterpart of textboost_tpu/pipelines/loading.py: base model (a preset
+name or a local diffusers snapshot dir) + PEFT text-encoder adapter + the
+UNet's cross-attention adapter `unet/` where the run trained one +
+textual-inversion token bins, with the TextBoost null-embedding patch
+active.
 """
 from __future__ import annotations
 
@@ -15,7 +17,12 @@ import torch
 
 from ..data.tokenizer import load_tokenizer
 from ..device import resolve_device
-from ..lora.peft_io import import_lora_adapter, import_token_embeddings
+from ..lora.peft_io import (
+    adapter_rank,
+    import_lora_adapter,
+    import_token_embeddings,
+    import_unet_lora_adapter,
+)
 from ..models.pretrained import load_models
 from ..models.textboost import load_null_embedding_asset
 from .text_to_image import TextToImagePipeline
@@ -45,18 +52,18 @@ def load_textboost_pipeline(
     use_null_embedding: bool = True,
     null_embedding_path: Optional[str] = None,
 ) -> TextToImagePipeline:
-    """Load `model_path` (optionally its `checkpoint-N`) over `base_model`."""
+    """Load `model_path` (optionally its `checkpoint-N`) over `base_model`
+    (a preset name or a diffusers snapshot dir)."""
     dev = resolve_device(device)
     model_path = model_path.rstrip("/")
     if checkpoint is not None:
         model_path = os.path.join(model_path, f"checkpoint-{checkpoint}")
-    if os.path.isfile(os.path.join(model_path, "unet", "adapter_model.safetensors")):
-        raise NotImplementedError(
-            f"{model_path}/unet: the UNet cross-attention LoRA adapter (crossattn_kv) "
-            "is not ported yet (ROADMAP.md, queue A: UNet kv-LoRA adapter)"
-        )
+    unet_dir = os.path.join(model_path, "unet")
+    has_unet_adapter = os.path.isfile(os.path.join(unet_dir, "adapter_model.safetensors"))
 
-    bundle = load_models(base_model, lora_rank=lora_rank, dtype=dtype, device=dev)
+    bundle = load_models(base_model, lora_rank=lora_rank,
+                         unet_lora_rank=adapter_rank(unet_dir) if has_unet_adapter else 0,
+                         dtype=dtype, device=dev)
     spec, text_encoder = bundle.spec, bundle.text_encoder
     text_encoder.requires_grad_(False)
     tokenizer = load_tokenizer(base_model)
@@ -96,6 +103,9 @@ def load_textboost_pipeline(
     if os.path.isfile(os.path.join(adapter_dir, "adapter_model.safetensors")):
         import_lora_adapter(text_encoder, adapter_dir)
         print("Loaded text encoder LoRA weights")
+    if has_unet_adapter:
+        import_unet_lora_adapter(bundle.unet, unet_dir)
+        print("Loaded UNet cross-attention LoRA weights")
 
     return TextToImagePipeline(
         spec, tokenizer, text_encoder, bundle.unet, bundle.vae,

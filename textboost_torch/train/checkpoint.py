@@ -4,7 +4,8 @@ Counterpart of textboost_tpu/train/checkpoint.py, in a format of the port's
 own (no orbax): `checkpoint-{step}/` holds
   1. `state.pt` (torch.save of plain tensors and Python scalars, loaded
      with weights_only) and `meta.json`: the compact trainer state;
-  2. the PEFT adapter dir `text_encoder/`;
+  2. the PEFT adapter dir `text_encoder/` (and `unet/` when the UNet's
+     cross-attention LoRA trains, textboost_tpu/train/checkpoint.py:227-240);
   3. one `{token}.bin` per learned token,
 so a periodic checkpoint loads on its own, as the final export does.
 Retention follows checkpoints_total_limit (train_textboost.py:1159-1175).
@@ -13,7 +14,8 @@ Compact, as the JAX docstring argues (:13-26): frozen weights never go to
 disk.  The optimizer pins the original vocabulary rows (their gradient is
 zeroed every step, so their AdamW moments stay exactly zero, and the rows
 are restored after each update), so the state needs only the ADDED
-embedding rows and their moments, the LoRA A/B and their moments, both
+embedding rows and their moments, the LoRA A/B (the UNet's too, when it
+trains) and their moments, both
 AdamW groups' step counts, the LR scheduler's state, the step, and the
 state of the `torch.Generator` the step's draws come from.  Restore writes
 them back into the live modules, optimizer, scheduler and generator; it
@@ -36,7 +38,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..lora.partition import FROZEN_LABEL, LORA_LABEL, param_labels
-from ..lora.peft_io import export_token_embeddings, write_lora_adapter
+from ..lora.peft_io import (
+    UNET_TARGETS,
+    export_token_embeddings,
+    unet_lora_weights,
+    write_lora_adapter,
+)
 
 FORMAT = "textboost_torch-compact-v1"
 _CKPT_RE = re.compile(r"^checkpoint-(\d+)$")
@@ -76,11 +83,24 @@ def _cpu(value):
     return value.detach().cpu().clone() if isinstance(value, torch.Tensor) else value
 
 
+def _unet_lora(unet) -> Dict[str, torch.Tensor]:
+    """{PEFT key: weight} of the UNet's LoRA adapters (`unet_lora_weights`);
+    raises if any other UNet parameter trains (it would be left out of the
+    checkpoint)."""
+    weights = unet_lora_weights(unet)
+    kept = {id(w) for w in weights.values()}
+    for name, p in unet.named_parameters():
+        if p.requires_grad and id(p) not in kept:
+            raise ValueError(f"trainable UNet parameter {name} is not in the compact checkpoint")
+    return weights
+
+
 @torch.no_grad()
 def snapshot(text_encoder, optimizer, lr_scheduler, generator: torch.Generator, *,
-             step: int, micro_step: int, first_added_id: int) -> Dict:
-    """CPU copy of the compact state (synchronous).  Raises if a trainable
-    parameter would be left out."""
+             step: int, micro_step: int, first_added_id: int, unet=None) -> Dict:
+    """CPU copy of the compact state (synchronous); `unet` is given when its
+    cross-attention LoRA trains.  Raises if a trainable parameter would be
+    left out."""
     labels = param_labels(text_encoder)
     for name, p in text_encoder.named_parameters():
         if p.requires_grad and labels[name] == FROZEN_LABEL:
@@ -101,6 +121,8 @@ def snapshot(text_encoder, optimizer, lr_scheduler, generator: torch.Generator, 
         "added_rows": _cpu(emb[first_added_id:].float()),
         "lora": {name: _cpu(p) for name, p in text_encoder.named_parameters()
                  if labels[name] == LORA_LABEL},
+        "unet_lora": ({key: _cpu(p) for key, p in _unet_lora(unet).items()}
+                      if unet is not None else {}),
         "optimizer": {"state": state, "param_groups": opt["param_groups"]},
         "lr_scheduler": lr_scheduler.state_dict(),
         "generator": generator.get_state(),
@@ -121,6 +143,10 @@ def write_checkpoint(ckpt_dir: str, payload: Dict, *, first_added_id: int,
                    for name, t in payload["lora"].items()}
         write_lora_adapter(tensors, os.path.join(ckpt_dir, "text_encoder"), rank=lora_rank,
                            base_model_name=base_model_name)
+    if payload["unet_lora"]:
+        write_lora_adapter({key: t.float().numpy() for key, t in payload["unet_lora"].items()},
+                           os.path.join(ckpt_dir, "unet"), rank=lora_rank,
+                           base_model_name=base_model_name, target_modules=UNET_TARGETS)
     export_token_embeddings(payload["added_rows"],
                             {t: tid - first_added_id for t, tid in token_to_id.items()},
                             ckpt_dir, aug_tokens=aug_tokens)
@@ -159,9 +185,10 @@ def resolve_checkpoint(path: str) -> Optional[str]:
 
 @torch.no_grad()
 def restore_checkpoint(ckpt_dir: str, text_encoder, optimizer, lr_scheduler,
-                       generator: torch.Generator, first_added_id: int) -> Dict:
-    """Write a checkpoint's state back into the live modules, optimizer,
-    scheduler and generator.  Returns {"step", "micro_step"}."""
+                       generator: torch.Generator, first_added_id: int, unet=None) -> Dict:
+    """Write a checkpoint's state back into the live modules (the UNet's
+    cross-attention LoRA when `unet` is given), optimizer, scheduler and
+    generator.  Returns {"step", "micro_step"}."""
     meta_path = os.path.join(ckpt_dir, "meta.json")
     if not os.path.isfile(meta_path):
         raise ValueError(f"{ckpt_dir} has no meta.json: not a textboost_torch checkpoint")
@@ -184,6 +211,14 @@ def restore_checkpoint(ckpt_dir: str, text_encoder, optimizer, lr_scheduler,
     params = dict(text_encoder.named_parameters())
     for name, value in payload["lora"].items():
         params[name].copy_(value)
+    unet_lora = _unet_lora(unet) if unet is not None else {}
+    saved_unet_lora = payload.get("unet_lora", {})  # absent from checkpoints before it
+    if set(unet_lora) != set(saved_unet_lora):
+        raise ValueError(f"checkpoint {ckpt_dir} holds {len(saved_unet_lora)} UNet LoRA "
+                         f"tensors, this run trains {len(unet_lora)}: did "
+                         "--unet_params_to_train change?")
+    for key, value in saved_unet_lora.items():
+        unet_lora[key].copy_(value)
     opt = payload["optimizer"]
     emb_idx = _embedding_index(optimizer, emb)
     state = {}

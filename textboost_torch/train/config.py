@@ -207,23 +207,18 @@ def unsupported_flags(cfg: TrainConfig) -> List[str]:
     """Messages for the flags of `cfg` that the port does not serve yet,
     each naming the ROADMAP.md item that brings it (empty when all is
     served)."""
-    slice3 = "ROADMAP.md queue A, slice 3"
     out = []
     if cfg.augment_device:
-        out.append(f"--augment_device: device-side augmentation ({slice3})")
-    if cfg.with_image_prior:
-        out.append(f"--with_image_prior: the image prior ({slice3})")
-    if cfg.unet_params_to_train != "none":
-        out.append(f"--unet_params_to_train {cfg.unet_params_to_train}: "
-                   f"the UNet kv-LoRA ({slice3})")
-    if cfg.gradient_checkpointing:
-        out.append(f"--gradient_checkpointing ({slice3})")
+        out.append("--augment_device: device-side augmentation (ROADMAP.md queue A9: "
+                   "data/device_augment.py)")
+    if cfg.unet_params_to_train not in ("none", "crossattn_kv"):
+        out.append(f"--unet_params_to_train {cfg.unet_params_to_train}: the port trains "
+                   "none or crossattn_kv, as the JAX package does")
     if cfg.validation_prompts and cfg.validation_scheduler not in (
             "dpm++2m", "DPMSolverMultistepScheduler"):
         out.append(f"--validation_scheduler {cfg.validation_scheduler}: the port samples with "
-                   "DPM-Solver++ only (ROADMAP.md queue A: DDIM, DDPM and PNDM samplers)")
+                   "DPM-Solver++ only (ROADMAP.md queue A6: DDIM, DDPM and PNDM samplers)")
     if cfg.mesh_tp > 1 or (cfg.mesh_dp or 1) > 1:
-        out.append("--mesh_tp/--mesh_dp > 1: multi-card training (ROADMAP.md queue A)")
-    if cfg.text_encoder_use_attention_mask:
-        out.append(f"--text_encoder_use_attention_mask: the padded CLIP mask ({slice3})")
+        out.append("--mesh_tp/--mesh_dp > 1: multi-card training (ROADMAP.md queue A8: "
+                   "Data parallel and multi-host)")
     return out

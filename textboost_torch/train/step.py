@@ -1,14 +1,17 @@
 """The TextBoost train step.
 
 Counterpart of textboost_tpu/train/step.py (step.py:195-280 and `loss_fn`
-:117-193), eager PyTorch on the port's modules: VAE encode -> noise ->
-text encode (null-patched) -> frozen UNet prediction -> MSE +
-knowledge-preservation loss -> backward -> gradient surgery -> AdamW (two
-groups) -> pin original rows -> renorm added rows.  A batch that carries a
-`mask` [B, h, w, 1] (latent resolution) takes the masked mean of the JAX
-step (step.py:159-167).  Not yet ported (ROADMAP.md queue A, slice 3): the
-image-prior split of the batch.  The JAX step's min-SNR weighting is off in
-every config and not ported.
+:100-193), eager PyTorch on the port's modules: VAE encode -> noise ->
+text encode (null-patched; with `use_attention_mask` through the padded
+CLIP mask) -> UNet prediction (frozen, or with its cross-attention LoRA
+training) -> MSE (+ the image prior's class half) + knowledge-preservation
+loss -> backward -> gradient surgery -> AdamW (two groups) -> pin original
+rows -> renorm added rows.  A batch that carries a `mask` [B, h, w, 1]
+(latent resolution) takes the masked mean of the JAX step (step.py:159-167).
+With `with_image_prior` the batch holds the instance samples, then as many
+class samples (TextBoostDataset.collate); the prediction splits in two and
+`image_ppl_weight` times the class half's MSE joins the loss.  The JAX
+step's min-SNR weighting is off in every config and not ported.
 
 The random draws (posterior epsilon, noise, timesteps) come in as an
 argument, made by `sample_draws` from a `torch.Generator`, so that a test
@@ -34,6 +37,7 @@ from ..lora.partition import (
     renorm_added_embeddings,
     zero_original_vocab_rows,
 )
+from ..models.clip import pad_attention_mask
 from ..models.textboost import apply_null_embedding_patch
 from ..ops.schedule import NoiseSchedule, sample_timesteps
 
@@ -57,6 +61,9 @@ class StepConfig:
     fixed_special: bool = True
     accumulate_steps: int = 1
     max_grad_norm: Optional[float] = None
+    with_image_prior: bool = False
+    image_ppl_weight: float = 1.0
+    use_attention_mask: bool = False  # --text_encoder_use_attention_mask
 
 
 @dataclasses.dataclass
@@ -74,6 +81,9 @@ class TrainState:
     null_embedding: Optional[torch.Tensor]  # fp32 [77, hidden]
     target_norm: torch.Tensor  # fp32 scalar: the mean pre-training embedding norm
     original_rows: torch.Tensor  # the embedding's original-vocab rows, pinned
+    # The UNet's cross-attention LoRA weights when they train (in the
+    # optimizer's LoRA group), else empty.
+    unet_lora: List[nn.Parameter] = dataclasses.field(default_factory=list)
     step: int = 0  # micro-steps taken
     accumulated: Optional[List[torch.Tensor]] = None
 
@@ -100,7 +110,9 @@ def sample_draws(
 def encode_text(text_encoder: nn.Module, input_ids: torch.Tensor,
                 null_embedding: Optional[torch.Tensor], config: StepConfig,
                 use_lora: bool = True) -> torch.Tensor:
-    hidden, _ = text_encoder(input_ids, use_lora=use_lora)
+    mask = (pad_attention_mask(input_ids, config.eos_token_id)
+            if config.use_attention_mask else None)
+    hidden, _ = text_encoder(input_ids, use_lora=use_lora, attention_mask=mask)
     return apply_null_embedding_patch(hidden, input_ids, null_embedding,
                                       config.eos_token_id, config.fixed_special)
 
@@ -113,14 +125,22 @@ def _loss(state: TrainState, config: StepConfig, batch, noisy, noise, latents,
     model_pred = state.unet(noisy, timesteps, hidden)
     target = (noise if config.prediction_type == "epsilon"
               else schedule.velocity(latents, noise, timesteps))
+    prior_loss = torch.zeros((), device=noisy.device)
+    if config.with_image_prior:  # instance samples first, then the class samples
+        model_pred, pred_prior = model_pred.chunk(2)
+        target, target_prior = target.chunk(2)
+        prior_loss = (pred_prior.float() - target_prior.float()).square().mean()
     sq = (model_pred.float() - target.float()).square()
     if "mask" in batch:
-        # Per-sample masked mean over the latent, then the batch mean.
-        mask = batch["mask"].float().permute(0, 3, 1, 2)
+        # Per-sample masked mean over the latent (the instance half), then
+        # the batch mean.
+        mask = batch["mask"].float().permute(0, 3, 1, 2)[: sq.shape[0]]
         loss = ((sq * mask).sum(dim=(1, 2, 3))
                 / torch.clamp(mask.sum(dim=(1, 2, 3)), min=1e-6)).mean()
     else:
         loss = sq.mean()
+    if config.with_image_prior:
+        loss = loss + config.image_ppl_weight * prior_loss
 
     kpl = torch.zeros((), device=noisy.device)
     if config.kpl_weight > 0.0:
@@ -141,7 +161,7 @@ def _loss(state: TrainState, config: StepConfig, batch, noisy, noise, latents,
     # is built after the KPL term is added); prior_loss is 0 without the
     # image prior.
     return loss, {"den_loss": loss.detach(), "kpl": kpl.detach(),
-                  "prior_loss": torch.zeros((), device=loss.device)}
+                  "prior_loss": prior_loss.detach()}
 
 
 def forward_backward(state: TrainState, config: StepConfig, batch: Dict,
@@ -161,7 +181,7 @@ def forward_backward(state: TrainState, config: StepConfig, batch: Dict,
     noise, timesteps = draws["noise"], draws["timesteps"]
     noisy = state.schedule.add_noise(latents, noise, timesteps)
     te = state.text_encoder
-    for p in [te.token_embedding.weight] + lora_parameters(te):
+    for p in [te.token_embedding.weight] + lora_parameters(te) + state.unet_lora:
         p.grad = None
     loss, aux = _loss(state, config, batch, noisy, noise, latents, timesteps)
     loss.backward()
@@ -171,20 +191,24 @@ def forward_backward(state: TrainState, config: StepConfig, batch: Dict,
 def make_train_step(config: StepConfig) -> Callable[[TrainState, Dict, Draws], Dict]:
     """The step fn(state, batch, draws) -> metrics (0-dim tensors, not
     synchronised).  `batch` holds `pixel_values` (uint8 or float NHWC),
-    `input_ids`, `prior_input_ids` and optionally `mask`, on the device."""
+    `input_ids`, `prior_input_ids` and optionally `mask`, on the device
+    (with the image prior, `pixel_values`, `input_ids` and `mask` hold the
+    class samples after the instance ones)."""
     first_added = config.first_added_token_id
 
     def train_step(state: TrainState, batch: Dict, draws: Draws) -> Dict[str, torch.Tensor]:
         te = state.text_encoder
         emb = te.token_embedding.weight
         lora = lora_parameters(te)
-        trainable = [emb] + lora
+        trainable = [emb] + lora + state.unet_lora
         loss, aux = forward_backward(state, config, batch, draws)
 
         # Gradient surgery (train_textboost.py:1109-1126).
         zero_original_vocab_rows(emb.grad, first_added)
         if config.mixing:
             apply_mixing_mask(te, config.augment_ops)
+            if state.unet_lora:  # the JAX step masks every lora_b
+                apply_mixing_mask(state.unet, config.augment_ops)
         grad_norm = encoder_grad_norm(lora)  # pre-clip, for the metrics
 
         update = True

@@ -6,13 +6,17 @@ the AOT, mesh, relay and warm-up machinery; the loop :853-1026; `save`
 token surgery (placeholders, and with --augment_inversion the bank of
 augmentation tokens) -> models -> frozen text encoder captured before
 surgery -> embedding growth and norm stats -> null embedding -> schedule ->
-optimizer -> paired augmentation and loaders -> resume; then one eager
+optimizer -> class-prior images (generated when the class dir is short)
+-> paired augmentation and loaders -> resume; then one eager
 train step per (micro-)batch, metrics every 10 steps to `metrics.jsonl`, a
 compact checkpoint every --checkpointing_steps and a validation grid every
 --validation_steps (both written on writer threads, joined at the end),
-and at the end the PEFT `text_encoder/` adapter and `{token}.bin` files
-that `textboost_torch.inference` and the JAX `load_textboost_pipeline`
-load.
+and at the end the PEFT `text_encoder/` adapter (and `unet/`, with
+`--unet_params_to_train crossattn_kv`) and `{token}.bin` files that
+`textboost_torch.inference` and the JAX `load_textboost_pipeline` load.
+`--gradient_checkpointing` recomputes the UNet's blocks in the backward;
+`--text_encoder_use_attention_mask` threads the padded CLIP mask into the
+step's text encodes.
 
 Flags the port does not serve yet raise NotImplementedError here
 (train/config.py::unsupported_flags).
@@ -22,6 +26,7 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
+import functools
 import json
 import logging
 import os
@@ -39,8 +44,14 @@ from ..data.loader import PrefetchLoader
 from ..data.sharding import process_shard_info
 from ..data.tokenizer import HashTokenizer, load_tokenizer
 from ..device import resolve_device
-from ..lora.partition import count_params, lr_schedule, make_optimizer, set_trainable
-from ..lora.peft_io import export_lora_adapter, export_token_embeddings
+from ..lora.partition import (
+    count_params,
+    lora_parameters,
+    lr_schedule,
+    make_optimizer,
+    set_trainable,
+)
+from ..lora.peft_io import export_lora_adapter, export_token_embeddings, export_unet_lora_adapter
 from ..models.layers import set_impl
 from ..models.pretrained import load_models
 from ..models.textboost import load_null_embedding_asset
@@ -51,6 +62,7 @@ from ..utils.profiling import StepTimer, device_memory_stats
 from ..utils.trackers import Trackers
 from . import checkpoint
 from .config import TrainConfig, unsupported_flags
+from .prior_generation import generate_prior_images
 from .step import StepConfig, TrainState, make_train_step, sample_draws
 
 logger = logging.getLogger("textboost_torch")
@@ -192,17 +204,20 @@ class Trainer:
             )
         self.first_added_id = first_added_id
 
-        # ---- models (train_textboost.py:630-654) ----
+        # ---- models (train_textboost.py:630-654, UNet LoRA :712-721) ----
+        self.train_unet = cfg.unet_params_to_train == "crossattn_kv"
         self.bundle = load_models(
             cfg.pretrained_model_name_or_path, preset=cfg.model_preset,
-            lora_rank=cfg.lora_rank, dtype=dtype,
-            vae_dtype=torch.float32 if cfg.vae_fp32 else None, device=dev, seed=cfg.seed,
+            lora_rank=cfg.lora_rank, unet_lora_rank=cfg.lora_rank if self.train_unet else 0,
+            dtype=dtype, vae_dtype=torch.float32 if cfg.vae_fp32 else None, device=dev,
+            seed=cfg.seed,
         )
         spec = self.bundle.spec
         te, unet, vae = self.bundle.text_encoder, self.bundle.unet, self.bundle.vae
         for mod in (te, unet, vae):
             mod.requires_grad_(False)
             set_impl(mod, ATTENTION_IMPLS[cfg.attention_impl])
+        unet.gradient_checkpointing = cfg.gradient_checkpointing
         mark("models loaded")
 
         # Frozen reference encoder, captured BEFORE token surgery (:650).
@@ -218,7 +233,7 @@ class Trainer:
             self.mean_norm = float(norms.mean())
         logger.info("Max norm: %s  Mean norm: %s", max_norm, self.mean_norm)
         te.set_token_embedding(grown, dtype=torch.float32)  # trains in fp32, cast at use
-        trainable = set_trainable(te)
+        trainable = set_trainable(te, unet if self.train_unet else None)
         self.text_encoder = te
         if cfg.null_embedding_path:
             null = load_null_embedding_asset(
@@ -244,7 +259,8 @@ class Trainer:
         if cfg.scale_lr:
             scale = cfg.gradient_accumulation_steps * cfg.train_batch_size
             lr, emb_lr = lr * scale, emb_lr * scale
-        optimizer = make_optimizer(te, lr, emb_lr, beta1=cfg.adam_beta1, beta2=cfg.adam_beta2,
+        optimizer = make_optimizer(te, lr, emb_lr, unet=unet if self.train_unet else None,
+                                   beta1=cfg.adam_beta1, beta2=cfg.adam_beta2,
                                    weight_decay=cfg.adam_weight_decay, eps=cfg.adam_epsilon)
         scheduler = lr_schedule(optimizer, cfg.lr_scheduler, cfg.lr_warmup_steps,
                                 cfg.max_train_steps)
@@ -252,6 +268,18 @@ class Trainer:
         logger.info("Trainable params: %.3fM", n_train / 1e6)
         print(f"Trainable params: {n_train / 1e6:.3f}M "
               f"(LoRA r={cfg.lora_rank} + {len(self.token_to_id)} token embeddings)")
+
+        # ---- class-prior images (utils.py:50-114), from the base modules ----
+        # (`--prior_generation_precision` is accepted and unused, as in JAX.)
+        if cfg.with_image_prior:
+            made = generate_prior_images(
+                TextToImagePipeline(spec, self.tokenizer, self.frozen_te, unet, vae,
+                                    device=dev, freeze=False),
+                cfg.class_data_dir, cfg.class_token, cfg.num_prior_images,
+                sample_batch_size=cfg.sample_batch_size, seed=cfg.seed)
+            if made:
+                logger.info("Generated %d class prior images", made)
+            mark("class prior images ready")
 
         # ---- data (:857-909) ----
         augment_pipe = None
@@ -271,12 +299,18 @@ class Trainer:
         shard_id, num_shards = process_shard_info()
         dataset = TextBoostDataset(
             concepts_for_ds, self.tokenizer, num_instance=cfg.num_samples,
-            template=cfg.template, size=cfg.resolution, center_crop=cfg.center_crop,
+            template=cfg.template,
+            prior_data_root=cfg.class_data_dir if cfg.with_image_prior else None,
+            class_token=cfg.class_token,
+            num_prior=cfg.num_prior_images if cfg.with_image_prior else None,
+            size=cfg.resolution, center_crop=cfg.center_crop,
             augment_pipe=augment_pipe, seed=cfg.seed,
         )
         cpus = os.cpu_count() or 1
         self.train_loader = PrefetchLoader(
-            dataset, batch_size=cfg.train_batch_size, collate=TextBoostDataset.collate,
+            dataset, batch_size=cfg.train_batch_size,
+            collate=functools.partial(TextBoostDataset.collate,
+                                      with_prior_preservation=cfg.with_image_prior),
             shard_id=shard_id, num_shards=num_shards, seed=cfg.seed,
             num_workers=min(max(cfg.dataloader_num_workers, 1) * 2, 4 * cpus),
         )
@@ -306,6 +340,9 @@ class Trainer:
             eos_token_id=spec.text_encoder.eos_token_id,
             accumulate_steps=max(cfg.gradient_accumulation_steps, 1),
             max_grad_norm=cfg.max_grad_norm,
+            with_image_prior=cfg.with_image_prior,
+            image_ppl_weight=cfg.image_ppl_weight,
+            use_attention_mask=cfg.text_encoder_use_attention_mask,
         )
         self.train_step = make_train_step(self.step_config)
         self.state = TrainState(
@@ -314,6 +351,7 @@ class Trainer:
             null_embedding=self.null_embedding,
             target_norm=torch.tensor(self.mean_norm, dtype=torch.float32, device=dev),
             original_rows=grown[:first_added_id].clone(),
+            unet_lora=lora_parameters(unet) if self.train_unet else [],
         )
         self.generator = torch.Generator(dev).manual_seed(cfg.seed)
         self.latent_shape = (spec.vae.latent_channels, cfg.resolution // 8, cfg.resolution // 8)
@@ -337,7 +375,8 @@ class Trainer:
                 logger.info("No checkpoint found at %s; starting fresh", path)
             else:
                 restored = checkpoint.restore_checkpoint(
-                    ckpt, te, optimizer, scheduler, self.generator, first_added_id)
+                    ckpt, te, optimizer, scheduler, self.generator, first_added_id,
+                    unet=unet if self.train_unet else None)
                 self.start_step = restored["step"]
                 self.state.step = restored["micro_step"]
                 # Carry on the data stream instead of replaying batch 0 (the
@@ -366,7 +405,9 @@ class Trainer:
         return out
 
     def _draws(self) -> Dict[str, torch.Tensor]:
-        return sample_draws(self.generator, batch_size=self.config.train_batch_size,
+        # The image prior's class samples follow the instance ones in the batch.
+        batch = self.config.train_batch_size * (2 if self.config.with_image_prior else 1)
+        return sample_draws(self.generator, batch_size=batch,
                             latent_shape=self.latent_shape, schedule=self.schedule,
                             weighted_timesteps=self.step_config.weighted_timesteps)
 
@@ -480,7 +521,8 @@ class Trainer:
         t0 = time.perf_counter()
         payload = checkpoint.snapshot(
             self.text_encoder, self.state.optimizer, self.state.lr_scheduler, self.generator,
-            step=step, micro_step=self.state.step, first_added_id=self.first_added_id)
+            step=step, micro_step=self.state.step, first_added_id=self.first_added_id,
+            unet=self.bundle.unet if self.train_unet else None)
         self.timings["checkpoint_snapshot"].append(time.perf_counter() - t0)
         path, thread = checkpoint.save_checkpoint(
             cfg.output_dir, step, payload, total_limit=cfg.checkpoints_total_limit,
@@ -588,9 +630,14 @@ class Trainer:
     # ------------------------------------------------------------------
     def save_final(self):
         """Final layout (train_textboost.py:1234-1266): the `text_encoder/`
-        PEFT adapter dir and the token bins at the output root."""
+        PEFT adapter dir (and `unet/` when the UNet's LoRA trained,
+        textboost_tpu/train/trainer.py:1078-1095) and the token bins at the
+        output root."""
         cfg = self.config
         base = cfg.pretrained_model_name_or_path or self.bundle.spec.name
+        if self.train_unet:
+            export_unet_lora_adapter(self.bundle.unet, os.path.join(cfg.output_dir, "unet"),
+                                     rank=cfg.lora_rank, base_model_name=base)
         if not cfg.skip_save_text_encoder and cfg.lora_rank > 0:
             export_lora_adapter(self.text_encoder, os.path.join(cfg.output_dir, "text_encoder"),
                                 rank=cfg.lora_rank, base_model_name=base)
