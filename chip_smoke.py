@@ -64,7 +64,22 @@ with the launch counts set to 0 just before and read just after:
     the reference's names, the CSV its header; the second instance sampled
     again from a fresh load must give the same bits; the scorers on the card
     must match the port's CPU fp32 math on the same weights; and
-    clip-flant5-xxl at full depth, seeded on the card, scores the 100 pairs.
+    clip-flant5-xxl at full depth, seeded on the card, scores the 100 pairs;
+  * sd21 at 768 px (`sd21_phase`): `textboost_torch.train.main` with
+    `run_textboost_db.py::build_cmd`'s flags for `-m sd21` (v-prediction,
+    768 px, batch 8) plus --augment_device and --validation_scheduler
+    PNDMScheduler, on a square and a 1024x768 instance image, 6 steps with a
+    checkpoint and a PNDM validation round (UNet batch 32 at 96x96 latents)
+    every 3; its launches must be those derived from the config (a PNDM
+    round makes 26 UNet calls) and step 2's pixels the dataset's plans
+    executed on the card, bit for bit; then its output samples 4 prompts at
+    768 px with each of DPM-Solver++, DDIM, DDPM and PNDM, twice each
+    (bit-identical, launches as derived); every kernel is held at every shape
+    of the run and the sampling (K1 at 9216 tokens with D = 64 and D = 512,
+    the VAE decoder's norms over 768x768 spans); and the device augmentation
+    is held against the same function on the CPU and against the host PIL
+    path, with its launches at batch 8 and 16, its device time and host time
+    per batch, and the bytes each path sends to the card per step.
 
 Before them: one sd15 UNet forward and one sd15 train step (batch 2) with
 the kernels and with plain math.  The GroupNorm kernels are held against
@@ -234,6 +249,37 @@ def attention_fp32(q, k, v, scale: float, p_dtype=None, drop_keys: int = 0):
     return torch.stack(out)
 
 
+PLAIN_SCORE_BYTES = 4 * 2**30  # the plain attention's fp32 [c, H, N, M] scores per call
+
+
+def plain_chunk(b: int, n: int, m: int, h: int) -> int:
+    """Samples per call of the plain attention (forward or backward) whose
+    fp32 scores fit in PLAIN_SCORE_BYTES: sd21's 9216-token attention at
+    batch 32 would need 54 GB of scores in one call."""
+    return max(1, min(b, PLAIN_SCORE_BYTES // (4 * h * n * m)))
+
+
+def plain_attention(q, k, v, scale: float, backward_of=None):
+    """fa.flash_attention_reference (or, given `backward_of` = (o, lse, dO),
+    its backward) over the batch in chunks of `plain_chunk` samples."""
+    import torch
+
+    from textboost_torch.ops import flash_attention as fa
+
+    b, n, h, _ = q.shape
+    c = plain_chunk(b, n, k.shape[1], h)
+    parts = []
+    for i in range(0, b, c):
+        sl = slice(i, i + c)
+        if backward_of is None:
+            parts.append(fa.flash_attention_reference(q[sl], k[sl], v[sl], scale))
+        else:
+            o, lse, do = backward_of
+            parts.append(fa.flash_attention_backward_reference(q[sl], k[sl], v[sl], o[sl],
+                                                               lse[sl], do[sl], scale))
+    return tuple(torch.cat(t) for t in zip(*parts))
+
+
 def flash_errors(o, ref):
     """(relative L2 error of o against the fp32 `ref`, worst over rows)."""
     diff = o.float() - ref
@@ -340,14 +386,14 @@ def rel_l2(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def write_instance_image(path: str, seed: int) -> None:
-    """A 512x512 RGB PNG: smooth colour ramps plus noise, from a seed."""
+def write_instance_image(path: str, seed: int, width: int = 512, height: int = 512) -> None:
+    """A width x height RGB PNG: smooth colour ramps plus noise, from a seed."""
     import numpy as np
     from PIL import Image
 
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:512, 0:512] / 511.0
-    img = np.stack([xx, yy, 1.0 - xx * yy], axis=-1) * 200 + rng.normal(0, 20, (512, 512, 3))
+    yy, xx = np.mgrid[0:height, 0:width] / np.array([[[height - 1]], [[width - 1]]])
+    img = np.stack([xx, yy, 1.0 - xx * yy], axis=-1) * 200 + rng.normal(0, 20, (height, width, 3))
     Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path)
 
 CLIP_VOCAB = 49408  # a dense vocab: 512 byte symbols, merges, filler, the two specials
@@ -537,7 +583,7 @@ def check_flash_forward(gen, shapes) -> float:
         v = torch.randn(b, m, h, d, generator=gen, device=dev).to(bf16)
         o, lse = fa.flash_attention_forward(q, k, v, scale=d**-0.5)
         torch.cuda.synchronize()
-        ro, rl = fa.flash_attention_reference(q.float(), k.float(), v.float(), d**-0.5)
+        ro, rl = plain_attention(q.float(), k.float(), v.float(), d**-0.5)
         eo = (o.float() - ro).abs().max().item()
         el = (lse - rl).abs().max().item()
         rel, row = flash_errors(o, ro)
@@ -642,7 +688,7 @@ def flash_forward_times(gen, b: int, n: int, h: int, d: int, card: dict) -> dict
                              f"{dict(fa.variant_counts)}, not by wgmma")
     out = {
         "ms": cuda_ms(lambda: fa.flash_attention_forward(q, k, v, scale=d**-0.5), 10),
-        "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(q, k, v, d**-0.5), 3, 1),
+        "plain_ms": cuda_ms(lambda: plain_attention(q, k, v, d**-0.5), 3, 1),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 10),
         **bound_of(flash_floors_ms(b, n, n, h, d, backward=False, **card)),
     }
@@ -671,8 +717,7 @@ def flash_backward_times(gen, b: int, n: int, h: int, d: int, card: dict) -> dic
 
     out = {
         "ms": cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, lse, do, scale=d**-0.5), 10),
-        "plain_ms": cuda_ms(
-            lambda: fa.flash_attention_backward_reference(q, k, v, o, lse, do, d**-0.5), 2, 1),
+        "plain_ms": cuda_ms(lambda: plain_attention(q, k, v, d**-0.5, (o, lse, do)), 2, 1),
         "library_ms": cuda_ms(sdpa_fwd_bwd, 10) - cuda_ms(sdpa_fwd, 10),
         **bound_of(flash_floors_ms(b, n, n, h, d, backward=True, **card)),
     }
@@ -2611,6 +2656,481 @@ def benchmark_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     }
 
 
+# sd21 at 768 px (v-prediction): the DB runner's flags for `-m sd21` with the
+# plans executed on the card and PNDM validation rounds, cut from 250 steps
+# and a cadence of 50 to SD21_STEPS and SD21_CADENCE; then sampling from its
+# output with every sampler.
+SD21_STEPS = 6
+SD21_CADENCE = 3
+SD21_SAMPLERS = ("dpm++2m", "ddim", "ddpm", "pndm")
+SD21_SEEDS = (0, 1, 2, 3)  # one latent per prompt
+AUG_SWEEP = 24  # seeded full plans in the device augmentation's checks
+AUG_EXACT_MIN = 8  # of them pixel-identical to the host path (as tests/test_device_augment.py)
+# The device augmentation, card against the same function on the CPU and
+# against the host PIL path, in uint8 levels: the gathers exact, the
+# resamplings as tests/test_device_augment.py holds them.
+AUG_CPU_LIMITS = {"identity": 0, "base_hflip": 0, "hflip": 0, "translate": 0, "grayscale": 0,
+                  "zoom": 1, "crop": 1, "collage2": 1, "collage3": 1, "plans": 1}
+AUG_HOST_LIMITS = {"identity": 0, "base_hflip": 0, "hflip": 0, "translate": 0, "grayscale": 0,
+                   "zoom": 1, "crop": 2, "collage2": 3, "collage3": 3, "plans": 3}
+
+
+def sd21_flags(instance_dir: str, output_dir: str):
+    """`paper_flags` as `run_textboost_db.py::build_cmd` gives them for `-m sd21`
+    (--model_preset=sd21 --resolution=768), plus --augment_device and
+    --validation_scheduler PNDMScheduler; SD21_STEPS steps with a checkpoint
+    and a validation round every SD21_CADENCE; --num_samples=2, so that both
+    instance images train (the runner's 1 takes the first)."""
+    swap = {"--model_preset": "sd21", "--resolution": "768",
+            "--max_train_steps": str(SD21_STEPS), "--checkpointing_steps": str(SD21_CADENCE),
+            "--validation_steps": str(SD21_CADENCE), "--num_samples": "2"}
+    flags = [f"{f.split('=')[0]}={swap[f.split('=')[0]]}" if f.split("=")[0] in swap else f
+             for f in paper_flags(instance_dir, output_dir)]
+    return flags + ["--augment_device", "--validation_scheduler=PNDMScheduler"]
+
+
+def unet_calls(sampler: str, steps: int) -> int:
+    """UNet calls of one sampling call: PNDM's warm-up evaluates the second
+    grid point twice."""
+    from textboost_torch.ops.schedule import NoiseSchedule
+    from textboost_torch.samplers import solvers
+
+    if solvers.get_sampler(sampler) is solvers.pndm_sample:
+        return len(solvers._pndm_coeffs(NoiseSchedule.create(), steps).timesteps)
+    return steps
+
+
+def cuda_kernel_counts(fn, repeat: int = 3) -> list:
+    """Device operations (kernels and copies) of one call of `fn` by name,
+    counted by torch.profiler in each of `repeat` calls after a warm one."""
+    import torch
+    import torch.profiler
+
+    fn()
+    counts = []
+    for _ in range(repeat):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(collections.Counter({e.key: e.count for e in prof.key_averages()
+                                           if e.device_type == torch.autograd.DeviceType.CUDA}))
+    return counts
+
+
+def aug_cases(size: int):
+    """{case: [(steps, img_idx, top, left)]} reaching every op of the device
+    augmentation: each op alone on the square image 0 (and, for some, on
+    the wide image 1 at a column offset), then AUG_SWEEP seeded full plans
+    of the paper's augmentation (`--augment pda --augment_inversion`, p 0.5)
+    on image 0; the planners' draws are seeded."""
+    import numpy as np
+
+    from textboost_torch.data import augment as aug
+
+    captions = aug.REFERENCE_CAPTION_MAP
+    cases = {"identity": [([], 0, 0, 0), ([], 1, 0, 256)],
+             "base_hflip": [([{"op": "base_hflip"}], 0, 0, 0), ([{"op": "base_hflip"}], 1, 0, 17)],
+             "hflip": [([{"op": "hflip"}], 0, 0, 0)],
+             "grayscale": [([{"op": "grayscale"}], 0, 0, 0), ([{"op": "grayscale"}], 1, 0, 99)],
+             "collage2": [([{"op": "collage", "axis": 2}], 0, 0, 0)],
+             "collage3": [([{"op": "collage", "axis": 3}], 0, 0, 0)]}
+    for name, planner in (("translate", aug.plan_horizontal_translate),
+                          ("zoom", aug.plan_adjust_scale), ("crop", aug.plan_crop)):
+        cases[name] = [([planner((size, size), "p", True, np.random.default_rng((4, seed)),
+                                 captions)[0]], 0, 0, 0) for seed in range(3)]
+    pipe = aug.PairedAugmentation(hflip="inversion", inversion=True, p=0.5, ops="object", seed=0)
+    cases["plans"] = [(pipe.plan((size, size), "a <x>", np.random.default_rng((99, trial)))[0],
+                       0, 0, 0) for trial in range(AUG_SWEEP)]
+    return cases
+
+
+def device_augment_checks(bank_np, size: int, square_path: str) -> dict:
+    """The device augmentation on the card at the phase's bank: against the
+    same function on the CPU, against the host PIL path on the square image
+    (image 0 of the bank), its launches at batch 8 and 16, its device time."""
+    import numpy as np
+    import torch
+
+    from textboost_torch.data import augment as aug
+    from textboost_torch.data import device_augment as da
+    from textboost_torch.data.datasets import load_rgb, resize_shorter_side
+
+    cases = aug_cases(size)
+    rows = [(name, i) for name, items in cases.items() for i in range(len(items))]
+    params = da.stack_aug_params([da.encode_plan(cases[n][i][0], size, *cases[n][i][1:])
+                                  for n, i in rows])
+    bank = torch.from_numpy(bank_np).cuda()
+    card = da.augment_batch(bank, params, size).cpu().numpy().astype(np.int32)
+    cpu = da.augment_batch(torch.from_numpy(bank_np), params, size).numpy().astype(np.int32)
+    image = load_rgb(square_path)
+    host = np.stack([np.asarray(resize_shorter_side(aug.execute_plan_pil(image.copy(), steps),
+                                                    size)).astype(np.int32)
+                     if img == 0 else card[k] for k, (steps, img, _, _) in enumerate(
+                         cases[n][i] for n, i in rows)])
+    vs_cpu, vs_host, exact = {}, {}, 0
+    for name in cases:
+        idx = [k for k, (n, _) in enumerate(rows) if n == name]
+        vs_cpu[name] = int(np.abs(card[idx] - cpu[idx]).max())
+        on_square = [k for k in idx if cases[name][rows[k][1]][1] == 0]
+        vs_host[name] = int(np.abs(card[on_square] - host[on_square]).max())
+        if name == "plans":
+            exact = sum(bool(np.array_equal(card[k], host[k])) for k in on_square)
+    bad = {n: (vs_cpu[n], vs_host[n]) for n in cases
+           if vs_cpu[n] > AUG_CPU_LIMITS[n] or vs_host[n] > AUG_HOST_LIMITS[n]}
+    # Launches at batch 8 and 16: the first 8 sweep plans, then the same twice.
+    plans8 = [da.encode_plan(steps, size, img, top, left)
+              for steps, img, top, left in cases["plans"][:8]]
+    batches = {b: da.stack_aug_params(plans8 * (b // 8)) for b in (8, 16)}
+    counted = {b: cuda_kernel_counts(lambda: da.augment_batch(bank, p, size))
+               for b, p in batches.items()}
+    each = {b: [sum(c.values()) for c in counts] for b, counts in counted.items()}
+    launches = {b: min(n) for b, n in each.items()}
+    if launches[8] != launches[16]:
+        print(f"[sd21 augment] device operations by call {each}; by name at 16 but not at 8 "
+              f"{dict(counted[16][-1] - counted[8][-1])}, at 8 but not at 16 "
+              f"{dict(counted[8][-1] - counted[16][-1])}", flush=True)
+    card_ms = {b: cuda_ms(lambda: da.augment_batch(bank, p, size), 10)
+               for b, p in batches.items()}
+    ops = sorted({k for steps, *_ in cases["plans"][:8] for k in (s["op"] for s in steps)})
+    print(f"[sd21 augment] {len(rows)} plans at {size} px on the card: against the same function "
+          f"on the CPU, max |diff| by case {vs_cpu} (limits {AUG_CPU_LIMITS}); against the host "
+          f"PIL path on the square image {vs_host} (limits {AUG_HOST_LIMITS}), {exact} of "
+          f"{AUG_SWEEP} full plans pixel-identical (at least {AUG_EXACT_MIN}); device operations "
+          f"per batch {launches[8]} at batch 8, {launches[16]} at 16 (each call {each}; ops "
+          f"{ops}); device time "
+          f"per batch {card_ms[8]:.3f} ms at 8, {card_ms[16]:.3f} ms at 16", flush=True)
+    if bad or exact < AUG_EXACT_MIN:
+        raise AssertionError(f"the device augmentation disagrees: {bad}, {exact} exact plans")
+    if launches[8] != launches[16]:
+        raise AssertionError(f"the device augmentation's launches grew with the batch: {launches}")
+    del bank
+    return {"plans": len(rows), "max_diff_vs_cpu": vs_cpu, "max_diff_vs_host": vs_host,
+            "exact_plans": exact, "launches_per_batch": launches, "launches_by_call": each,
+            "card_ms_per_batch": card_ms}
+
+
+def dataset_host_ms(instance_dir: str, size: int, device_augment: bool, steps: int = 4):
+    """Host ms per batch of 8 (one thread) of the sd21 run's dataset, as the
+    trainer's loader builds it (the same shuffled indices and per-sample
+    draws): plans only (`device_augment`), or the host PIL path's pixels.
+    Returns (ms, the dataset, its first `steps` batches)."""
+    import numpy as np
+
+    from textboost_torch.data import device_augment as da
+    from textboost_torch.data import native
+    from textboost_torch.data.sharding import ShardedIndexIterator
+    from textboost_torch.data.augment import PairedAugmentation
+    from textboost_torch.data.datasets import TextBoostDataset
+    from textboost_torch.data.tokenizer import load_tokenizer
+    from textboost_torch.train.trainer import plan_tokens
+
+    tok = load_tokenizer(None)
+    plan = plan_tokens(tok, [{"instance_token": "<0>", "placeholder_token": "<teapot>",
+                              "initializer_token": "brown teapot"}], "dog",
+                       augment_inversion=True)
+    ds = TextBoostDataset(
+        [{"instance_data_dir": instance_dir, "instance_token": plan.concept_tokens["<0>"]}],
+        tok, num_instance=2, template="imagenet_small", size=size,
+        augment_pipe=PairedAugmentation(hflip="inversion", inversion=True, p=0.5,
+                                        caption_map=plan.caption_map, seed=0),
+        seed=0, device_augment=device_augment)
+    if device_augment:
+        ds.build_image_bank()
+    else:  # warm: the native zoom library loaded, both images decoded (the run's steady state)
+        native.get_lib()
+        for i in range(2):
+            ds.__getitem__(i, rng=np.random.default_rng((1, 0, i)))
+    indices = iter(ShardedIndexIterator(len(ds), seed=0))
+    t0 = time.perf_counter()
+    batches = []
+    for step in range(steps):
+        batch = TextBoostDataset.collate([ds.__getitem__(next(indices), rng=np.random.default_rng(
+            (0, step, i))) for i in range(8)])
+        if device_augment:
+            da.pack_params(batch["aug"])
+        batches.append(batch)
+    return (time.perf_counter() - t0) * 1e3 / steps, ds, batches
+
+
+def sd21_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
+    """sd21 at 768 px through the port's entry points: `textboost_torch.train`
+    with `sd21_flags` (the plans executed on the card, PNDM validation), every
+    kernel call's shape recorded and the launches those derived from the
+    config (PNDM's 26 UNet calls a round among them); then its output served
+    by each sampler twice (bit-identical, finite, launches as derived); each
+    kernel held at every shape of both; the step's batch rebuilt from the
+    dataset's plans; and the device augmentation against the CPU and the host
+    path.  `held`: what the earlier phases held."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from textboost_torch.data import device_augment as da
+    from textboost_torch.data.tokenizer import load_tokenizer
+    from textboost_torch.models.configs import get_spec
+    from textboost_torch.ops import flash_attention as fa
+    from textboost_torch.ops import group_norm as gn
+    from textboost_torch.pipelines.loading import load_textboost_pipeline
+    from textboost_torch.train import trainer as trainer_mod
+    from textboost_torch.train.trainer import plan_tokens
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    spec = get_spec("sd21")
+    size = spec.resolution
+
+    # a. the launches, derived from the config ---------------------------------
+    per_step = train_step_calls("sd21", 8, 8, checkpointing=False, cross_lora_rank=0)
+    per_step_n = {k: sum(c.values()) for k, c in per_step.items()}
+    if tuple(per_step_n[k] for k in ("flash", "flash_bwd", "gn", "gn_bwd")) != \
+            expected_train_launches(spec):
+        raise AssertionError(f"sd21's train step: {per_step_n} on the meta device, "
+                             f"{expected_train_launches(spec)} from the spec")
+    calls = {name: unet_calls(name, 25) for name in SD21_SAMPLERS}
+    per_call = {name: expected_launches(spec, n) for name, n in calls.items()}
+    rounds = SD21_STEPS // SD21_CADENCE
+    val = per_call["pndm"]
+    want = {"flash": SD21_STEPS * per_step_n["flash"] + rounds * val[0],
+            "flash_bwd": SD21_STEPS * per_step_n["flash_bwd"],
+            "gn": SD21_STEPS * per_step_n["gn"] + rounds * val[1],
+            "gn_bwd": SD21_STEPS * per_step_n["gn_bwd"]}
+    print(f"[sd21] derived: per train step at batch 8 {per_step_n}; UNet calls per sampling call "
+          f"{calls}; launches (flash, group norm) per sampling call {per_call}; the run "
+          f"({SD21_STEPS} steps, {rounds} PNDM validation rounds) {want}", flush=True)
+
+    # b. the run: a square and a wide instance image, the plans on the card ----
+    instance_dir = os.path.join(work, "instance")
+    os.makedirs(instance_dir)
+    square = os.path.join(instance_dir, "a.png")
+    write_instance_image(square, seed=2, width=size, height=size)
+    write_instance_image(os.path.join(instance_dir, "b.png"), seed=3, width=1024, height=size)
+    out = os.path.join(work, "run")
+    peaks = {"train": [], "validation": []}
+    real_validation = trainer_mod.Trainer.run_validation
+
+    def measured_validation(self, step):
+        torch.cuda.synchronize()
+        peaks["train"].append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            return real_validation(self, step)
+        finally:
+            torch.cuda.synchronize()
+            peaks["validation"].append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+
+    trainer_mod.Trainer.run_validation = measured_validation
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        run = instrumented_train(sd21_flags(instance_dir, out), trace_call=SD21_STEPS - 1,
+                                 capture_call=1)
+    finally:
+        trainer_mod.Trainer.run_validation = real_validation
+    m = run["metrics"]
+    ev = run["events"]
+    warm = [ev[s - 2].elapsed_time(ev[s - 1]) for s in range(3, SD21_STEPS)
+            if (s - 1) % SD21_CADENCE]
+    busy = sum(run["kernel_ms"].values())
+    print(f"[sd21] {SD21_STEPS} steps sd21 768 px batch 8 bf16, --augment_device, PNDM "
+          f"validation every {SD21_CADENCE}, in {run['run_s']:.1f} s (model init, validation and "
+          f"export included): loss {m['loss']:.5g}, kpl {m['kpl']:.3g}; warm step "
+          f"{np.mean(warm):.1f} ms (each {[round(w, 1) for w in warm]}); traced step "
+          f"{SD21_STEPS}: {run['traced_wall_ms']:.1f} ms wall, {busy:.1f} ms of kernels (idle "
+          f"{1 - busy / run['traced_wall_ms']:.3f}); validation round {m['validation_ms']:.0f} ms "
+          f"(16 images, PNDM 25 steps); peak memory {max(peaks['train']) / 2**30:.2f} GiB "
+          f"training, {max(peaks['validation']) / 2**30:.2f} GiB in a validation round (UNet "
+          f"batch 32 at 96x96 latents, the step's state alive); launches {run['launches']} "
+          f"(expected {want}); {smi}", flush=True)
+    if run["launches"] != want:
+        raise AssertionError(f"the sd21 run launched {run['launches']}, expected {want}")
+    if m["steps"] != SD21_STEPS or not all(
+            math.isfinite(m[k]) for k in ("loss", "kpl", "grad_norm", "added_embedding_norm")):
+        raise AssertionError(f"the sd21 run returned {m}")
+    for step in range(SD21_CADENCE, SD21_STEPS + 1, SD21_CADENCE):
+        for name in ("state.pt", "text_encoder/adapter_model.safetensors"):
+            if not os.path.isfile(os.path.join(out, f"checkpoint-{step}", name)):
+                raise AssertionError(f"checkpoint-{step} holds no {name}")
+        grid = Image.open(os.path.join(out, f"validation_{step}.jpg")).size
+        if grid != (4 * size, 4 * size):
+            raise AssertionError(f"validation_{step}.jpg is {grid}, not 4 x 4 images of {size} px")
+    plan = plan_tokens(load_tokenizer(None), [{"instance_token": "<0>",
+                                               "placeholder_token": "<teapot>",
+                                               "initializer_token": "brown teapot"}], "dog",
+                       augment_inversion=True)
+    for name in ["text_encoder/adapter_model.safetensors"] + [
+            t.strip("<>") + ".bin" for t in plan.token_to_id]:
+        if not os.path.isfile(os.path.join(out, name)):
+            raise AssertionError(f"the sd21 run exported no {name}")
+
+    # c. step 2's batch is the dataset's plans executed on the card -----------
+    dev_host_ms, ds, plan_batches = dataset_host_ms(instance_dir, size, True)
+    host_ms, _, _ = dataset_host_ms(instance_dir, size, False)
+    bank_np = ds.build_image_bank()[0]
+    bank = torch.from_numpy(bank_np).to(dev)
+    captured = run["captured"]["batch"]
+    rebuilt = da.augment_batch(bank, plan_batches[1]["aug"], size).cpu()
+    if not (torch.equal(rebuilt, captured["pixel_values"]) and np.array_equal(
+            plan_batches[1]["input_ids"].astype(np.int64), captured["input_ids"].numpy())):
+        raise AssertionError("step 2 of the sd21 run did not train on its dataset's plans "
+                             "executed on the card")
+    ids_bytes = sum(captured[k].numel() * captured[k].element_size()
+                    for k in ("input_ids", "prior_input_ids"))
+    h2d = {"device_path": ids_bytes + da.h2d_bytes(8),
+           "host_path": ids_bytes + captured["pixel_values"].numel()}
+    offsets = sorted({int(v) for b in plan_batches for v in b["aug"]["left"][
+        b["aug"]["img_idx"] == 1]})
+    print(f"[sd21 data] bank {tuple(bank_np.shape)} uint8 ({bank_np.nbytes / 1e6:.2f} MB, "
+          f"uploaded once); step 2's pixels are the dataset's plans executed on the card, bit "
+          f"for bit; the wide image's column offsets in 4 batches {offsets}; host ms per batch "
+          f"of 8 (one thread): plans {dev_host_ms:.2f}, the host PIL path {host_ms:.1f}; bytes "
+          f"to the card per step {h2d['device_path']} (ids and plan rows), "
+          f"{h2d['host_path']} on the host path", flush=True)
+    del bank
+    augment = device_augment_checks(bank_np, size, square)
+
+    # d. serving its output with every sampler, twice ---------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = [p.replace("<0>", plan.concept_tokens["<0>"]) for p in PAPER_PROMPTS]
+    latents = torch.cat([torch.randn((1, size // 8, size // 8, 4), device=dev,
+                                     generator=torch.Generator(dev).manual_seed(s))
+                         for s in SD21_SEEDS])
+    sampling, serve = {}, {}
+    with kernel_calls("sd21 sampling") as srec:
+        t0 = time.perf_counter()
+        pipe = load_textboost_pipeline(out, "sd21", device=dev)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        for name in SD21_SAMPLERS:
+            images, seconds, launches = [], [], []
+            for _ in range(2):
+                before = (fa.launches, gn.launches, fa.bwd_launches + gn.bwd_launches)
+                t0 = time.perf_counter()
+                images.append(pipe(prompts, num_inference_steps=25, guidance_scale=7.5,
+                                   latents=latents, sampler=name))
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                launches.append((fa.launches - before[0], gn.launches - before[1],
+                                 fa.bwd_launches + gn.bwd_launches - before[2]))
+            same = bool(np.array_equal(*images))
+            sampling[name] = {"s": seconds, "images_per_s": len(prompts) / seconds[1],
+                              "launches_per_call": launches[0][:2], "bit_identical": same}
+            print(f"[sd21 sample] {name}: {len(prompts)} prompts at {size} px, 25 steps "
+                  f"({calls[name]} UNet calls), CFG 7.5: {seconds[0]:.2f} / {seconds[1]:.2f} s, "
+                  f"{len(prompts) / seconds[1]:.3f} images/s; launches (flash, group norm) per "
+                  f"call {launches} (expected {per_call[name]}); two calls bit-identical: "
+                  f"{same}", flush=True)
+            if images[0].dtype != np.uint8 or images[0].shape != (len(prompts), size, size, 3):
+                raise AssertionError(f"{name} gave {images[0].dtype} {images[0].shape}")
+            if not same or any(n[:2] != per_call[name] or n[2] for n in launches):
+                raise AssertionError(f"{name}: launches {launches}, expected {per_call[name]}; "
+                                     f"bit-identical {same}")
+            serve[name] = images[0]
+        del pipe
+    if len({im.tobytes() for im in serve.values()}) != len(SD21_SAMPLERS):
+        raise AssertionError("two samplers gave the same images")
+
+    # e. every kernel at every shape of the run and of the sampling -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    seen, sseen = run["shapes"], srec["shapes"]
+    train_gn = group_norm_calls("sd21")  # UNet and encoder at 8, the decoder at 4
+    val_gn = group_norm_calls("sd21", unet_batch=32, decode_batch=16)
+    derived, derived_sampling = collections.Counter(), collections.Counter()
+    derived.update({key: SD21_STEPS * n for key, n in per_step["gn"].items()})
+    derived.update({key: rounds * calls["pndm"] * n for key, n in val_gn["unet"].items()})
+    derived.update({key: rounds * n for key, n in val_gn["decode"].items()})
+    for name in SD21_SAMPLERS:
+        derived_sampling.update({key: 2 * calls[name] * n for key, n in train_gn["unet"].items()})
+        derived_sampling.update({key: 2 * n for key, n in train_gn["decode"].items()})
+    derived_bwd = collections.Counter({key: SD21_STEPS * n for key, n in per_step["gn_bwd"].items()})
+    if seen["gn"] != derived or seen["gn_bwd"] != derived_bwd or sseen["gn"] != derived_sampling:
+        raise AssertionError(f"the sd21 GroupNorm calls differ from those derived from the "
+                             f"config: run {dict(seen['gn'] - derived)} / "
+                             f"{dict(derived - seen['gn'])}, backward "
+                             f"{dict(seen['gn_bwd'] - derived_bwd)} / "
+                             f"{dict(derived_bwd - seen['gn_bwd'])}, sampling "
+                             f"{dict(sseen['gn'] - derived_sampling)} / "
+                             f"{dict(derived_sampling - sseen['gn'])}")
+    if seen["flash_bwd"] != collections.Counter(
+            {k: SD21_STEPS * n for k, n in per_step["flash_bwd"].items()}):
+        raise AssertionError(f"the sd21 run's flash backward calls {dict(seen['flash_bwd'])}")
+    fwd_calls = seen["gn"] + sseen["gn"]
+    new_rows, gn_err = group_norm_table(gen, set(fwd_calls) - set(held["gn_rows"]),
+                                        {key: {"sd21": n} for key, n in fwd_calls.items()},
+                                        backward=False)
+    new_bwd_rows, gn_bwd_err = group_norm_table(
+        gen, set(derived_bwd) - set(held["gn_bwd_rows"]),
+        {key: {"sd21": n} for key, n in derived_bwd.items()}, backward=True)
+    gn_sums = {}
+    for name, counts, table in (("group_norm_fwd", fwd_calls, {**held["gn_rows"], **new_rows}),
+                                ("group_norm_bwd", derived_bwd,
+                                 {**held["gn_bwd_rows"], **new_bwd_rows})):
+        gn_sums[name] = {field: sum(n * table[key][field] for key, n in counts.items())
+                         for field in ("ms", "cold_ms", "bound_ms", "library_ms")}
+        gn_sums[name]["launches"] = sum(counts.values())
+    flash_calls = seen["flash"] + sseen["flash"]
+    k1_err = check_flash_forward(gen, sorted(set(flash_calls) - held["flash"]))
+    k2_err = check_flash_backward(gen, [(b, n, h, d, mm, mm) for b, n, h, d, mm in
+                                        sorted(set(seen["flash_bwd"]) - held["flash_bwd"])])
+    k1 = {f"sd21_{b}x{n}x{h}x{d}": dict(flash_forward_times(gen, b, n, h, d, card),
+                                         launches=flash_calls[(b, n, h, d, mm)])
+          for b, n, h, d, mm in sorted(flash_calls)}
+    k2 = {f"sd21_{b}x{n}x{h}x{d}": dict(flash_backward_times(gen, b, n, h, d, card),
+                                         launches=seen["flash_bwd"][(b, n, h, d, mm)])
+          for b, n, h, d, mm in sorted(seen["flash_bwd"])}
+    for tag, times in (("K1", k1), ("K2", k2)):
+        for name, t in times.items():
+            print(f"[sd21 flash] {tag} {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, "
+                  f"{t['bound_floor']}; SDPA {t['library_ms']:.4f}; plain {t['plain_ms']:.3f}); "
+                  f"launches {t['launches']}; {smi}", flush=True)
+    main_key = ((8, 320, 96, 96), 32, 1e-6, False)  # Transformer2D norm, UNet level 0 at 768
+    x = torch.randn(main_key[0], generator=gen, device=dev).to(torch.bfloat16)
+    ga = torch.randn(320, generator=gen, device=dev) * 0.2 + 1
+    be = torch.randn(320, generator=gen, device=dev) * 0.1
+    _, mu, rs = gn.group_norm_forward(x, ga, be, 32, eps=1e-6, silu=False)
+    dy = torch.randn(main_key[0], generator=gen, device=dev).to(torch.bfloat16)
+    gn_plain = {"fwd": cuda_ms(lambda: gn.group_norm_reference(x, ga, be, 32, 1e-6, False), 10),
+                "bwd": cuda_ms(lambda: gn.group_norm_backward_reference(
+                    x, ga, be, mu, rs, dy, 32, 1e-6, False), 10)}
+    del x, dy, mu, rs
+    print(f"[sd21 kernels] K1 at the {len(flash_calls)} shapes of the run and the sampling "
+          f"{dict(flash_calls)}, K2 at {dict(seen['flash_bwd'])}; the GroupNorm keys of the "
+          f"run and the sampling are those derived from the config, {len(new_rows)} forward and "
+          f"{len(new_bwd_rows)} backward new ones held now; launch-weighted over the phase: " +
+          "; ".join(f"{name} {v['launches']} launches {v['ms']:.2f} ms warm, bound "
+                    f"{v['bound_ms']:.2f}, library {v['library_ms']:.2f}"
+                    for name, v in gn_sums.items()) + f"; {smi}", flush=True)
+
+    phase_s = time.perf_counter() - t_phase
+    launches = {k: run["launches"][k] + srec["launches"][k] for k in run["launches"]}
+    print(f"[sd21] the whole phase in {phase_s:.1f} s; warm step {np.mean(warm):.1f} ms; peak "
+          f"{max(peaks['train']) / 2**30:.2f} GiB training, {max(peaks['validation']) / 2**30:.2f} "
+          f"GiB in a validation round; images/s " + ", ".join(
+              f"{name} {v['images_per_s']:.3f}" for name, v in sampling.items()) +
+          f"; launches {launches}; {smi}", flush=True)
+    return {
+        "launches": launches, "train_launches": run["launches"],
+        "sampling_launches": srec["launches"], "variants": run["variants"],
+        "run_s": run["run_s"], "warm_step_ms": float(np.mean(warm)), "warm_steps_ms": warm,
+        "traced_step_wall_ms": run["traced_wall_ms"], "traced_step_kernel_ms": busy,
+        "idle_share": 1 - busy / run["traced_wall_ms"], "final_loss": m["loss"],
+        "validation_ms": m["validation_ms"], "peak_gib": {
+            k: max(v) / 2**30 for k, v in peaks.items()},
+        "sampling": sampling, "pipeline_load_ms": load_ms, "h2d_bytes_per_step": h2d,
+        "host_ms_per_batch": {"device_path_plans": dev_host_ms, "host_path": host_ms},
+        "device_augment": augment, "group_norm": gn_sums, "phase_s": phase_s,
+        "k1": k1, "k2": k2, "gn_main": {
+            "fwd": {**group_norm_json(new_rows[main_key]), "plain_ms": gn_plain["fwd"],
+                    "launches": fwd_calls[main_key]},
+            "bwd": {**group_norm_json(new_bwd_rows[main_key]), "plain_ms": gn_plain["bwd"],
+                    "launches": derived_bwd[main_key]}},
+        "k1_max_abs_err": k1_err, "k2_max_abs_err": k2_err, "gn_max_abs_err": gn_err,
+        "gn_bwd_max_abs_err": gn_bwd_err,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -2957,30 +3477,40 @@ def main() -> int:
     bench_work = tempfile.TemporaryDirectory()
     bench = benchmark_phase(gen, card, bench_work.name, smi, held)
     bench_work.cleanup()
+
+    # 14. main path: sd21 at 768 px, the plans executed on the card, PNDM
+    # validation, then sampling with every sampler ------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sd21_work = tempfile.TemporaryDirectory()
+    sd21 = sd21_phase(gen, card, sd21_work.name, smi, held)
+    sd21_work.cleanup()
     by_path = {name: {"generate_sd15": launches.get(key, 0), "train_sd15": tr["launches"][key],
                       "paper_sd21base": paper["launches"][key],
                       "paper_sd21base_resumed": paper["resumed_launches"][key],
                       "snapshot_sd21base": snap["launches"][key],
-                      "benchmark_sd21base": bench["launches"][key]}
+                      "benchmark_sd21base": bench["launches"][key],
+                      "sd21_768": sd21["launches"][key]}
                for name, key in (("flash_attention_fwd", "flash"), ("flash_attention_bwd", "flash_bwd"),
                                  ("group_norm_fwd", "gn"), ("group_norm_bwd", "gn_bwd"))}
-    # The top-level times are at the benchmark's dominant shapes, so that they
-    # sit beside its launches: K1 at the eval's UNet batch 32 (16 with CFG),
-    # K2 at the sweep's training batch 8 (timed in the paper phase).
-    k1_main, k2_main = "eval_unet_level0_32x4096x5x64", "unet_level0_8x4096x5x64"
+    # The top-level numbers are the sd21 phase's, the newest main path: its
+    # launches, and the times at its dominant shape, UNet level 0 at batch 8
+    # (the training step, and four prompts under CFG in sampling).
+    k_main = "sd21_8x9216x5x64"
 
     kernels = {"kernels": [
         dict({"name": "flash_attention_fwd", "route": "cuda",
               "source": "textboost_torch/csrc/flash_attention_fwd.cu",
               "replaces": "textboost_tpu/ops/flash_attention.py:42",
-              "launches": bench["launches"]["flash"],
+              "launches": sd21["launches"]["flash"],
               "max_abs_err": max(flash_err, paper["k1_max_abs_err"], snap["k1_max_abs_err"],
-                                 bench["k1_max_abs_err"])},
-             **bench["k1"][k1_main],
-             shape="B,N,H,D=32,4096,5,64 bf16 (sd21base UNet level 0, the eval's batch 16 with "
-                   "CFG)",
-             other_shapes={**{f"snapshot_{k}": v for k, v in snap["k1"].items()},
-                           **paper["k1"], **{k: v for k, v in bench["k1"].items() if k != k1_main},
+                                 bench["k1_max_abs_err"], sd21["k1_max_abs_err"])},
+             **{k: v for k, v in sd21["k1"][k_main].items() if k != "launches"},
+             shape="B,N,H,D=8,9216,5,64 bf16 (sd21 UNet level 0 at 768 px: the train step at "
+                   "batch 8, four prompts under CFG)",
+             other_shapes={**{k: v for k, v in sd21["k1"].items() if k != k_main},
+                           **{f"snapshot_{k}": v for k, v in snap["k1"].items()},
+                           **paper["k1"], **bench["k1"],
                            **{f"sd15_{k}": v for k, v in fa_t.items()}},
              per_generate_ms=flash_ms, launches_by_path=by_path["flash_attention_fwd"],
              variants={"generate": variants, "train": tr["variants"],
@@ -2988,40 +3518,44 @@ def main() -> int:
         dict({"name": "flash_attention_bwd", "route": "cuda",
               "source": "textboost_torch/csrc/flash_attention_bwd.cu",
               "replaces": "textboost_tpu/ops/flash_attention.py:119",
-              "launches": bench["launches"]["flash_bwd"],
+              "launches": sd21["launches"]["flash_bwd"],
               "max_abs_err": max(flash_bwd_err, paper["k2_max_abs_err"], snap["k2_max_abs_err"],
-                                 bench["k2_max_abs_err"])},
-             **paper["k2"][k2_main],
-             shape="B,N,H,D=8,4096,5,64 bf16 (sd21base UNet level 0, the sweep's training at "
+                                 bench["k2_max_abs_err"], sd21["k2_max_abs_err"])},
+             **{k: v for k, v in sd21["k2"][k_main].items() if k != "launches"},
+             shape="B,N,H,D=8,9216,5,64 bf16 (sd21 UNet level 0 at 768 px, the train step at "
                    "batch 8)",
-             other_shapes={**{f"snapshot_{k}": v for k, v in snap["k2"].items()},
-                           **{k: v for k, v in paper["k2"].items() if k != k2_main},
-                           **{f"sd15_{k}": v for k, v in fb_t.items()}},
+             other_shapes={**{k: v for k, v in sd21["k2"].items() if k != k_main},
+                           **{f"snapshot_{k}": v for k, v in snap["k2"].items()},
+                           **paper["k2"], **{f"sd15_{k}": v for k, v in fb_t.items()}},
              launches_by_path=by_path["flash_attention_bwd"],
              launches_per_train_step=snap["launches"]["flash_bwd"] / SNAPSHOT_STEPS),
         {"name": "group_norm_fwd", "route": "cuda",
          "source": "textboost_torch/csrc/group_norm_fwd.cu",
          "replaces": "textboost_tpu/ops/group_norm.py:58",
-         "launches": bench["launches"]["gn"],
+         "launches": sd21["launches"]["gn"],
          "max_abs_err": max(gn_err, paper["gn_max_abs_err"], snap["gn_max_abs_err"],
-                            bench["gn_max_abs_err"]),
-         **group_norm_json(gn_rows[main_key]), "plain_ms": gn_plain,
-         "shape": "8x320x64x64 bf16 G=32 eps=1e-6 silu=off",
+                            bench["gn_max_abs_err"], sd21["gn_max_abs_err"]),
+         **{k: v for k, v in sd21["gn_main"]["fwd"].items() if k != "launches"},
+         "shape": "8x320x96x96 bf16 G=32 eps=1e-6 silu=off (sd21 at 768 px)",
          "other_shapes": {name: group_norm_json(gn_rows[key]) for name, key in (
-             ("resnet_silu_8x320x64x64", level0),
+             ("sd15_8x320x64x64", main_key), ("resnet_silu_8x320x64x64", level0),
              ("vae_silu_4x128x512x512", ((4, 128, 512, 512), 32, 1e-6, True)))},
+         "plain_ms_sd15_8x320x64x64": gn_plain, "per_sd21_phase": sd21["group_norm"]["group_norm_fwd"],
          "per_generate": gn_sums["generate"], "per_train_step": gn_sums["train_step"],
          "launches_by_path": by_path["group_norm_fwd"], "registers": gn_regs,
          "host_us_8x1280x8x8": gn_host},
         {"name": "group_norm_bwd", "route": "cuda",
          "source": "textboost_torch/csrc/group_norm_bwd.cu",
          "replaces": "textboost_tpu/ops/group_norm.py:93",
-         "launches": bench["launches"]["gn_bwd"],
+         "launches": sd21["launches"]["gn_bwd"],
          "max_abs_err": max(gn_bwd_err, paper["gn_bwd_max_abs_err"], snap["gn_bwd_max_abs_err"],
-                            bench["gn_bwd_max_abs_err"]),
-         **group_norm_json(gn_bwd_rows[main_key]), "plain_ms": gn_bwd_plain,
-         "shape": "8x320x64x64 bf16 G=32 eps=1e-6 silu=off",
-         "other_shapes": {"resnet_silu_8x320x64x64": group_norm_json(gn_bwd_rows[level0])},
+                            bench["gn_bwd_max_abs_err"], sd21["gn_bwd_max_abs_err"]),
+         **{k: v for k, v in sd21["gn_main"]["bwd"].items() if k != "launches"},
+         "shape": "8x320x96x96 bf16 G=32 eps=1e-6 silu=off (sd21 at 768 px)",
+         "other_shapes": {"sd15_8x320x64x64": group_norm_json(gn_bwd_rows[main_key]),
+                          "resnet_silu_8x320x64x64": group_norm_json(gn_bwd_rows[level0])},
+         "plain_ms_sd15_8x320x64x64": gn_bwd_plain,
+         "per_sd21_phase": sd21["group_norm"]["group_norm_bwd"],
          "per_train_step": gn_bwd_sums, "registers": gn_bwd_regs,
          "launches_by_path": by_path["group_norm_bwd"],
          "launches_per_train_step": tr["launches"]["gn_bwd"] / TRAIN_STEPS},
@@ -3041,7 +3575,9 @@ def main() -> int:
         "snapshot_run_sd21base": {k: v for k, v in snap.items()
                                   if not (k in ("k1", "k2") or k.endswith("max_abs_err"))},
         "benchmark_sd21base": {k: v for k, v in bench.items()
-                               if not (k == "k1" or k.endswith("max_abs_err"))}}
+                               if not (k == "k1" or k.endswith("max_abs_err"))},
+        "sd21_768": {k: v for k, v in sd21.items()
+                     if not (k in ("k1", "k2", "gn_main") or k.endswith("max_abs_err"))}}
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

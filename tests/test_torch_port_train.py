@@ -413,7 +413,7 @@ def test_config_has_flag_parity_with_the_jax_cli():
 
 @pytest.mark.parametrize("flags,match", [
     (["--mesh_tp", "2"], "multi-card"),
-    (["--augment_device"], "device-side augmentation"),
+    (["--mesh_dp", "2"], "multi-card"),
 ])
 def test_unserved_flags_raise_at_setup(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -2,9 +2,8 @@
 the prompts of prior generation.
 
 Counterpart of textboost_tpu/data/datasets.py (TextBoostDataset :118-289
-with paired augmentation and the class-prior images of --with_image_prior,
-without the plans of --augment_device, ROADMAP.md queue A;
-InstructPix2PixDataset :292, PriorDataset :322, PromptDataset :377),
+with paired augmentation, the class-prior images of --with_image_prior and
+the plans of --augment_device; InstructPix2PixDataset :292, PriorDataset :322, PromptDataset :377),
 drawing the same numbers from the same per-sample numpy generators, so the
 two packages give byte-identical batches for one seed.  Host-side numpy; images decode
 with PIL, imported when an image is read.  Batches carry uint8 NHWC pixels, normalized on the device by the
@@ -109,7 +108,9 @@ class TextBoostDataset:
     image (the first `num_prior` files of the dir, in name order) with its
     caption: the instance template filled with `class_token`, else the
     caption in the file name (`{i}-{sha1}-{caption}.jpg`, written by
-    train/prior_generation.py)."""
+    train/prior_generation.py).  With `device_augment` a sample carries no
+    pixels: its augmentation plan and crop offsets (data/device_augment.py)
+    under "aug", drawn in the host path's order (template, plan, crop)."""
 
     def __init__(
         self,
@@ -124,6 +125,7 @@ class TextBoostDataset:
         center_crop: bool = False,
         augment_pipe=None,
         seed: int = 0,
+        device_augment: bool = False,
     ):
         self.size = size
         self.center_crop = center_crop
@@ -131,6 +133,7 @@ class TextBoostDataset:
         self.template = resolve_template(template)
         self.augment_pipe = augment_pipe
         self.seed = seed
+        self.device_augment = device_augment
         self._cache = _DecodedImageCache()
 
         self.instance_images_path: List[Tuple[Path, str]] = []
@@ -153,6 +156,16 @@ class TextBoostDataset:
     def __len__(self):
         return self._length
 
+    def build_image_bank(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Decode and shorter-side-resize every instance image once, for
+        --augment_device; caches the resized dims, from which __getitem__
+        draws the crop offsets as crop_with_offsets does."""
+        from .device_augment import build_image_bank
+
+        bank, dims = build_image_bank([p for p, _ in self.instance_images_path], self.size)
+        self._bank_dims = dims
+        return bank, dims
+
     def _prep_image(self, image, rng) -> Tuple[np.ndarray, int, int]:
         image = resize_shorter_side(image, self.size)
         image, top, left = crop_with_offsets(image, self.size, self.center_crop, rng)
@@ -165,6 +178,8 @@ class TextBoostDataset:
         path, instance_token = self.instance_images_path[index % self.num_instance_images]
         prompt_idx = int(rng.integers(0, len(self.template)))
         prompt = self.template[prompt_idx].format(instance_token)
+        if self.device_augment:
+            return self._plan_sample(index, prompt, rng)
         image = self._cache.get(path)
         if self.augment_pipe is not None:
             image, prompt, mask = self.augment_pipe(image, prompt, rng)
@@ -191,11 +206,39 @@ class TextBoostDataset:
             sample["class_input_ids"] = tokenize_prompt(self.tokenizer, prior_prompt)[0]
         return sample
 
+    def _plan_sample(self, index: int, prompt: str, rng) -> Dict:
+        """The plan-only sample of --augment_device: the pixels live in the
+        trainer's bank on the device."""
+        from .device_augment import encode_plan
+
+        img_idx = index % self.num_instance_images
+        steps = []
+        if self.augment_pipe is not None:
+            steps, prompt = self.augment_pipe.plan((self.size, self.size), prompt, rng)
+        if not hasattr(self, "_bank_dims"):
+            self.build_image_bank()
+        h, w = (int(v) for v in self._bank_dims[img_idx])
+        if self.center_crop:
+            top = max(0, int(round((h - self.size) / 2.0)))
+            left = max(0, int(round((w - self.size) / 2.0)))
+        else:
+            top = int(rng.integers(0, max(h - self.size, 0) + 1))
+            left = int(rng.integers(0, max(w - self.size, 0) + 1))
+        return {"aug": encode_plan(steps, self.size, img_idx, top, left),
+                "input_ids": tokenize_prompt(self.tokenizer, prompt)[0], "prompt": prompt}
+
     @staticmethod
     def collate(samples: Sequence[Dict], with_prior_preservation: bool = False) -> Dict:
         """Class examples are concatenated AFTER the instance examples, so
         that the image prior runs in the same forward pass
-        (dataset.py:430-436); `prompt` keeps the instance captions."""
+        (dataset.py:430-436); `prompt` keeps the instance captions.  Plan
+        samples (--augment_device) stack their plans under "aug"."""
+        if "aug" in samples[0]:
+            from .device_augment import stack_aug_params
+
+            return {"input_ids": np.stack([s["input_ids"] for s in samples]).astype(np.int32),
+                    "aug": stack_aug_params([s["aug"] for s in samples]),
+                    "prompt": [s["prompt"] for s in samples]}
         input_ids = [s["input_ids"] for s in samples]
         pixel_values = [s["image"] for s in samples]
         if with_prior_preservation:

@@ -1,8 +1,8 @@
 """Text-to-image sampling pipeline (counterpart of
 textboost_tpu/pipelines/text_to_image.py).
 
-CLIP encode with the null-embedding patch, DPM-Solver++(2M) over the
-CFG-doubled UNet (batch order [negative, positive]), VAE decode, clip to
+CLIP encode with the null-embedding patch, a sampler of
+samplers/solvers.py (DPM-Solver++(2M) by default) over the CFG-doubled UNet (batch order [negative, positive]), VAE decode, clip to
 [-1, 1] and the uint8 conversion on the device before the host copy.
 Latents come in as [B, h, w, 4] and images go out as uint8 [B, H, W, 3],
 the JAX package's layout; the models run NCHW inside.
@@ -22,7 +22,7 @@ from ..models.textboost import apply_null_embedding_patch
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
 from ..ops.schedule import NoiseSchedule
-from ..samplers.solvers import dpm_solver_sample
+from ..samplers.solvers import get_sampler
 
 
 def to_uint8(images: torch.Tensor) -> torch.Tensor:
@@ -90,10 +90,13 @@ class TextToImagePipeline:
         width: Optional[int] = None,
         latents=None,
         generator: Optional[torch.Generator] = None,
+        sampler: str = "dpm++2m",
         output_type: str = "uint8",
     ) -> np.ndarray:
-        """Sample images; returns uint8 [B, H, W, 3] ("uint8") or float32
-        in [-1, 1] ("float").  Raises if a decoded image is not finite."""
+        """Sample images with `sampler` (a name of solvers.SAMPLERS); returns
+        uint8 [B, H, W, 3] ("uint8") or float32 in [-1, 1] ("float").
+        Raises if a decoded image is not finite."""
+        sample = get_sampler(sampler)
         if output_type not in ("uint8", "float"):
             raise ValueError(f"output_type {output_type!r} not in ('uint8', 'float')")
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
@@ -127,7 +130,7 @@ class TextToImagePipeline:
             def model_fn(x, t):
                 return self.unet(x, t, hidden)
 
-        z = dpm_solver_sample(model_fn, self.schedule, x, num_inference_steps)
+        z = sample(model_fn, self.schedule, x, num_inference_steps)
         images = self.vae.decode(z / self.spec.vae.scaling_factor).float()
         if not bool(torch.isfinite(images).all()):  # before the clamp turns inf into +-1
             raise FloatingPointError("the decoded images hold non-finite values")

@@ -208,16 +208,9 @@ def unsupported_flags(cfg: TrainConfig) -> List[str]:
     each naming the ROADMAP.md item that brings it (empty when all is
     served)."""
     out = []
-    if cfg.augment_device:
-        out.append("--augment_device: device-side augmentation (ROADMAP.md queue A9: "
-                   "data/device_augment.py)")
     if cfg.unet_params_to_train not in ("none", "crossattn_kv"):
         out.append(f"--unet_params_to_train {cfg.unet_params_to_train}: the port trains "
                    "none or crossattn_kv, as the JAX package does")
-    if cfg.validation_prompts and cfg.validation_scheduler not in (
-            "dpm++2m", "DPMSolverMultistepScheduler"):
-        out.append(f"--validation_scheduler {cfg.validation_scheduler}: the port samples with "
-                   "DPM-Solver++ only (ROADMAP.md queue A6: DDIM, DDPM and PNDM samplers)")
     if cfg.mesh_tp > 1 or (cfg.mesh_dp or 1) > 1:
         out.append("--mesh_tp/--mesh_dp > 1: multi-card training (ROADMAP.md queue A8: "
                    "Data parallel and multi-host)")

@@ -16,7 +16,10 @@ and at the end the PEFT `text_encoder/` adapter (and `unet/`, with
 `textboost_torch.inference` and the JAX `load_textboost_pipeline` load.
 `--gradient_checkpointing` recomputes the UNet's blocks in the backward;
 `--text_encoder_use_attention_mask` threads the padded CLIP mask into the
-step's text encodes.
+step's text encodes.  `--augment_device` uploads the instance images once
+and executes each batch's augmentation plans on the device
+(data/device_augment.py); `--validation_scheduler` picks the validation
+rounds' sampler (samplers/solvers.py::get_sampler).
 
 Flags the port does not serve yet raise NotImplementedError here
 (train/config.py::unsupported_flags).
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from ..data.augment import PairedAugmentation
+from ..data.device_augment import augment_batch
 from ..data.datasets import InstructPix2PixDataset, PriorDataset, TextBoostDataset
 from ..data.loader import PrefetchLoader
 from ..data.sharding import process_shard_info
@@ -57,6 +61,7 @@ from ..models.pretrained import load_models
 from ..models.textboost import load_null_embedding_asset
 from ..ops.schedule import NoiseSchedule
 from ..pipelines.text_to_image import TextToImagePipeline
+from ..samplers.solvers import get_sampler
 from ..tokens.surgery import OBJECT_AUGMENTATIONS, STYLE_AUGMENTATIONS, plan_token_addition
 from ..utils.profiling import StepTimer, device_memory_stats
 from ..utils.trackers import Trackers
@@ -133,6 +138,7 @@ class Trainer:
                             f"{sorted(ATTENTION_IMPLS)} (flash is chosen per call by 'auto')")
         if problems:
             raise NotImplementedError("not served by textboost_torch yet: " + "; ".join(problems))
+        get_sampler(config.validation_scheduler)  # an unknown name raises here, not at step 1
         self.config = config
         self.device = resolve_device(device)
         os.makedirs(config.output_dir, exist_ok=True)
@@ -304,8 +310,18 @@ class Trainer:
             class_token=cfg.class_token,
             num_prior=cfg.num_prior_images if cfg.with_image_prior else None,
             size=cfg.resolution, center_crop=cfg.center_crop,
-            augment_pipe=augment_pipe, seed=cfg.seed,
+            augment_pipe=augment_pipe, seed=cfg.seed, device_augment=cfg.augment_device,
         )
+        self._image_bank: Optional[torch.Tensor] = None
+        if cfg.augment_device:
+            # The pixels go to the device once; each step sends the ids and
+            # one row of plan scalars per sample (:599-616).
+            if num_shards != 1:
+                raise ValueError("--augment_device is single-process only")
+            bank, _ = dataset.build_image_bank()
+            self._image_bank = torch.from_numpy(bank).to(dev)
+            logger.info("device augmentation: %d instance image(s) resident (%.1f MB uploaded "
+                        "once)", bank.shape[0], bank.nbytes / 1e6)
         cpus = os.cpu_count() or 1
         self.train_loader = PrefetchLoader(
             dataset, batch_size=cfg.train_batch_size,
@@ -389,12 +405,15 @@ class Trainer:
     # ------------------------------------------------------------------
     def _device_batch(self, batch: Dict, prior_batch: Dict) -> Dict[str, torch.Tensor]:
         """Host numpy batch -> tensors on the device (pinned, non_blocking
-        copies on the card)."""
+        copies on the card).  With --augment_device the pixels are made on
+        the device from the bank by the batch's plans: uint8 NHWC, as the
+        host path ships them, normalised by the step."""
         arrays = {
-            "pixel_values": batch["pixel_values"],
             "input_ids": batch["input_ids"].astype(np.int64),
             "prior_input_ids": prior_batch["input_ids"].astype(np.int64),
         }
+        if self._image_bank is None:
+            arrays["pixel_values"] = batch["pixel_values"]
         if "mask" in batch:
             arrays["mask"] = batch["mask"]
         cuda = self.device.type == "cuda"
@@ -402,6 +421,9 @@ class Trainer:
         for k, v in arrays.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
             out[k] = (t.pin_memory() if cuda else t).to(self.device, non_blocking=cuda)
+        if self._image_bank is not None:
+            out["pixel_values"] = augment_batch(self._image_bank, batch["aug"],
+                                                self.config.resolution)
         return out
 
     def _draws(self) -> Dict[str, torch.Tensor]:
@@ -583,7 +605,7 @@ class Trainer:
     def run_validation(self, step: int) -> str:
         """log_validation counterpart (train_textboost.py:453-531): sample
         num_validation_images per substituted prompt from the live weights
-        (25 DPM-Solver++ steps, CFG 7.5, latents from a generator of its own
+        (25 steps of --validation_scheduler, CFG 7.5, latents from a generator of its own
         seeded with --seed, in eval mode, then the modules' modes back) and
         write a (prompts x images) grid to validation_{step}.jpg.  The grid
         and the trackers' images are written on a writer thread, joined
@@ -600,7 +622,8 @@ class Trainer:
             for m in modules:
                 m.eval()
             images = pipe(prompts, num_inference_steps=25, guidance_scale=7.5,
-                          generator=torch.Generator(self.device).manual_seed(cfg.seed))
+                          generator=torch.Generator(self.device).manual_seed(cfg.seed),
+                          sampler=cfg.validation_scheduler)
         finally:
             for m, mode in zip(modules, modes):
                 m.train(mode)
