@@ -79,7 +79,19 @@ with the launch counts set to 0 just before and read just after:
     the VAE decoder's norms over 768x768 spans); and the device augmentation
     is held against the same function on the CPU and against the host PIL
     path, with its launches at batch 8 and 16, its device time and host time
-    per batch, and the bytes each path sends to the card per step.
+    per batch, and the bytes each path sends to the card per step;
+  * data parallel (`dp_phase`): the paper run's flags at sd21base, global
+    batch 8, 6 steps with a checkpoint and a validation round every 3, each
+    run launched as a user would: in one process; under `python -m
+    torch.distributed.run --nproc_per_node 1 -m textboost_torch.train`
+    (NCCL at world 1), which must leave the same bits; with two ranks
+    sharing the card over gloo (batch 4 each), whose losses must be equal
+    on both ranks and within a stated bf16 bound of the one-process run's,
+    rank 0 alone writing; and two ranks resumed from its checkpoint-3.  Each
+    rank's launches must be those derived from the config at batch 4, and
+    every kernel is held at the ranks' shapes.  The ranks' program is this
+    script (`--dp-rank DIR -- FLAGS`: the trainer's `main` under the
+    launch counts, its numbers into DIR).
 
 Before them: one sd15 UNet forward and one sd15 train step (batch 2) with
 the kernels and with plain math.  The GroupNorm kernels are held against
@@ -109,6 +121,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1258,8 +1271,8 @@ def instrumented_train(argv, trace_call=None, capture_call=None, on_step=None, r
     events, traced, captured = [], {}, {}
     real_make = trainer_mod.make_train_step
 
-    def timed_make(config):
-        step = real_make(config)
+    def timed_make(config, reduce=None):
+        step = real_make(config, reduce)
 
         def timed_step(state, batch, draws):
             if len(events) == capture_call:
@@ -3131,6 +3144,404 @@ def sd21_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     }
 
 
+# Data parallel at sd21base (`dp_phase`): the paper run's flags at global
+# batch 8, DP_STEPS steps with a checkpoint and a validation round every
+# DP_CADENCE, each run a process of its own (or two) launched as a user would.
+DP_STEPS = 6
+DP_CADENCE = 3
+DP_RANKS = 2  # sharing the one card: gloo (NCCL refuses two ranks on one device)
+DP_WARM_STEPS = (3, 5, 6)  # step 4 carries step 3's checkpoint and validation round
+DP_LAUNCH_TIMEOUT_S = 300
+# The 2-rank run against the one-process run at batch 8, bf16: the same
+# samples and draws, but each rank's UNet runs at batch 4, where cuBLAS and
+# cuDNN may pick other algorithms (a bf16 ulp is 3.9e-3), and the ranks'
+# losses and gradients are averaged in fp32.  On an NVIDIA H100 80GB HBM3
+# (700 W) the gaps were 1.9e-5-2.3e-4 a step's loss, 2.7e-5 for the
+# exported LoRA and 3.4e-3 for the added rows (embedding lr 1e-3, near-sign
+# AdamW steps); the bounds are ~6-9x those, and below a bf16 ulp for the loss.
+DP_LOSS_REL = 2e-3  # each step's loss
+DP_REL_L2 = 2e-2  # the exported LoRA and added rows after 6 AdamW steps
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_launch(argv, what: str, timeout_s: float = DP_LAUNCH_TIMEOUT_S) -> str:
+    """Run `argv` (a python process, or a torchrun launch and its ranks)
+    from the repo root in a session of its own; returns its output (stdout
+    and stderr).  Raises on a nonzero exit; past `timeout_s` the whole
+    session is killed and it raises."""
+    import signal
+
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=REPO_DIR if not path else f"{REPO_DIR}{os.pathsep}{path}")
+    proc = subprocess.Popen(argv, cwd=REPO_DIR, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{what} did not finish within {timeout_s} s")
+    if proc.returncode:
+        print(out[-6000:], flush=True)
+        raise AssertionError(f"{what} exited {proc.returncode}")
+    return out
+
+
+def dp_rank(json_dir: str, argv) -> int:
+    """The program of each process `dp_phase` launches (`python
+    chip_smoke.py --dp-rank DIR -- FLAGS`, alone or under python -m
+    torch.distributed.run): `textboost_torch.train.main(FLAGS)` through
+    `instrumented_train`, then this rank's numbers into DIR/rank{RANK}.json:
+    its launches and kernel shapes, the losses by step, the all-reduce's
+    numbers, the step times, the peak memory, and every file and dir it
+    opened for writing or made under --output_dir (an audit hook sees each)."""
+    import numpy as np
+    import torch
+
+    rank = int(os.environ.get("RANK", "0"))
+    output_dir = os.path.abspath(next(a.split("=", 1)[1] for a in argv
+                                      if a.startswith("--output_dir=")))
+    writes = []
+    write_flags = os.O_WRONLY | os.O_RDWR | os.O_CREAT
+
+    def audit(event, args):
+        if event == "open":
+            path, mode, flags = args
+            writing = ((isinstance(mode, str) and any(c in mode for c in "wax+"))
+                       or (isinstance(flags, int) and flags & write_flags))
+        elif event in ("os.mkdir", "os.rename", "os.remove", "shutil.rmtree"):
+            path, writing = args[0], True
+        else:
+            return
+        if writing and isinstance(path, (str, bytes, os.PathLike)):
+            full = os.path.abspath(os.fsdecode(path))
+            if full == output_dir or full.startswith(output_dir + os.sep):
+                writes.append(os.path.relpath(full, output_dir))
+
+    sys.addaudithook(audit)
+    tr = instrumented_train(argv)
+    ev = tr["events"]
+    step_ms = [ev[s - 2].elapsed_time(ev[s - 1]) for s in range(2, len(ev) + 1)]
+    m = tr["metrics"]
+    out = {"rank": rank, "launches": tr["launches"], "run_s": tr["run_s"],
+           "shapes": {k: [[repr(key), n] for key, n in c.items()] for k, c in tr["shapes"].items()},
+           "loss_by_step": m["loss_by_step"], "steps_ms": dict(zip(range(2, len(ev) + 1), step_ms)),
+           "warm_step_ms": float(np.mean([step_ms[s - 2] for s in DP_WARM_STEPS if s - 2 < len(step_ms)])),
+           "peak_bytes": torch.cuda.max_memory_allocated(), "writes": sorted(set(writes)),
+           "dp": {k: m[k] for k in ("dp_backend", "dp_world", "all_reduce_bytes_per_call",
+                                    "all_reduce_ms_by_call") if k in m}}
+    with open(os.path.join(json_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def dp_tree(run_dir: str) -> dict:
+    """{relative path: bytes} of the files a run left, but its log (whose
+    lines carry times)."""
+    out = {}
+    for d, _, files in os.walk(run_dir):
+        for name in files:
+            rel = os.path.relpath(os.path.join(d, name), run_dir)
+            if rel != "training.log":
+                with open(os.path.join(d, name), "rb") as f:
+                    out[rel] = f.read()
+    return out
+
+
+def same_state(a, b) -> bool:
+    """Whether two loaded checkpoint states (nested dicts, lists, tensors
+    and scalars) hold the same values, bit for bit (torch.save's files
+    differ from save to save: each carries a serialization id)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_state(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(same_state, a, b))
+    return a == b
+
+
+def dp_export_gaps(a: str, b: str) -> dict:
+    """Relative L2 gaps of run b's exported LoRA and added rows to run a's."""
+    import numpy as np
+    import torch
+
+    from textboost_torch.lora.peft_io import import_token_embeddings, load_safetensors
+
+    lora = [load_safetensors(os.path.join(d, "text_encoder", "adapter_model.safetensors"))
+            for d in (b, a)]
+    bins = sorted(f for f in os.listdir(a) if f.endswith(".bin"))
+    rows = [import_token_embeddings([os.path.join(d, f) for f in bins]) for d in (b, a)]
+    return {"lora": rel_l2(*(torch.cat([torch.from_numpy(t[k]).float().flatten()
+                                        for k in sorted(t)]) for t in lora)),
+            "rows": rel_l2(*(torch.from_numpy(np.stack([r[t] for t in sorted(r)])).float()
+                             for r in rows))}
+
+
+def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
+    """Data parallel over torch.distributed at sd21base (see the module
+    docstring): the one-process run, NCCL at world 1, two ranks over gloo
+    on the one card and their resume, each a process launched as a user
+    would; every kernel held at the ranks' batch-4 shapes."""
+    import ast
+
+    import numpy as np
+    import torch
+
+    from textboost_torch.models.configs import get_spec
+
+    t_phase = time.perf_counter()
+    spec = get_spec("sd21base")
+    per_step, per_round = expected_train_launches(spec), expected_launches(spec, 25)
+    rounds = DP_STEPS // DP_CADENCE
+    instance_dir = os.path.join(work, "instance")
+    os.makedirs(instance_dir)
+    write_instance_image(os.path.join(instance_dir, "teapot.png"), seed=1)
+    dirs = {name: os.path.join(work, name) for name in ("one", "nccl", "two", "resumed")}
+
+    def flags(name, *extra):
+        return paper_flags(instance_dir, dirs[name], f"--max_train_steps={DP_STEPS}",
+                           f"--checkpointing_steps={DP_CADENCE}",
+                           f"--validation_steps={DP_CADENCE}", *extra)
+
+    def torchrun(nproc):
+        return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                f"--nproc_per_node={nproc}"]
+
+    def ranks(name, nproc, *extra):
+        """Launch the --dp-rank program (under torchrun when nproc); returns
+        (output, [rank0, rank1, ...] numbers)."""
+        json_dir = os.path.join(work, f"{name}_json")
+        os.makedirs(json_dir)
+        launcher = torchrun(nproc) if nproc else [sys.executable]
+        t0 = time.perf_counter()
+        out = run_launch([*launcher, os.path.join(REPO_DIR, "chip_smoke.py"), "--dp-rank",
+                          json_dir, "--", *flags(name, *extra)], f"the {name} run")
+        wall = time.perf_counter() - t0
+        res = []
+        for r in range(nproc or 1):
+            with open(os.path.join(json_dir, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+            res[-1]["wall_s"] = wall
+            res[-1]["shapes"] = {k: collections.Counter({ast.literal_eval(key): n for key, n in v})
+                                 for k, v in res[-1]["shapes"].items()}
+        return out, res
+
+    def log_line(name, pattern):
+        with open(os.path.join(dirs[name], "training.log")) as f:
+            found = re.findall(pattern, f.read())
+        if len(found) != 1:
+            raise AssertionError(f"the {name} run's training.log holds {len(found)} lines "
+                                 f"matching {pattern!r}")
+        return found[0]
+
+    # a. one process, no launcher; then NCCL at world 1 ------------------------
+    _, (one,) = ranks("one", 0)
+    t0 = time.perf_counter()
+    nccl_out = run_launch([*torchrun(1), "-m", "textboost_torch.train", *flags("nccl")],
+                          "the NCCL world-1 run")
+    nccl_s = time.perf_counter() - t0
+    backend_nccl = re.findall(r"torch\.distributed: rank 0 of 1 .*backend (\w+)", nccl_out)
+    nccl_losses = json.loads(log_line("nccl", r"Loss by step 1-\d+: (\[.*\])"))
+    nccl_reduce = log_line("nccl", r"all-reduce: (\d+) calls, (\d+) bytes each, median ([\d.]+) ms")
+    tree_one, tree_nccl = dp_tree(dirs["one"]), dp_tree(dirs["nccl"])
+    same_tree = sorted(tree_one) == sorted(tree_nccl)
+    # metrics.jsonl holds times: its losses are compared; the files
+    # torch.save wrote (a checkpoint's state.pt, the token bins), their values.
+    saved = [k for k in tree_one if k.endswith((".pt", ".bin"))]
+    differ = sorted(k for k in tree_one if tree_nccl.get(k) != tree_one[k]
+                    and k != "metrics.jsonl" and k not in saved)
+    differ += [k for k in saved if not same_state(*(
+        torch.load(os.path.join(dirs[name], k), map_location="cpu", weights_only=True)
+        for name in ("one", "nccl")))]
+    records = {name: [json.loads(line) for line in open(os.path.join(dirs[name], "metrics.jsonl"))]
+               for name in ("one", "nccl")}
+    keys = ("loss", "den_loss", "kpl", "grad_norm", "added_embedding_norm")
+    same_records = [[r.get(k) for k in keys] for r in records["one"]] == [
+        [r.get(k) for k in keys] for r in records["nccl"]]
+    print(f"[dp nccl] python -m torch.distributed.run --standalone --nproc_per_node 1 -m "
+          f"textboost_torch.train, {DP_STEPS} steps sd21base batch 8 bf16 (checkpoint and "
+          f"validation every {DP_CADENCE}), against the same run without a launcher: backend "
+          f"{backend_nccl}, all-reduce {nccl_reduce[0]} calls of {nccl_reduce[1]} bytes, "
+          f"median {nccl_reduce[2]} ms (CUDA events); losses by step "
+          f"{'the same bits' if nccl_losses == one['loss_by_step'] else 'DIFFER'} "
+          f"({one['loss_by_step']}); {len(tree_one)} files (checkpoints, validation grids, "
+          f"export) {'byte-identical' if same_tree and not differ else f'DIFFER: {differ}'}; "
+          f"{nccl_s:.1f} s; {smi}", flush=True)
+    if not (backend_nccl == ["nccl"] and nccl_losses == one["loss_by_step"] and same_tree
+            and not differ and same_records and int(nccl_reduce[0]) == DP_STEPS):
+        raise AssertionError("NCCL at world 1 is not the run without a launcher")
+
+    # b. two ranks on the card over gloo; their resume ---------------------------
+    two_out, two = ranks("two", DP_RANKS)
+    backends = [(r["rank"], r["dp"].get("dp_backend"), r["dp"].get("dp_world")) for r in two]
+    # Each rank's all-reduce at the warm steps (rank 1's at step 4 waits for
+    # rank 0's checkpoint and validation round).
+    reduce_ms = [float(np.median([r["dp"]["all_reduce_ms_by_call"][s - 1]
+                                  for s in DP_WARM_STEPS])) for r in two]
+    shutil.copytree(os.path.join(dirs["two"], f"checkpoint-{DP_CADENCE}"),
+                    os.path.join(dirs["resumed"], f"checkpoint-{DP_CADENCE}"))
+    _, resumed = ranks("resumed", DP_RANKS, "--resume_from_checkpoint=latest")
+    reduce_line = log_line("two", r"data parallel over 2 ranks: (\d+) values \((\d+) bytes\) "
+                                  r"all-reduced per micro-step, against (\d+) bytes")
+    want_one = {"flash": DP_STEPS * per_step[0] + rounds * per_round[0],
+                "flash_bwd": DP_STEPS * per_step[1],
+                "gn": DP_STEPS * per_step[2] + rounds * per_round[1],
+                "gn_bwd": DP_STEPS * per_step[3]}
+    want_rank1 = dict(zip(("flash", "flash_bwd", "gn", "gn_bwd"),
+                          (DP_STEPS * n for n in per_step)))
+    rest = DP_STEPS - DP_CADENCE
+    want_resumed = [{"flash": rest * per_step[0] + per_round[0], "flash_bwd": rest * per_step[1],
+                     "gn": rest * per_step[2] + per_round[1], "gn_bwd": rest * per_step[3]},
+                    dict(zip(("flash", "flash_bwd", "gn", "gn_bwd"), (rest * n for n in per_step)))]
+    losses = [r["loss_by_step"] for r in two]
+    files_two = sorted(dp_tree(dirs["two"]))
+    with open(os.path.join(dirs["two"], "metrics.jsonl")) as f:
+        steps_logged = [json.loads(line)["step"] for line in f]
+    print(f"[dp gloo] {DP_RANKS} ranks on the one card, python -m torch.distributed.run "
+          f"--standalone --nproc_per_node {DP_RANKS}: (rank, backend, world) {backends}; "
+          f"{[line for line in two_out.splitlines() if 'torch.distributed: rank' in line]}; "
+          f"global batch 8 "
+          f"(4 a rank), {DP_STEPS} steps in {two[0]['wall_s']:.1f} s (launch, set-up and export "
+          f"included); losses by step rank 0 {losses[0]}, rank 1 "
+          f"{'the same' if losses[0] == losses[1] else losses[1]}; all-reduce per step "
+          f"{reduce_line[1]} bytes ({reduce_line[0]} values: LoRA, added rows, 4 loss scalars) "
+          f"against {reduce_line[2]} bytes of the embedding's whole gradient, "
+          f"{reduce_ms[0]:.3f} / {reduce_ms[1]:.3f} ms a warm step on rank 0 / 1, each call "
+          f"{[[round(x, 3) for x in r['dp']['all_reduce_ms_by_call']] for r in two]} (CUDA "
+          f"events: the copy to the host, gloo, the copy back, the wait for the other rank); "
+          f"warm step {two[0]['warm_step_ms']:.1f} / {two[1]['warm_step_ms']:.1f} ms "
+          f"against {one['warm_step_ms']:.1f} ms in one process (steps {DP_WARM_STEPS}, CUDA "
+          f"events); peak {two[0]['peak_bytes'] / 2**30:.2f} / {two[1]['peak_bytes'] / 2**30:.2f} "
+          f"GiB against {one['peak_bytes'] / 2**30:.2f}; launches {two[0]['launches']} / "
+          f"{two[1]['launches']}, one process {one['launches']}; rank 0 wrote "
+          f"{len(two[0]['writes'])} paths, rank 1 {two[1]['writes']}; {smi}", flush=True)
+    if not (backends == [(0, "gloo", 2), (1, "gloo", 2)] and losses[0] == losses[1]
+            and len(losses[0]) == DP_STEPS and all(math.isfinite(x) for x in losses[0])):
+        raise AssertionError("the two ranks disagree on the losses or the backend")
+    if two[1]["writes"] or not two[0]["writes"] or resumed[1]["writes"]:
+        raise AssertionError(f"rank 1 wrote into --output_dir: {two[1]['writes']} "
+                             f"{resumed[1]['writes']}")
+    if files_two != sorted(tree_one) or steps_logged != [0, DP_STEPS]:
+        raise AssertionError(f"the 2-rank run left {files_two} and metrics at {steps_logged}, "
+                             f"the one-process run {sorted(tree_one)}")
+    launches = [r["launches"] for r in two] + [one["launches"]]
+    if launches != [want_one, want_rank1, want_one] or [r["launches"] for r in resumed] != want_resumed:
+        raise AssertionError(f"launches {launches} / resumed {[r['launches'] for r in resumed]}, "
+                             f"expected {[want_one, want_rank1, want_one]} / {want_resumed}")
+
+    res_losses = resumed[0]["loss_by_step"]
+    res_gap = max(abs(a - b) / abs(b) for a, b in zip(res_losses, losses[0][DP_CADENCE:]))
+    res_exports = dp_export_gaps(dirs["two"], dirs["resumed"])
+    one_gap = [abs(a - b) / abs(b) for a, b in zip(losses[0], one["loss_by_step"])]
+    one_exports = dp_export_gaps(dirs["one"], dirs["two"])
+    print(f"[dp resume] 2 ranks from checkpoint-{DP_CADENCE} to step {DP_STEPS}: losses "
+          f"{res_losses} against {losses[0][DP_CADENCE:]}, largest relative gap {res_gap:.3g} "
+          f"(limit {RESUME_LOSS_REL}); exported LoRA rel L2 {res_exports['lora']:.3g}, added rows "
+          f"{res_exports['rows']:.3g} (limit {RESUME_REL_L2}); rank 1 wrote "
+          f"{resumed[1]['writes']}", flush=True)
+    print(f"[dp vs one process] the 2-rank run against the one-process run at batch 8: loss gap "
+          f"by step {[float(f'{g:.3g}') for g in one_gap]} (limit {DP_LOSS_REL}); exported LoRA "
+          f"rel L2 {one_exports['lora']:.3g}, added rows {one_exports['rows']:.3g} (limit "
+          f"{DP_REL_L2})", flush=True)
+    if not (res_gap <= RESUME_LOSS_REL and max(res_exports.values()) <= RESUME_REL_L2):
+        raise AssertionError("the 2-rank resume left the straight 2-rank run's trajectory")
+    if not (max(one_gap) <= DP_LOSS_REL and max(one_exports.values()) <= DP_REL_L2):
+        raise AssertionError("the 2-rank run left the one-process run's trajectory")
+
+    # c. every kernel at every shape the ranks gave it ----------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    local = 8 // DP_RANKS
+    step_calls = train_step_calls("sd21base", unet_batch=local, encode_batch=local,
+                                  checkpointing=False, cross_lora_rank=0)
+    val_calls = group_norm_calls("sd21base", **paper_validation_batches())
+    derived_rank1 = {k: collections.Counter({key: DP_STEPS * n for key, n in c.items()})
+                     for k, c in step_calls.items()}
+    derived_gn0 = collections.Counter(derived_rank1["gn"])
+    for part, n in (("unet", rounds * 25), ("decode", rounds)):
+        derived_gn0.update({key: n * c for key, c in val_calls[part].items()})
+    seen = [r["shapes"] for r in two]
+    if seen[1] != derived_rank1 or seen[0]["gn"] != derived_gn0 or seen[0]["gn_bwd"] != \
+            derived_rank1["gn_bwd"] or not derived_rank1["flash"] <= seen[0]["flash"]:
+        raise AssertionError("the ranks' kernel calls differ from those derived from the config "
+                             "at batch 4")
+    flash = set(seen[0]["flash"]) | set(seen[1]["flash"])
+    k1_err = check_flash_forward(gen, sorted(flash - held["flash"]))
+    k2_err = check_flash_backward(gen, [(b, n, h, d, mm, mm) for b, n, h, d, mm in
+                                        sorted(set(seen[1]["flash_bwd"]) - held["flash_bwd"])])
+    per_rank_step = {k: {key: n // DP_STEPS for key, n in c.items()}
+                     for k, c in derived_rank1.items()}
+    new_rows, gn_err = group_norm_table(gen, set(derived_gn0) - set(held["gn_rows"]),
+                                        {key: {"dp_rank_step": per_rank_step["gn"].get(key, 0)}
+                                         for key in derived_gn0}, backward=False)
+    new_bwd_rows, gn_bwd_err = group_norm_table(
+        gen, set(per_rank_step["gn_bwd"]) - set(held["gn_bwd_rows"]),
+        {key: {"dp_rank_step": n} for key, n in per_rank_step["gn_bwd"].items()}, backward=True)
+    gn_sums = {}
+    for name, calls, table in (("group_norm_fwd", per_rank_step["gn"], {**held["gn_rows"], **new_rows}),
+                               ("group_norm_bwd", per_rank_step["gn_bwd"],
+                                {**held["gn_bwd_rows"], **new_bwd_rows})):
+        gn_sums[name] = {field: sum(n * table[key][field] for key, n in calls.items())
+                         for field in ("ms", "cold_ms", "bound_ms", "library_ms")}
+        gn_sums[name]["launches"] = sum(calls.values())
+    shapes = {"unet_level0_4x4096x5x64": (local, 4096, 5, 64),
+              "unet_level1_4x1024x10x64": (local, 1024, 10, 64)}
+    k1 = {name: flash_forward_times(gen, *shp, card) for name, shp in shapes.items()}
+    k2 = {name: flash_backward_times(gen, *shp, card) for name, shp in shapes.items()}
+    for name in shapes:
+        f, b = k1[name], k2[name]
+        print(f"[dp flash] {name}: forward {f['ms']:.4f} ms (bound {f['bound_ms']:.4f}, "
+              f"{f['bound_floor']}; SDPA {f['library_ms']:.4f}; plain {f['plain_ms']:.3f}); "
+              f"backward {b['ms']:.4f} ms (bound {b['bound_ms']:.4f}, {b['bound_floor']}; SDPA "
+              f"{b['library_ms']:.4f}; plain {b['plain_ms']:.3f}); {smi}", flush=True)
+    main_key = ((local, 320, 64, 64), 32, 1e-6, False)  # Transformer2D norm, UNet level 0
+    table = {**held["gn_rows"], **new_rows}
+    bwd_table = {**held["gn_bwd_rows"], **new_bwd_rows}
+    print(f"[dp kernels] K1 at the ranks' {len(flash)} shapes ({len(flash - held['flash'])} new, "
+          f"held now), K2 at {dict(seen[1]['flash_bwd'])}; the ranks' GroupNorm keys are those "
+          f"derived from the config at batch 4 (and the validation batches on rank 0), "
+          f"{len(new_rows)} forward and {len(new_bwd_rows)} backward new ones held now; at "
+          f"{main_key[0]}: forward {table[main_key]['ms']:.4f} ms (bound "
+          f"{table[main_key]['bound_ms']:.4f}, F.group_norm {table[main_key]['library_ms']:.4f}), "
+          f"backward {bwd_table[main_key]['ms']:.4f} ms (bound {bwd_table[main_key]['bound_ms']:.4f}, "
+          f"library {bwd_table[main_key]['library_ms']:.4f}); launch-weighted per rank step: " +
+          "; ".join(f"{name} {v['launches']} launches {v['ms']:.3f} ms warm, bound "
+                    f"{v['bound_ms']:.3f}, library {v['library_ms']:.3f}"
+                    for name, v in gn_sums.items()) + f"; {smi}", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[dp] the whole phase in {phase_s:.1f} s; {smi}", flush=True)
+    return {
+        "launches": {f"rank{r['rank']}": r["launches"] for r in two},
+        "launches_one_process": one["launches"],
+        "resumed_launches": {f"rank{r['rank']}": r["launches"] for r in resumed},
+        "launches_per_rank_step": dict(zip(("flash", "flash_bwd", "gn", "gn_bwd"), per_step)),
+        "backends": {"world_1": backend_nccl[0], "two_ranks": [b for _, b, _ in backends]},
+        "all_reduce_values": int(reduce_line[0]), "all_reduce_bytes": int(reduce_line[1]),
+        "embedding_grad_bytes": int(reduce_line[2]),
+        "all_reduce_ms_per_warm_step": {"world_1_nccl_median": float(nccl_reduce[2]),
+                                        "rank0_gloo": reduce_ms[0], "rank1_gloo": reduce_ms[1]},
+        "warm_step_ms": {"one_process": one["warm_step_ms"],
+                         **{f"rank{r['rank']}": r["warm_step_ms"] for r in two}},
+        "peak_gib": {"one_process": one["peak_bytes"] / 2**30,
+                     **{f"rank{r['rank']}": r["peak_bytes"] / 2**30 for r in two}},
+        "loss_by_step": {"one_process": one["loss_by_step"], "two_ranks": losses[0],
+                         "resumed": res_losses},
+        "gap_to_one_process": {"loss": max(one_gap), **one_exports},
+        "resume_gap": {"loss": res_gap, **res_exports},
+        "run_s": {"one_process": one["wall_s"], "world_1_nccl": nccl_s,
+                  "two_ranks": two[0]["wall_s"], "resumed": resumed[0]["wall_s"]},
+        "group_norm_per_rank_step": gn_sums, "phase_s": phase_s,
+        "gn_main": {"fwd": group_norm_json(table[main_key]),
+                    "bwd": group_norm_json(bwd_table[main_key])},
+        "k1": k1, "k2": k2, "k1_max_abs_err": k1_err, "k2_max_abs_err": k2_err,
+        "gn_max_abs_err": gn_err, "gn_bwd_max_abs_err": gn_bwd_err,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -3485,12 +3896,22 @@ def main() -> int:
     sd21_work = tempfile.TemporaryDirectory()
     sd21 = sd21_phase(gen, card, sd21_work.name, smi, held)
     sd21_work.cleanup()
+
+    # 15. main path: data parallel over torch.distributed at sd21base: one
+    # process, NCCL at world 1, two ranks on the card over gloo and their
+    # resume, each launched as a user would ---------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_work = tempfile.TemporaryDirectory()
+    dp = dp_phase(gen, card, dp_work.name, smi, held)
+    dp_work.cleanup()
     by_path = {name: {"generate_sd15": launches.get(key, 0), "train_sd15": tr["launches"][key],
                       "paper_sd21base": paper["launches"][key],
                       "paper_sd21base_resumed": paper["resumed_launches"][key],
                       "snapshot_sd21base": snap["launches"][key],
                       "benchmark_sd21base": bench["launches"][key],
-                      "sd21_768": sd21["launches"][key]}
+                      "sd21_768": sd21["launches"][key],
+                      **{f"dp_sd21base_{r}": n[key] for r, n in dp["launches"].items()}}
                for name, key in (("flash_attention_fwd", "flash"), ("flash_attention_bwd", "flash_bwd"),
                                  ("group_norm_fwd", "gn"), ("group_norm_bwd", "gn_bwd"))}
     # The top-level numbers are the sd21 phase's, the newest main path: its
@@ -3504,14 +3925,16 @@ def main() -> int:
               "replaces": "textboost_tpu/ops/flash_attention.py:42",
               "launches": sd21["launches"]["flash"],
               "max_abs_err": max(flash_err, paper["k1_max_abs_err"], snap["k1_max_abs_err"],
-                                 bench["k1_max_abs_err"], sd21["k1_max_abs_err"])},
+                                 bench["k1_max_abs_err"], sd21["k1_max_abs_err"],
+                                 dp["k1_max_abs_err"])},
              **{k: v for k, v in sd21["k1"][k_main].items() if k != "launches"},
              shape="B,N,H,D=8,9216,5,64 bf16 (sd21 UNet level 0 at 768 px: the train step at "
                    "batch 8, four prompts under CFG)",
              other_shapes={**{k: v for k, v in sd21["k1"].items() if k != k_main},
                            **{f"snapshot_{k}": v for k, v in snap["k1"].items()},
                            **paper["k1"], **bench["k1"],
-                           **{f"sd15_{k}": v for k, v in fa_t.items()}},
+                           **{f"sd15_{k}": v for k, v in fa_t.items()},
+                           **{f"dp_{k}": v for k, v in dp["k1"].items()}},
              per_generate_ms=flash_ms, launches_by_path=by_path["flash_attention_fwd"],
              variants={"generate": variants, "train": tr["variants"],
                        "paper": paper["variants"]}),
@@ -3520,13 +3943,15 @@ def main() -> int:
               "replaces": "textboost_tpu/ops/flash_attention.py:119",
               "launches": sd21["launches"]["flash_bwd"],
               "max_abs_err": max(flash_bwd_err, paper["k2_max_abs_err"], snap["k2_max_abs_err"],
-                                 bench["k2_max_abs_err"], sd21["k2_max_abs_err"])},
+                                 bench["k2_max_abs_err"], sd21["k2_max_abs_err"],
+                                 dp["k2_max_abs_err"])},
              **{k: v for k, v in sd21["k2"][k_main].items() if k != "launches"},
              shape="B,N,H,D=8,9216,5,64 bf16 (sd21 UNet level 0 at 768 px, the train step at "
                    "batch 8)",
              other_shapes={**{k: v for k, v in sd21["k2"].items() if k != k_main},
                            **{f"snapshot_{k}": v for k, v in snap["k2"].items()},
-                           **paper["k2"], **{f"sd15_{k}": v for k, v in fb_t.items()}},
+                           **paper["k2"], **{f"sd15_{k}": v for k, v in fb_t.items()},
+                           **{f"dp_{k}": v for k, v in dp["k2"].items()}},
              launches_by_path=by_path["flash_attention_bwd"],
              launches_per_train_step=snap["launches"]["flash_bwd"] / SNAPSHOT_STEPS),
         {"name": "group_norm_fwd", "route": "cuda",
@@ -3534,12 +3959,15 @@ def main() -> int:
          "replaces": "textboost_tpu/ops/group_norm.py:58",
          "launches": sd21["launches"]["gn"],
          "max_abs_err": max(gn_err, paper["gn_max_abs_err"], snap["gn_max_abs_err"],
-                            bench["gn_max_abs_err"], sd21["gn_max_abs_err"]),
+                            bench["gn_max_abs_err"], sd21["gn_max_abs_err"],
+                            dp["gn_max_abs_err"]),
          **{k: v for k, v in sd21["gn_main"]["fwd"].items() if k != "launches"},
          "shape": "8x320x96x96 bf16 G=32 eps=1e-6 silu=off (sd21 at 768 px)",
-         "other_shapes": {name: group_norm_json(gn_rows[key]) for name, key in (
+         "other_shapes": {**{name: group_norm_json(gn_rows[key]) for name, key in (
              ("sd15_8x320x64x64", main_key), ("resnet_silu_8x320x64x64", level0),
              ("vae_silu_4x128x512x512", ((4, 128, 512, 512), 32, 1e-6, True)))},
+             "dp_4x320x64x64": dp["gn_main"]["fwd"]},
+         "per_dp_rank_step": dp["group_norm_per_rank_step"]["group_norm_fwd"],
          "plain_ms_sd15_8x320x64x64": gn_plain, "per_sd21_phase": sd21["group_norm"]["group_norm_fwd"],
          "per_generate": gn_sums["generate"], "per_train_step": gn_sums["train_step"],
          "launches_by_path": by_path["group_norm_fwd"], "registers": gn_regs,
@@ -3549,11 +3977,14 @@ def main() -> int:
          "replaces": "textboost_tpu/ops/group_norm.py:93",
          "launches": sd21["launches"]["gn_bwd"],
          "max_abs_err": max(gn_bwd_err, paper["gn_bwd_max_abs_err"], snap["gn_bwd_max_abs_err"],
-                            bench["gn_bwd_max_abs_err"], sd21["gn_bwd_max_abs_err"]),
+                            bench["gn_bwd_max_abs_err"], sd21["gn_bwd_max_abs_err"],
+                            dp["gn_bwd_max_abs_err"]),
          **{k: v for k, v in sd21["gn_main"]["bwd"].items() if k != "launches"},
          "shape": "8x320x96x96 bf16 G=32 eps=1e-6 silu=off (sd21 at 768 px)",
          "other_shapes": {"sd15_8x320x64x64": group_norm_json(gn_bwd_rows[main_key]),
-                          "resnet_silu_8x320x64x64": group_norm_json(gn_bwd_rows[level0])},
+                          "resnet_silu_8x320x64x64": group_norm_json(gn_bwd_rows[level0]),
+                          "dp_4x320x64x64": dp["gn_main"]["bwd"]},
+         "per_dp_rank_step": dp["group_norm_per_rank_step"]["group_norm_bwd"],
          "plain_ms_sd15_8x320x64x64": gn_bwd_plain,
          "per_sd21_phase": sd21["group_norm"]["group_norm_bwd"],
          "per_train_step": gn_bwd_sums, "registers": gn_bwd_regs,
@@ -3577,7 +4008,9 @@ def main() -> int:
         "benchmark_sd21base": {k: v for k, v in bench.items()
                                if not (k == "k1" or k.endswith("max_abs_err"))},
         "sd21_768": {k: v for k, v in sd21.items()
-                     if not (k in ("k1", "k2", "gn_main") or k.endswith("max_abs_err"))}}
+                     if not (k in ("k1", "k2", "gn_main") or k.endswith("max_abs_err"))},
+        "dp_sd21base": {k: v for k, v in dp.items()
+                        if not (k in ("k1", "k2", "gn_main") or k.endswith("max_abs_err"))}}
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3585,4 +4018,6 @@ def main() -> int:
     return 0
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"] and sys.argv[3:4] == ["--"]:
+        sys.exit(dp_rank(sys.argv[2], sys.argv[4:]))
     sys.exit(main())

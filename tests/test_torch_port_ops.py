@@ -267,7 +267,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "('jax', 'jaxlib', 'flax', 'textboost_tpu', 'transformers'))\n"
         "assert not bad, bad\n"
         "assert {'textboost_torch.data.device_augment', 'textboost_torch.data.aux_datasets', "
-        "'textboost_torch.tools.gen_null_emb'} <= set(sys.modules)\n"
+        "'textboost_torch.tools.gen_null_emb', 'textboost_torch.parallel.mesh'} "
+        "<= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('textboost_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -8,6 +8,15 @@ rng = default_rng((seed, s, i)), whatever the threads' scheduling, so the
 two packages yield the same bytes, and a resumed run that starts at step s
 (`set_start_step`) yields the batches a straight run yields there.
 
+Data parallel: shard k of n yields rows [k*B, (k+1)*B) of the global batch
+of n*B: every shard walks the one global index stream and keys each
+sample's rng on its global slot, (seed, s, k*B + i).  The shards'
+batches, concatenated, are the one-process batch of n*B, so a run does not
+depend on its world size.  (The JAX loader strides the index stream over
+the processes, `keys[shard::n]`, and keys the rng on the local slot: its
+shards of a one-image dataset are byte-identical, and the prior-prompt
+shards are not the one-process batch.)
+
 The JAX loader's worker processes (`num_procs`) are not ported: on an H100
 host the paper run's step was no faster with them, and they took seconds
 to start (PERF.md).  The threads never touch CUDA.  The JAX package's
@@ -44,13 +53,15 @@ class PrefetchLoader:
         num_workers: int = 4,
         prefetch: int = 2,
     ):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard {shard_id} of {num_shards}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate = collate
         self.seed = seed
-        self.indices = ShardedIndexIterator(len(dataset), shard_id=shard_id,
-                                            num_shards=num_shards, shuffle=shuffle,
-                                            repeat=True, seed=seed)
+        self.shard_id, self.num_shards = shard_id, num_shards
+        self.indices = ShardedIndexIterator(len(dataset), shuffle=shuffle, repeat=True,
+                                            seed=seed)
         self.num_workers = max(1, num_workers)
         self._queue: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
         self._stop = threading.Event()
@@ -70,14 +81,17 @@ class PrefetchLoader:
         try:
             index_iter = iter(self.indices)
             step = self._start_step
-            for _ in range(step * self.batch_size):
+            global_batch = self.batch_size * self.num_shards
+            first = self.shard_id * self.batch_size  # this shard's first global slot
+            for _ in range(step * global_batch):
                 next(index_iter)
             while not self._stop.is_set():
-                idxs = [next(index_iter) for _ in range(self.batch_size)]
+                idxs = [next(index_iter) for _ in range(global_batch)]
+                slots = range(first, first + self.batch_size)
                 samples = list(pool.map(
-                    lambda a: self.dataset.__getitem__(
-                        a[1], rng=np.random.default_rng((self.seed, step, a[0]))),
-                    enumerate(idxs)))
+                    lambda slot: self.dataset.__getitem__(
+                        idxs[slot], rng=np.random.default_rng((self.seed, step, slot))),
+                    slots))
                 batch = self.collate(samples)
                 while not self._stop.is_set():
                     try:

@@ -1,10 +1,12 @@
-"""Host-side data-parallel sharding iterator.
+"""Host-side index stream and the process's shard of the data.
 
-A copy of textboost_tpu/data/sharding.py.  Counterpart of `Wrapper`
-(reference textboost/dataset.py:827-882): an infinite, per-epoch-shuffled
-index stream, strided across (process, worker) shards — `keys[shift::mod]`
-with mod = world * workers, shift = rank * workers + worker — with
-pad-or-drop remainder handling.
+Counterpart of textboost_tpu/data/sharding.py.  `ShardedIndexIterator` is
+the reference's `Wrapper` (textboost/dataset.py:827-882) for one shard: an
+infinite, per-epoch-shuffled index stream.  The port does not stride it
+over the processes, as the reference and the JAX package do (`keys[shift::
+mod]`): every rank walks the one global stream and takes its rows of each
+global batch (data/loader.py), so that a run does not depend on its world
+size.
 """
 from __future__ import annotations
 
@@ -14,25 +16,12 @@ import numpy as np
 
 
 class ShardedIndexIterator:
-    def __init__(
-        self,
-        num_examples: int,
-        *,
-        shard_id: int = 0,
-        num_shards: int = 1,
-        shuffle: bool = True,
-        repeat: bool = True,
-        seed: int = 0,
-        drop_remainder: bool = False,
-    ):
-        assert 0 <= shard_id < num_shards
+    def __init__(self, num_examples: int, *, shuffle: bool = True, repeat: bool = True,
+                 seed: int = 0):
         self.num_examples = num_examples
-        self.shard_id = shard_id
-        self.num_shards = num_shards
         self.shuffle = shuffle
         self.repeat = repeat
         self.seed = seed
-        self.drop_remainder = drop_remainder
 
     def _epoch_keys(self, epoch: int) -> np.ndarray:
         keys = np.arange(self.num_examples)
@@ -40,19 +29,7 @@ class ShardedIndexIterator:
             # Per-epoch deterministic shuffle (dataset.py:858-860).
             rng = np.random.default_rng(self.seed + epoch)
             rng.shuffle(keys)
-        shard = keys[self.shard_id :: self.num_shards]
-        # Pad-or-drop so every shard sees the same count (dataset.py:862-867).
-        per_shard = self.num_examples // self.num_shards
-        remainder = self.num_examples % self.num_shards
-        if remainder:
-            if self.drop_remainder:
-                shard = shard[:per_shard]
-            else:
-                target = per_shard + 1
-                if len(shard) < target:
-                    pad = shard[: target - len(shard)] if len(shard) else keys[:target]
-                    shard = np.concatenate([shard, pad])
-        return shard
+        return keys
 
     def __iter__(self) -> Iterator[int]:
         epoch = 0
@@ -65,7 +42,9 @@ class ShardedIndexIterator:
 
 
 def process_shard_info(num_workers: int = 1, worker_id: int = 0):
-    """(shard_id, num_shards) for this process x dataloader worker.  The
-    port trains in one process for now, so the world is one process."""
-    world, rank = 1, 0
-    return rank * num_workers + worker_id, world * num_workers
+    """(shard_id, num_shards) for this process x dataloader worker: the
+    rank and world of the torch.distributed group (one process without
+    one)."""
+    from ..parallel.mesh import rank, world_size
+
+    return rank() * num_workers + worker_id, world_size() * num_workers

@@ -1,0 +1,190 @@
+"""Data parallelism over torch.distributed: the `dp` axis of
+textboost_tpu/parallel/mesh.py, as the reference ran it (one torchrun/NCCL
+process per card, train_textboost.py:560-565,918-926,1108).
+
+    python -m torch.distributed.run --nproc_per_node 2 -m textboost_torch.train ...
+
+Each rank loads its rows of the global batch (data/loader.py), runs the
+step on them, and `GradReducer` averages what trains over the ranks once
+per micro-step, before the gradient surgery, the clip and AdamW, so that
+every rank applies the same update.  Rank 0 alone writes files.
+
+No `DistributedDataParallel`: it would reduce the whole [vocab, hidden]
+token-embedding gradient (202 MB per step at sd21base), where only the
+LoRA weights, the added embedding rows (and the UNet's LoRA, when it
+trains) change.  Tensor parallelism (`--mesh_tp > 1`) is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+logger = logging.getLogger("textboost_torch")
+
+# What torchrun (python -m torch.distributed.run) sets in each rank's environment.
+LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+TP_MESSAGE = ("--mesh_tp > 1: multi-card training with tensor parallelism (ROADMAP.md queue "
+              "A8: Data parallel and multi-host, its TP item)")
+
+
+def launched() -> bool:
+    """Whether this process is a rank of a torchrun launch."""
+    return all(k in os.environ for k in LAUNCH_ENV)
+
+
+def choose_backend(device_type: str, local_world: int, cards: int) -> str:
+    """NCCL when the ranks run on CUDA with a card each; gloo when ranks
+    share a card (NCCL refuses two ranks on one device) or run on the CPU."""
+    return "nccl" if device_type == "cuda" and local_world <= cards else "gloo"
+
+
+def init_distributed(device: str = "cuda") -> Optional[str]:
+    """Join the process group of a torchrun launch (its address, world and
+    rank from the environment); returns the backend, or None when the
+    process was not launched (the world is this one process)."""
+    if not launched():
+        return None
+    if dist.is_initialized():
+        return dist.get_backend()
+    from ..device import resolve_device
+
+    dev = resolve_device(device)  # under a launch: this rank's card, made current
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    backend = choose_backend(dev.type, int(os.environ["LOCAL_WORLD_SIZE"]), cards)
+    kwargs = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method="env://", **kwargs)
+    msg = (f"torch.distributed: rank {dist.get_rank()} of {dist.get_world_size()} "
+           f"(local {os.environ['LOCAL_RANK']} of {os.environ['LOCAL_WORLD_SIZE']}), backend "
+           f"{backend}, device {dev}")
+    logger.info(msg)
+    print(msg, flush=True)
+    return backend
+
+
+def world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def is_main() -> bool:
+    return rank() == 0
+
+
+def barrier() -> None:
+    """Wait for every rank (a no-op in one process)."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    dp: int
+    tp: int
+    rank: int
+
+
+def make_mesh(dp: Optional[int] = None, tp: int = 1, world: Optional[int] = None) -> Mesh:
+    """The (dp, tp) layout of `world` processes (default: the launched
+    world); dp defaults to the world.  The JAX trainer shrinks dp to fit
+    the batch (textboost_tpu/train/trainer.py:300-307), but launched
+    processes cannot be shrunk, so a mismatch raises."""
+    if tp > 1:
+        raise NotImplementedError(TP_MESSAGE)
+    world = world_size() if world is None else world
+    dp = dp or world
+    if dp * tp != world:
+        raise ValueError(
+            f"--mesh_dp {dp} x --mesh_tp {tp} = {dp * tp} processes, but {world} were "
+            f"launched: multi-card training runs one process per card (python -m "
+            f"torch.distributed.run --nproc_per_node {dp * tp} -m textboost_torch.train ...)")
+    return Mesh(dp=dp, tp=tp, rank=rank())
+
+
+class GradReducer:
+    """The data-parallel reduce of one micro-step: `(loss, aux) ->
+    (loss, aux)` averaged over the ranks, with the trainable gradients
+    averaged in place.  One flat fp32 buffer holds the gradients of
+    `params` (the LoRA weights), the added rows `[first_added_id:]` of the
+    embedding's gradient and the step's loss scalars; one all_reduce(SUM)
+    over it, then a division by the world size.  Under gloo a CUDA buffer
+    goes through a pinned host copy.  `calls` and `bytes` count the
+    reduces, `milliseconds()` the time of each."""
+
+    SCALARS = ("den_loss", "kpl", "prior_loss")
+
+    def __init__(self, embedding: torch.nn.Parameter, first_added_id: int,
+                 params: Sequence[torch.nn.Parameter]):
+        self.embedding = embedding
+        self.first_added_id = first_added_id
+        self.params = list(params)
+        self.world = world_size()
+        self.calls = 0
+        self.bytes = 0
+        self._host_ms: List[float] = []
+        self._marks: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+        self._host: Optional[torch.Tensor] = None
+
+    def gradients(self) -> List[torch.Tensor]:
+        """The reduced gradients (views into `.grad`), in buffer order."""
+        for p in self.params:
+            if p.grad is None:  # a weight the loss did not reach: its zero gradient
+                p.grad = torch.zeros_like(p)
+        return [self.embedding.grad[self.first_added_id:]] + [p.grad for p in self.params]
+
+    def values(self) -> int:
+        """The number of values one reduce moves."""
+        return (self.embedding[self.first_added_id:].numel()
+                + sum(p.numel() for p in self.params) + 1 + len(self.SCALARS))
+
+    def _all_reduce(self, flat: torch.Tensor) -> torch.Tensor:
+        if flat.is_cuda and dist.get_backend() == "gloo":
+            if self._host is None or self._host.numel() != flat.numel():
+                self._host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            self._host.copy_(flat)
+            dist.all_reduce(self._host)
+            return flat.copy_(self._host)
+        dist.all_reduce(flat)
+        return flat
+
+    def milliseconds(self) -> List[float]:
+        """Each reduce's time: on a card, CUDA events on its stream around
+        the all_reduce (the wait for the other ranks and gloo's host copies
+        included); on the CPU, the host clock."""
+        for _, end in self._marks:
+            end.synchronize()
+        return self._host_ms + [a.elapsed_time(b) for a, b in self._marks]
+
+    def __call__(self, loss: torch.Tensor,
+                 aux: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        grads = self.gradients()
+        scalars = [loss] + [aux[k] for k in self.SCALARS]
+        flat = torch.cat([g.reshape(-1).float() for g in grads]
+                         + [s.reshape(1).float() for s in scalars])
+        if flat.is_cuda:
+            marks = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            marks[0].record()
+        t0 = time.perf_counter()
+        flat = self._all_reduce(flat)
+        if flat.is_cuda:
+            marks[1].record()
+            self._marks.append(marks)
+        else:
+            self._host_ms.append(1e3 * (time.perf_counter() - t0))
+        flat.div_(self.world)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        loss, *rest = flat[offset:]
+        self.calls += 1
+        self.bytes += flat.numel() * flat.element_size()
+        return loss, {**aux, **dict(zip(self.SCALARS, rest))}

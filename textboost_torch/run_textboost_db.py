@@ -8,7 +8,10 @@ r=4, imagenet_small templates, paired augmentation with inversion) with
 `build_cmd` and runs `python -m textboost_torch.train` on them: one
 subprocess per instance (default), in-process one after the other
 (`--sequential`), or in waves of N subprocesses with one GPU each
-(`--parallel N`).  Each run dir gets a `cmd.txt` naming the command that
+(`--parallel N`).  With more than one card visible (`-g 0,1`, as the
+reference's runner named torchrun's cards), a subprocess job trains over
+them data-parallel under `python -m torch.distributed.run`
+(utils/sweep.py).  Each run dir gets a `cmd.txt` naming the command that
 ran (the module, its flags and --device); the JAX runner's copy of the
 training script is not made (the package is the repo's).
 """
@@ -58,7 +61,9 @@ RESOLUTION = {"sd14": 512, "sd15": 512, "sd21base": 512, "sd21": 768, "tiny": 12
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="Run TextBoost experiment")
     parser.add_argument("-g", "--gpu", type=str, default=None,
-                        help="ignored (reference compatibility; see --device, --parallel)")
+                        help="comma-separated cards the jobs use (CUDA_VISIBLE_DEVICES); a job "
+                        "spans them data-parallel, or with --parallel N each of N jobs takes "
+                        "one (default: every visible card)")
     parser.add_argument("-n", "--num-samples", type=int, default=1)
     parser.add_argument("-m", "--model", type=str, default="sd21base")
     parser.add_argument("--instances", type=str, nargs="+", default=None)
@@ -143,20 +148,8 @@ def build_cmd(args, name, cls, init_token, outdir):
     return cmd
 
 
-def archiver(outdir: str, device: str):
-    """-> archive(name, cmd): writes the run dir's cmd.txt, one argument a line."""
-    from .utils.sweep import TRAIN_MODULE
-
-    def archive(name, cmd):
-        run_dir = os.path.join(outdir, name)
-        os.makedirs(run_dir, exist_ok=True)
-        with open(os.path.join(run_dir, "cmd.txt"), "w") as f:
-            f.write("\n".join([f"python -m {TRAIN_MODULE}", *cmd, f"--device={device}"]))
-    return archive
-
-
 def main(args) -> None:
-    from .utils.sweep import TRAIN_MODULE, launch_waves, run_job
+    from .utils.sweep import run_sweep
 
     instances = ([t for t in INSTANCES if t[0] in args.instances]
                  if args.instances is not None else INSTANCES)
@@ -168,19 +161,8 @@ def main(args) -> None:
         if args.desc is not None:
             outdir += f"-{args.desc}"
     os.makedirs(outdir, exist_ok=True)
-    archive = archiver(outdir, args.device)
-    jobs = [(name, build_cmd(args, name, cls, init_token, outdir))
-            for name, cls, init_token in instances]
-    if args.parallel > 1 and not args.sequential:
-        launch_waves(jobs, args.parallel, outdir, archive, device=args.device,
-                     dry_run=args.dry_run)
-        return
-    for name, cmd in jobs:
-        print(f"=== {name}: python -m {TRAIN_MODULE} {' '.join(cmd)}")
-        if args.dry_run:
-            continue
-        run_job(cmd, sequential=args.sequential, device=args.device)
-        archive(name, cmd)
+    run_sweep(args, [(name, build_cmd(args, name, cls, init_token, outdir))
+                     for name, cls, init_token in instances], outdir)
 
 
 if __name__ == "__main__":

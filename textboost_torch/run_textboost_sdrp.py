@@ -44,7 +44,9 @@ INSTANCES = [
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="Run TextBoost style experiment")
     parser.add_argument("-g", "--gpu", type=str, default=None,
-                        help="ignored (reference compatibility; see --device, --parallel)")
+                        help="comma-separated cards the jobs use (CUDA_VISIBLE_DEVICES); a job "
+                        "spans them data-parallel, or with --parallel N each of N jobs takes "
+                        "one (default: every visible card)")
     parser.add_argument("-m", "--model", type=str, default="sd21")
     parser.add_argument("--instances", type=str, nargs="+", default=None)
     parser.add_argument("--augment", type=str, default="pda")
@@ -119,22 +121,10 @@ def build_cmd(args, name, template, init_token, outdir, model):
 
 
 def run_jobs(args, instances, outdir, model) -> None:
-    from .run_textboost_db import archiver
-    from .utils.sweep import TRAIN_MODULE, launch_waves, run_job
+    from .utils.sweep import run_sweep
 
-    archive = archiver(outdir, args.device)
-    jobs = [(name, build_cmd(args, name, template, init_token, outdir, model))
-            for name, template, init_token in instances]
-    if args.parallel > 1 and not args.sequential:
-        launch_waves(jobs, args.parallel, outdir, archive, device=args.device,
-                     dry_run=args.dry_run)
-        return
-    for name, cmd in jobs:
-        print(f"=== {name}: python -m {TRAIN_MODULE} {' '.join(cmd)}")
-        if args.dry_run:
-            continue
-        run_job(cmd, sequential=args.sequential, device=args.device)
-        archive(name, cmd)
+    run_sweep(args, [(name, build_cmd(args, name, template, init_token, outdir, model))
+                     for name, template, init_token in instances], outdir)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,15 @@ its latest checkpoint; `python -m textboost_torch.inference <output_dir>`
 samples from the result.  The package holds the config (config.py), the
 step (step.py), the checkpoints (checkpoint.py) and the trainer
 (trainer.py).
+
+Data parallel, one process per card (--train_batch_size stays the global
+batch; parallel/mesh.py):
+
+    python -m torch.distributed.run --nproc_per_node 2 -m textboost_torch.train ...
+
+and across hosts `--nnodes N --node_rank i --master_addr HOST --master_port
+PORT` (a shared --output_dir for resume).  The ranks join the process group
+here, before the trainer is built, and leave it at the end.
 """
 from __future__ import annotations
 
@@ -29,7 +38,18 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     device_parser.add_argument("--device", type=str, default="cuda")
     ns, rest = device_parser.parse_known_args(argv)
 
+    import torch.distributed as dist
+
+    from ..parallel.mesh import barrier, init_distributed
     from .config import parse_args
     from .trainer import Trainer
 
-    return Trainer(parse_args(rest), device=ns.device).train()
+    config = parse_args(rest)
+    owned = not dist.is_initialized() and init_distributed(ns.device) is not None
+    try:
+        result = Trainer(config, device=ns.device).train()
+        barrier()  # rank 0's export has landed before any rank leaves
+        return result
+    finally:
+        if owned:
+            dist.destroy_process_group()

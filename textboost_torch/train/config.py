@@ -5,7 +5,9 @@ the same `TrainConfig` (flag-for-flag parity with the reference's
 
 `unsupported_flags` names the flags the port does not serve yet; the
 trainer raises NotImplementedError for each at setup, naming the ROADMAP
-item, so none is silently ignored.
+item, so none is silently ignored (`--mesh_tp > 1` is refused by
+parallel/mesh.py::make_mesh, as is a `--mesh_dp` other than the launched
+world).
 
 Reference defaults are preserved, including the quirky ones:
 `--disable_weighted_sample` defaults True (the weighted sampler is dead in
@@ -211,7 +213,4 @@ def unsupported_flags(cfg: TrainConfig) -> List[str]:
     if cfg.unet_params_to_train not in ("none", "crossattn_kv"):
         out.append(f"--unet_params_to_train {cfg.unet_params_to_train}: the port trains "
                    "none or crossattn_kv, as the JAX package does")
-    if cfg.mesh_tp > 1 or (cfg.mesh_dp or 1) > 1:
-        out.append("--mesh_tp/--mesh_dp > 1: multi-card training (ROADMAP.md queue A8: "
-                   "Data parallel and multi-host)")
     return out

@@ -18,6 +18,12 @@ argument, made by `sample_draws` from a `torch.Generator`, so that a test
 can hand the step the very numbers the JAX step drew from its threefry key.
 Accumulation follows optax's MultiSteps: gradients of `accumulate_steps`
 micro-batches are averaged, clipped once, and applied on the last one.
+Data parallel, `reduce` (parallel/mesh.py::GradReducer) averages each
+micro-step's trainable gradients and loss scalars over the ranks right
+after the backward: every rank then reports the global batch's metrics
+and applies the same update.  With the image prior each rank holds its
+own [instance, class] rows, so the mean over the ranks is the JAX step's
+loss on the global batch.
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ from ..models.textboost import apply_null_embedding_patch
 from ..ops.schedule import NoiseSchedule, sample_timesteps
 
 Draws = Dict[str, torch.Tensor]
+Reduce = Callable[[torch.Tensor, Dict[str, torch.Tensor]],
+                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,12 +196,14 @@ def forward_backward(state: TrainState, config: StepConfig, batch: Dict,
     return loss.detach(), aux
 
 
-def make_train_step(config: StepConfig) -> Callable[[TrainState, Dict, Draws], Dict]:
+def make_train_step(config: StepConfig,
+                    reduce: Optional[Reduce] = None) -> Callable[[TrainState, Dict, Draws], Dict]:
     """The step fn(state, batch, draws) -> metrics (0-dim tensors, not
     synchronised).  `batch` holds `pixel_values` (uint8 or float NHWC),
     `input_ids`, `prior_input_ids` and optionally `mask`, on the device
     (with the image prior, `pixel_values`, `input_ids` and `mask` hold the
-    class samples after the instance ones)."""
+    class samples after the instance ones).  `reduce(loss, aux) -> (loss,
+    aux)`, when given, runs right after the backward (data parallel)."""
     first_added = config.first_added_token_id
 
     def train_step(state: TrainState, batch: Dict, draws: Draws) -> Dict[str, torch.Tensor]:
@@ -202,6 +212,8 @@ def make_train_step(config: StepConfig) -> Callable[[TrainState, Dict, Draws], D
         lora = lora_parameters(te)
         trainable = [emb] + lora + state.unet_lora
         loss, aux = forward_backward(state, config, batch, draws)
+        if reduce is not None:
+            loss, aux = reduce(loss, aux)
 
         # Gradient surgery (train_textboost.py:1109-1126).
         zero_original_vocab_rows(emb.grad, first_added)

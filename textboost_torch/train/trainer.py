@@ -21,6 +21,14 @@ and executes each batch's augmentation plans on the device
 (data/device_augment.py); `--validation_scheduler` picks the validation
 rounds' sampler (samplers/solvers.py::get_sampler).
 
+Under a torchrun launch (parallel/mesh.py) each rank trains on its rows of
+the --train_batch_size global batch: its slice of the loaders' global
+batch and of the global draws, one all-reduce of the trainable gradients
+per micro-step, the same update everywhere.  Rank 0 alone generates the
+class-prior images (the others wait at a barrier), and writes the log,
+metrics, trackers, profiler trace, checkpoints, validation grids and the
+export; every rank restores the same checkpoint on resume.
+
 Flags the port does not serve yet raise NotImplementedError here
 (train/config.py::unsupported_flags).
 """
@@ -40,6 +48,7 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.augment import PairedAugmentation
 from ..data.device_augment import augment_batch
@@ -60,6 +69,7 @@ from ..models.layers import set_impl
 from ..models.pretrained import load_models
 from ..models.textboost import load_null_embedding_asset
 from ..ops.schedule import NoiseSchedule
+from ..parallel.mesh import GradReducer, barrier, is_main, make_mesh
 from ..pipelines.text_to_image import TextToImagePipeline
 from ..samplers.solvers import get_sampler
 from ..tokens.surgery import OBJECT_AUGMENTATIONS, STYLE_AUGMENTATIONS, plan_token_addition
@@ -130,8 +140,23 @@ def plan_tokens(tokenizer, concepts: List[Dict], initializer_token: str, *,
     return plan
 
 
+def local_batch_size(config: TrainConfig, world: int) -> int:
+    """Each rank's rows of the --train_batch_size global batch.  Raises
+    when the world does not divide the batch (textboost_tpu/train/
+    trainer.py:574-583), and for --augment_device at world > 1 (:603)."""
+    if world > 1 and config.augment_device:
+        raise ValueError("--augment_device is single-process only")
+    if config.train_batch_size % world:
+        raise ValueError(f"train_batch_size ({config.train_batch_size}) must be divisible by "
+                         f"the process count ({world})")
+    return config.train_batch_size // world
+
+
 class Trainer:
     def __init__(self, config: TrainConfig, device: Union[str, torch.device] = "cuda"):
+        self.mesh = make_mesh(config.mesh_dp, config.mesh_tp)
+        self.local_batch_size = local_batch_size(config, self.mesh.dp)
+        self.is_main = is_main()
         problems = unsupported_flags(config)
         if config.attention_impl not in ATTENTION_IMPLS:
             problems.append(f"--attention_impl {config.attention_impl}: the port takes "
@@ -141,12 +166,18 @@ class Trainer:
         get_sampler(config.validation_scheduler)  # an unknown name raises here, not at step 1
         self.config = config
         self.device = resolve_device(device)
-        os.makedirs(config.output_dir, exist_ok=True)
         self._setup_logging()
         self._setup()
 
     # ------------------------------------------------------------------
     def _setup_logging(self):
+        # Rank 0 alone writes into the output dir; the others' trackers are
+        # no-ops.
+        self._metrics_file = None
+        self._trackers = Trackers(None, self.config.logging_dir)
+        if not self.is_main:
+            return
+        os.makedirs(self.config.output_dir, exist_ok=True)
         # One trainer file handler at a time (sequential trainers in one process).
         for h in list(logger.handlers):
             if isinstance(h, logging.FileHandler) and getattr(h, "_textboost_trainer", False):
@@ -165,6 +196,8 @@ class Trainer:
         )
 
     def _log_metrics(self, step: int, scalars: Dict[str, float]):
+        if self._metrics_file is None:
+            return
         rec = {"step": step, **{k: float(v) for k, v in scalars.items()}}
         self._metrics_file.write(json.dumps(rec) + "\n")
         self._metrics_file.flush()
@@ -263,6 +296,8 @@ class Trainer:
         )
         lr, emb_lr = cfg.learning_rate, cfg.emb_learning_rate
         if cfg.scale_lr:
+            # The global batch: the reference's per-card batch times its
+            # process count (train_textboost.py:823-826).
             scale = cfg.gradient_accumulation_steps * cfg.train_batch_size
             lr, emb_lr = lr * scale, emb_lr * scale
         optimizer = make_optimizer(te, lr, emb_lr, unet=unet if self.train_unet else None,
@@ -277,7 +312,8 @@ class Trainer:
 
         # ---- class-prior images (utils.py:50-114), from the base modules ----
         # (`--prior_generation_precision` is accepted and unused, as in JAX.)
-        if cfg.with_image_prior:
+        # Rank 0 generates; the others read the dir after the barrier.
+        if cfg.with_image_prior and self.is_main:
             made = generate_prior_images(
                 TextToImagePipeline(spec, self.tokenizer, self.frozen_te, unet, vae,
                                     device=dev, freeze=False),
@@ -285,6 +321,8 @@ class Trainer:
                 sample_batch_size=cfg.sample_batch_size, seed=cfg.seed)
             if made:
                 logger.info("Generated %d class prior images", made)
+        if cfg.with_image_prior:
+            barrier()
             mark("class prior images ready")
 
         # ---- data (:857-909) ----
@@ -316,15 +354,13 @@ class Trainer:
         if cfg.augment_device:
             # The pixels go to the device once; each step sends the ids and
             # one row of plan scalars per sample (:599-616).
-            if num_shards != 1:
-                raise ValueError("--augment_device is single-process only")
             bank, _ = dataset.build_image_bank()
             self._image_bank = torch.from_numpy(bank).to(dev)
             logger.info("device augmentation: %d instance image(s) resident (%.1f MB uploaded "
                         "once)", bank.shape[0], bank.nbytes / 1e6)
         cpus = os.cpu_count() or 1
         self.train_loader = PrefetchLoader(
-            dataset, batch_size=cfg.train_batch_size,
+            dataset, batch_size=self.local_batch_size,
             collate=functools.partial(TextBoostDataset.collate,
                                       with_prior_preservation=cfg.with_image_prior),
             shard_id=shard_id, num_shards=num_shards, seed=cfg.seed,
@@ -338,7 +374,7 @@ class Trainer:
             null_prob=cfg.null_prob, seed=cfg.seed + 1,
         )
         self.prior_loader = PrefetchLoader(
-            prior_ds, batch_size=cfg.train_batch_size, collate=PriorDataset.collate,
+            prior_ds, batch_size=self.local_batch_size, collate=PriorDataset.collate,
             shard_id=shard_id, num_shards=num_shards, seed=cfg.seed + 1,
             num_workers=min(max(cfg.dataloader_num_workers, 1) * 2, 2 * cpus),
         )
@@ -360,14 +396,25 @@ class Trainer:
             image_ppl_weight=cfg.image_ppl_weight,
             use_attention_mask=cfg.text_encoder_use_attention_mask,
         )
-        self.train_step = make_train_step(self.step_config)
+        unet_lora = lora_parameters(unet) if self.train_unet else []
+        # One all-reduce per micro-step under a launch (at world 1 too).
+        self.reducer = (GradReducer(te.token_embedding.weight, first_added_id,
+                                    lora_parameters(te) + unet_lora)
+                        if dist.is_initialized() else None)
+        if self.reducer is not None:
+            emb_bytes = te.token_embedding.weight.numel() * 4
+            logger.info("data parallel over %d ranks: %d values (%d bytes) all-reduced per "
+                        "micro-step, against %d bytes of the embedding's whole gradient",
+                        self.mesh.dp, self.reducer.values(), 4 * self.reducer.values(),
+                        emb_bytes)
+        self.train_step = make_train_step(self.step_config, reduce=self.reducer)
         self.state = TrainState(
             text_encoder=te, frozen_text_encoder=self.frozen_te, unet=unet, vae=vae,
             optimizer=optimizer, lr_scheduler=scheduler, schedule=self.schedule,
             null_embedding=self.null_embedding,
             target_norm=torch.tensor(self.mean_norm, dtype=torch.float32, device=dev),
             original_rows=grown[:first_added_id].clone(),
-            unet_lora=lora_parameters(unet) if self.train_unet else [],
+            unet_lora=unet_lora,
         )
         self.generator = torch.Generator(dev).manual_seed(cfg.seed)
         self.latent_shape = (spec.vae.latent_channels, cfg.resolution // 8, cfg.resolution // 8)
@@ -427,11 +474,19 @@ class Trainer:
         return out
 
     def _draws(self) -> Dict[str, torch.Tensor]:
-        # The image prior's class samples follow the instance ones in the batch.
-        batch = self.config.train_batch_size * (2 if self.config.with_image_prior else 1)
-        return sample_draws(self.generator, batch_size=batch,
-                            latent_shape=self.latent_shape, schedule=self.schedule,
-                            weighted_timesteps=self.step_config.weighted_timesteps)
+        """The global batch's draws, from the generator that is equal on
+        every rank, and this rank's rows of them: instance rows
+        [r*L, (r+1)*L), then with the image prior the class rows
+        [B + r*L, B + (r+1)*L) (the class samples follow the instance ones)."""
+        cfg, local = self.config, self.local_batch_size
+        halves = 2 if cfg.with_image_prior else 1
+        draws = sample_draws(self.generator, batch_size=cfg.train_batch_size * halves,
+                             latent_shape=self.latent_shape, schedule=self.schedule,
+                             weighted_timesteps=self.step_config.weighted_timesteps)
+        if local == cfg.train_batch_size:
+            return draws
+        starts = [h * cfg.train_batch_size + self.mesh.rank * local for h in range(halves)]
+        return {k: torch.cat([v[s:s + local] for s in starts]) for k, v in draws.items()}
 
     def _count_augmentations(self, prompts: List[str]) -> None:
         """Count the samples whose caption carries each augmentation token."""
@@ -456,6 +511,7 @@ class Trainer:
         start_time = time.perf_counter()
         timer = StepTimer()
         last_metrics: Dict[str, float] = {}
+        losses: List[torch.Tensor] = []  # each step's, fetched at the end
         accum = max(cfg.gradient_accumulation_steps, 1)
         loop_t = {"dispatch_ms": 0.0, "host_wait_ms": 0.0, "h2d_ms": 0.0}
         window_start = step
@@ -467,7 +523,8 @@ class Trainer:
         host_waits = [(time.perf_counter() - t0) * 1000]
         next_batch, next_prompts = self._device_batch(*host), host[0]["prompt"]
         while step < cfg.max_train_steps:
-            if cfg.profile_dir and step - self.start_step == 5:  # trace steps [5, 15) of the run
+            # Trace steps [5, 15) of the run (rank 0).
+            if cfg.profile_dir and self.is_main and step - self.start_step == 5:
                 profiler = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
                 profiler.start()
@@ -486,6 +543,7 @@ class Trainer:
                 host_waits.append((t2 - t1) * 1000)
                 loop_t["h2d_ms"] += (t3 - t2) * 1000
             step += 1
+            losses.append(metrics["loss"])
             if profiler is not None and step - self.start_step == 15:
                 profiler.stop()
                 os.makedirs(cfg.profile_dir, exist_ok=True)
@@ -505,6 +563,8 @@ class Trainer:
                 if step % 100 == 0:
                     last_metrics.update(device_memory_stats(self.device))
                 self._log_metrics(step, last_metrics)
+            if not self.is_main:
+                continue
             if cfg.checkpointing_steps and step % cfg.checkpointing_steps == 0:
                 self.save(step)
             if (cfg.validation_prompts and cfg.validation_steps
@@ -516,17 +576,27 @@ class Trainer:
         wall = time.perf_counter() - start_time
         logger.info("Training took %.1f seconds.", wall)
         print(f"Training took {wall:.1f} seconds.")
+        loss_by_step = torch.stack(losses).float().cpu().tolist() if losses else []
+        logger.info("Loss by step %d-%d: %s", self.start_step + 1, step, loss_by_step)
+        result = {"wall_time_s": wall, "steps": step, **last_metrics,
+                  "host_wait_ms_by_step": host_waits, "loss_by_step": loss_by_step}
+        if self.reducer is not None and self.reducer.calls:
+            r, ms = self.reducer, self.reducer.milliseconds()
+            result.update({"dp_backend": dist.get_backend(), "dp_world": self.mesh.dp,
+                           "all_reduce_bytes_per_call": r.bytes / r.calls,
+                           "all_reduce_ms_by_call": ms})
+            logger.info("all-reduce: %d calls, %d bytes each, median %.3f ms (%.3f-%.3f)",
+                        r.calls, r.bytes // r.calls, float(np.median(ms)), min(ms), max(ms))
         # The writers' time overlapped the loop; they land before the run
         # is declared done (:1016-1022).
         self.join_checkpoint_writers()
         self.join_validation_writers()
         if self.caption_map:
             logger.info("Augmentation tokens in the captions: %s", dict(self.augmentation_counts))
-        self.save_final()
+        if self.is_main:
+            self.save_final()
+            self._metrics_file.close()
         self._trackers.finish()
-        self._metrics_file.close()
-        result = {"wall_time_s": wall, "steps": step, **last_metrics,
-                  "host_wait_ms_by_step": host_waits}
         result.update({f"{key}_ms": 1e3 * sum(values) / len(values)
                        for key, values in self.timings.items() if values})
         result.update({f"aug:{k}": float(n) for k, n in self.augmentation_counts.items()})

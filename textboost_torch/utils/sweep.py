@@ -1,28 +1,99 @@
 """Sweep launching for the runners (counterpart of textboost_tpu/utils/sweep.py).
 
-`launch_waves` runs the jobs in waves of N subprocesses, each pinned to one
-GPU by `CUDA_VISIBLE_DEVICES=<slot>` in the child's environment (set before
-the child imports torch: a process that has initialised CUDA ignores it);
-each child's output goes to its run dir's `train_stdout.log`.  `run_job`
-runs one job in-process (`--sequential`: `textboost_torch.train.main`, then
-the trainer's card memory is freed before the next) or as a subprocess.
-Each job is `python -m textboost_torch.train <flags> --device <device>`.
+`run_sweep` runs a runner's jobs.  `launch_waves` (`--parallel N`) runs
+them in waves of N subprocesses, each pinned to one GPU by
+`CUDA_VISIBLE_DEVICES` in the child's environment (set before the child
+imports torch: a process that has initialised CUDA ignores it); each
+child's output goes to its run dir's `train_stdout.log`.  Otherwise
+`run_job` runs one job at a time, in-process (`--sequential`:
+`textboost_torch.train.main`, then the trainer's card memory is freed
+before the next) or as a subprocess.  Each job is `python -m
+textboost_torch.train <flags> --device <device>`; a subprocess job spans
+the cards the runner sees (its `-g` list, else every visible card) as one
+data-parallel launch, `python -m torch.distributed.run --standalone
+--nproc_per_node=gcd(cards, batch)`, as the reference's runner launched
+torchrun over `-g`'s cards.
 """
 from __future__ import annotations
 
 import gc
+import math
 import os
 import subprocess
 import sys
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 TRAIN_MODULE = "textboost_torch.train"
+LAUNCHER = "torch.distributed.run"
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def train_command(cmd: List[str], device: str) -> List[str]:
+def launch_args(nproc: int = 1) -> List[str]:
+    """The `-m` arguments of one job: the trainer, under torchrun on this
+    host when it spans `nproc` > 1 processes."""
+    if nproc > 1:
+        return ["-m", LAUNCHER, "--standalone", f"--nproc_per_node={nproc}", "-m", TRAIN_MODULE]
+    return ["-m", TRAIN_MODULE]
+
+
+def train_command(cmd: List[str], device: str, nproc: int = 1) -> List[str]:
     """The argv of one job's subprocess."""
-    return [sys.executable, "-m", TRAIN_MODULE, *cmd, f"--device={device}"]
+    return [sys.executable, *launch_args(nproc), *cmd, f"--device={device}"]
+
+
+def visible_cards(gpus: Optional[str], device: str) -> List[str]:
+    """The cards the runner's jobs may use: `-g`'s comma-separated ids, else
+    every card this process sees (none for a CPU device)."""
+    if not device.startswith("cuda"):
+        return []
+    if gpus:
+        return [g.strip() for g in gpus.split(",") if g.strip()]
+    import torch
+
+    return [str(i) for i in range(torch.cuda.device_count())]
+
+
+def ranks_per_job(cards: int, batch: int) -> int:
+    """The processes of one subprocess job: one per card, as many as divide
+    the global batch."""
+    return math.gcd(cards, batch) if cards > 1 else 1
+
+
+def archiver(outdir: str, device: str, nproc: int = 1):
+    """-> archive(name, cmd): writes the run dir's cmd.txt, one argument a line."""
+
+    def archive(name, cmd):
+        run_dir = os.path.join(outdir, name)
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "cmd.txt"), "w") as f:
+            f.write("\n".join([" ".join(["python", *launch_args(nproc)]), *cmd,
+                               f"--device={device}"]))
+    return archive
+
+
+def run_sweep(args, jobs: Sequence[Tuple[str, List[str]]], outdir: str) -> None:
+    """Run a runner's (name, flags) jobs as its flags say: `--parallel N`
+    waves of one card each, else one job at a time, in-process with
+    `--sequential`, else as a subprocess over the visible cards."""
+    cards = visible_cards(args.gpu, args.device)
+    if args.parallel > 1 and not args.sequential:
+        if len(cards) > args.parallel:
+            raise ValueError(
+                f"--parallel {args.parallel} runs one card per job, but {len(cards)} cards are "
+                f"visible: name {args.parallel} with -g, or drop --parallel to train each job "
+                f"over all of them")
+        launch_waves(jobs, args.parallel, outdir, archiver(outdir, args.device), device=args.device,
+                     dry_run=args.dry_run, cards=cards)
+        return
+    nproc = 1 if args.sequential else ranks_per_job(len(cards), args.batch_size)
+    archive = archiver(outdir, args.device, nproc)
+    env = {"CUDA_VISIBLE_DEVICES": ",".join(cards)} if args.gpu and cards else {}
+    for name, cmd in jobs:
+        print(f"=== {name}: python {' '.join(launch_args(nproc))} {' '.join(cmd)}")
+        if args.dry_run:
+            continue
+        run_job(cmd, sequential=args.sequential, device=args.device, nproc=nproc, env=env)
+        archive(name, cmd)
 
 
 def child_env(**extra: str) -> dict:
@@ -41,9 +112,12 @@ def launch_waves(
     *,
     device: str = "cuda",
     dry_run: bool = False,
+    cards: Sequence[str] = (),
 ) -> int:
     """Run (name, flags) training jobs in waves of `parallel` subprocesses,
-    one GPU each.  Returns the number of jobs that exited nonzero."""
+    one GPU each: slot k takes `cards[k]` (default: card k; fewer cards
+    than slots are shared round-robin).  Returns the
+    number of jobs that exited nonzero."""
     failed = 0
     for i in range(0, len(jobs), parallel):
         procs = []
@@ -56,7 +130,8 @@ def launch_waves(
             log = open(os.path.join(run_dir, "train_stdout.log"), "w")
             proc = subprocess.Popen(train_command(cmd, device), stdout=log,
                                     stderr=subprocess.STDOUT,
-                                    env=child_env(CUDA_VISIBLE_DEVICES=str(slot)))
+                                    env=child_env(CUDA_VISIBLE_DEVICES=(
+                                        cards[slot % len(cards)] if cards else str(slot))))
             procs.append((proc, log, name, cmd))
         for proc, log, name, cmd in procs:
             code = proc.wait()
@@ -69,11 +144,14 @@ def launch_waves(
     return failed
 
 
-def run_job(cmd: List[str], *, sequential: bool, device: str = "cuda") -> None:
+def run_job(cmd: List[str], *, sequential: bool, device: str = "cuda", nproc: int = 1,
+            env: Optional[dict] = None) -> None:
     """Run one training job: in-process when `sequential` (the flags list is
-    parsed as argv; sys.argv is not touched), else as a subprocess."""
+    parsed as argv; sys.argv is not touched), else as a subprocess of
+    `nproc` ranks with `env` added to its environment."""
     if not sequential:
-        subprocess.run(train_command(cmd, device), check=False, env=child_env())
+        subprocess.run(train_command(cmd, device, nproc), check=False,
+                       env=child_env(**(env or {})))
         return
     import torch
 
