@@ -91,7 +91,22 @@ with the launch counts set to 0 just before and read just after:
     rank's launches must be those derived from the config at batch 4, and
     every kernel is held at the ranks' shapes.  The ranks' program is this
     script (`--dp-rank DIR -- FLAGS`: the trainer's `main` under the
-    launch counts, its numbers into DIR).
+    launch counts, its numbers into DIR);
+  * tensor parallel (`tp_phase`): the report of the tp rules at sd15 and
+    sd21base (parallel/validate.py, on the meta device); then the paper
+    run's flags plus the UNet's kv-LoRA at sd21base, global batch 8, 6 steps
+    with a checkpoint and a validation round every 3: in one process, with
+    `--mesh_tp 2` as two ranks sharing the card over gloo (the frozen UNet
+    and text encoder split by heads and FFN columns, both ranks on the same
+    batch 8 and in every validation round), and those two ranks resumed
+    from checkpoint-3.  The ranks' losses and trainable weights (a digest
+    after every step) must be equal, their losses and exports within a
+    stated bf16 bound of the one process's, rank 1 must write nothing, each
+    rank's launches must be the one process's, its kernel calls those
+    derived on the meta device at the ranks' local heads, and its
+    collectives a step those counted there; K1/K2 are held at the new
+    (8, 1024, 5, 64).  The ranks' program is `--tp-rank DIR -- FLAGS`
+    (`--dp-rank` with a digest of the trainable weights after each step).
 
 Before them: one sd15 UNet forward and one sd15 train step (batch 2) with
 the kernels and with plain math.  The GroupNorm kernels are held against
@@ -871,13 +886,14 @@ def group_norm_calls(model: str, unet_batch: int = 8, decode_batch: int = 4,
 
 
 def train_step_calls(model: str, unet_batch: int, encode_batch: int, *,
-                     checkpointing: bool, cross_lora_rank: int) -> dict:
+                     checkpointing: bool, cross_lora_rank: int, tp: int = 1) -> dict:
     """The kernel calls of one train step at `model`'s full width, found by
     running its UNet forward and backward (the text and the UNet's LoRA
     trainable, `gradient_checkpointing` as given) and its VAE encoder on the
     meta device: {"flash", "flash_bwd", "gn", "gn_bwd"}, each a Counter of
     the kernel wrappers' keys (flash (B, N, H, D, M); GroupNorm (shape,
-    groups, eps, silu)).  The forward kernels count the forward's calls and
+    groups, eps, silu)); at `tp` > 1 the UNet is rank 0's shard of a tp
+    group (its attentions at their local heads).  The forward kernels count the forward's calls and
     those the checkpointed blocks' recompute makes in the backward (torch
     runs it for the blocks that saved something: not for one whose inputs
     and parameters need no gradient); the backward kernels count the
@@ -889,11 +905,14 @@ def train_step_calls(model: str, unet_batch: int, encode_batch: int, *,
     from textboost_torch.models.unet import UNet2DCondition
     from textboost_torch.models.vae import AutoencoderKL
     from textboost_torch.ops.attention import use_flash
+    from textboost_torch.parallel.tensor import TensorParallel, shard_
 
     spec = get_spec(model)
     with torch.device("meta"):
         unet = UNet2DCondition(spec.unet, cross_lora_rank=cross_lora_rank)
         vae = AutoencoderKL(spec.vae)
+    if tp > 1:
+        shard_(unet, TensorParallel(None, tp, 0))
     calls = {name: collections.Counter() for name in ("flash", "flash_bwd", "gn", "gn_bwd")}
     forward = [True]
 
@@ -911,8 +930,8 @@ def train_step_calls(model: str, unet_batch: int, encode_batch: int, *,
             b, c, h, w = x.shape
             n, heads, d = h * w, 1, c
         elif len(args) == 1:  # self-attention; cross-attention's 77 keys take the math path
-            b, n, c = x.shape
-            heads, d = mod.heads, c // mod.heads
+            b, n, _ = x.shape
+            heads, d = mod.heads, mod.to_q.out_features // mod.heads
         else:
             return
         if use_flash("cuda", n, n, d, torch.bfloat16, False, False):
@@ -3187,16 +3206,24 @@ def run_launch(argv, what: str, timeout_s: float = DP_LAUNCH_TIMEOUT_S) -> str:
     return out
 
 
-def dp_rank(json_dir: str, argv) -> int:
-    """The program of each process `dp_phase` launches (`python
-    chip_smoke.py --dp-rank DIR -- FLAGS`, alone or under python -m
-    torch.distributed.run): `textboost_torch.train.main(FLAGS)` through
-    `instrumented_train`, then this rank's numbers into DIR/rank{RANK}.json:
-    its launches and kernel shapes, the losses by step, the all-reduce's
-    numbers, the step times, the peak memory, and every file and dir it
-    opened for writing or made under --output_dir (an audit hook sees each)."""
+def dp_rank(json_dir: str, argv, digest: bool = False) -> int:
+    """The program of each process `dp_phase` and `tp_phase` launch
+    (`python chip_smoke.py --dp-rank DIR -- FLAGS`, alone or under python -m
+    torch.distributed.run; `--tp-rank` sets `digest`):
+    `textboost_torch.train.main(FLAGS)` through `instrumented_train`, then
+    this rank's numbers into DIR/rank{RANK}.json: its launches and kernel
+    shapes, the losses by step, the all-reduce's numbers, the tensor-parallel
+    collectives by step, the step times, the peak memory, and every file and
+    dir it opened for writing or made under --output_dir (an audit hook sees
+    each); with `digest`, a sha1 of the trainable weights (the added rows,
+    the text encoder's and the UNet's LoRA) after each step (a copy to the
+    host that waits for the step)."""
+    import hashlib
+
     import numpy as np
     import torch
+
+    from textboost_torch.lora.partition import lora_parameters
 
     rank = int(os.environ.get("RANK", "0"))
     output_dir = os.path.abspath(next(a.split("=", 1)[1] for a in argv
@@ -3218,8 +3245,17 @@ def dp_rank(json_dir: str, argv) -> int:
             if full == output_dir or full.startswith(output_dir + os.sep):
                 writes.append(os.path.relpath(full, output_dir))
 
+    digests = []
+
+    def weights_digest(call, state, batch, metrics):
+        te = state.text_encoder
+        parts = ([te.token_embedding.weight[state.original_rows.shape[0]:]]
+                 + lora_parameters(te) + state.unet_lora)
+        flat = torch.cat([p.detach().reshape(-1).float() for p in parts]).cpu().numpy()
+        digests.append(hashlib.sha1(flat.tobytes()).hexdigest())
+
     sys.addaudithook(audit)
-    tr = instrumented_train(argv)
+    tr = instrumented_train(argv, on_step=weights_digest if digest else None)
     ev = tr["events"]
     step_ms = [ev[s - 2].elapsed_time(ev[s - 1]) for s in range(2, len(ev) + 1)]
     m = tr["metrics"]
@@ -3229,10 +3265,36 @@ def dp_rank(json_dir: str, argv) -> int:
            "warm_step_ms": float(np.mean([step_ms[s - 2] for s in DP_WARM_STEPS if s - 2 < len(step_ms)])),
            "peak_bytes": torch.cuda.max_memory_allocated(), "writes": sorted(set(writes)),
            "dp": {k: m[k] for k in ("dp_backend", "dp_world", "all_reduce_bytes_per_call",
-                                    "all_reduce_ms_by_call") if k in m}}
+                                    "all_reduce_ms_by_call") if k in m},
+           "tp": {k: m[k] for k in m if k.startswith("tp_")}, "digests": digests}
     with open(os.path.join(json_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
+
+
+def launch_rank_program(work: str, name: str, nproc: int, flags, program: str = "--dp-rank"):
+    """Launch this script's rank program (`program` DIR -- FLAGS) under
+    `python -m torch.distributed.run --standalone --nproc_per_node nproc`,
+    or alone when nproc is 0; returns (output, [each rank's numbers]), the
+    command's wall time in each as "wall_s"."""
+    import ast
+
+    json_dir = os.path.join(work, f"{name}_json")
+    os.makedirs(json_dir)
+    launcher = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 f"--nproc_per_node={nproc}"] if nproc else [sys.executable])
+    t0 = time.perf_counter()
+    out = run_launch([*launcher, os.path.join(REPO_DIR, "chip_smoke.py"), program, json_dir,
+                      "--", *flags], f"the {name} run")
+    wall = time.perf_counter() - t0
+    res = []
+    for r in range(nproc or 1):
+        with open(os.path.join(json_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+        res[-1]["wall_s"] = wall
+        res[-1]["shapes"] = {k: collections.Counter({ast.literal_eval(key): n for key, n in v})
+                             for k, v in res[-1]["shapes"].items()}
+    return out, res
 
 
 def dp_tree(run_dir: str) -> dict:
@@ -3265,20 +3327,25 @@ def same_state(a, b) -> bool:
 
 
 def dp_export_gaps(a: str, b: str) -> dict:
-    """Relative L2 gaps of run b's exported LoRA and added rows to run a's."""
+    """Relative L2 gaps of run b's exported LoRA (and the UNet's, where run
+    a exported one) and added rows to run a's."""
     import numpy as np
     import torch
 
     from textboost_torch.lora.peft_io import import_token_embeddings, load_safetensors
 
-    lora = [load_safetensors(os.path.join(d, "text_encoder", "adapter_model.safetensors"))
-            for d in (b, a)]
+    def flat(d, part):
+        t = load_safetensors(os.path.join(d, part, "adapter_model.safetensors"))
+        return torch.cat([torch.from_numpy(t[k]).float().flatten() for k in sorted(t)])
+
     bins = sorted(f for f in os.listdir(a) if f.endswith(".bin"))
     rows = [import_token_embeddings([os.path.join(d, f) for f in bins]) for d in (b, a)]
-    return {"lora": rel_l2(*(torch.cat([torch.from_numpy(t[k]).float().flatten()
-                                        for k in sorted(t)]) for t in lora)),
-            "rows": rel_l2(*(torch.from_numpy(np.stack([r[t] for t in sorted(r)])).float()
-                             for r in rows))}
+    out = {"lora": rel_l2(flat(b, "text_encoder"), flat(a, "text_encoder")),
+           "rows": rel_l2(*(torch.from_numpy(np.stack([r[t] for t in sorted(r)])).float()
+                            for r in rows))}
+    if os.path.isdir(os.path.join(a, "unet")):
+        out["unet_lora"] = rel_l2(flat(b, "unet"), flat(a, "unet"))
+    return out
 
 
 def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
@@ -3286,8 +3353,6 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     docstring): the one-process run, NCCL at world 1, two ranks over gloo
     on the one card and their resume, each a process launched as a user
     would; every kernel held at the ranks' batch-4 shapes."""
-    import ast
-
     import numpy as np
     import torch
 
@@ -3312,23 +3377,7 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
                 f"--nproc_per_node={nproc}"]
 
     def ranks(name, nproc, *extra):
-        """Launch the --dp-rank program (under torchrun when nproc); returns
-        (output, [rank0, rank1, ...] numbers)."""
-        json_dir = os.path.join(work, f"{name}_json")
-        os.makedirs(json_dir)
-        launcher = torchrun(nproc) if nproc else [sys.executable]
-        t0 = time.perf_counter()
-        out = run_launch([*launcher, os.path.join(REPO_DIR, "chip_smoke.py"), "--dp-rank",
-                          json_dir, "--", *flags(name, *extra)], f"the {name} run")
-        wall = time.perf_counter() - t0
-        res = []
-        for r in range(nproc or 1):
-            with open(os.path.join(json_dir, f"rank{r}.json")) as f:
-                res.append(json.load(f))
-            res[-1]["wall_s"] = wall
-            res[-1]["shapes"] = {k: collections.Counter({ast.literal_eval(key): n for key, n in v})
-                                 for k, v in res[-1]["shapes"].items()}
-        return out, res
+        return launch_rank_program(work, name, nproc, flags(name, *extra))
 
     def log_line(name, pattern):
         with open(os.path.join(dirs[name], "training.log")) as f:
@@ -3539,6 +3588,224 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
                     "bwd": group_norm_json(bwd_table[main_key])},
         "k1": k1, "k2": k2, "k1_max_abs_err": k1_err, "k2_max_abs_err": k2_err,
         "gn_max_abs_err": gn_err, "gn_bwd_max_abs_err": gn_bwd_err,
+    }
+
+
+# Tensor parallel at sd21base (`tp_phase`): the dp phase's run (DP_STEPS
+# steps, a checkpoint and a validation round every DP_CADENCE) plus the
+# UNet's kv-LoRA, in one process and as TP_RANKS ranks of one tp group.
+TP_RANKS = 2  # sharing the one card over gloo, as the dp phase's ranks
+TP_LEVEL1 = (8, 1024, 5, 64)  # UNet level 1 at tp 2: 10 heads, 5 a rank
+# One image per validation prompt (the runner's default is 4): at 4, a
+# round's UNet runs at batch 32 and its collectives moved ~1.5 GB a call
+# over gloo, ~45 s a round (PERF.md); at 1 the round is the train
+# step's batch 8, and both ranks still sample every round together.
+TP_VALIDATION_IMAGES = 1
+# The 2-rank run against the one-process run, bf16: both run the UNet at
+# batch 8 on the same samples and draws, but each row-parallel output is
+# the sum of two bf16-rounded halves (the one process rounds the whole sum
+# once).  On an NVIDIA H100 80GB HBM3 (700 W) the gaps were 3.2e-5-1.6e-4
+# a step's loss, 2.9e-5 / 4.0e-5 for the exported LoRA (text encoder /
+# UNet) and 3.0e-3 for the added rows (near-sign AdamW steps at embedding
+# lr 1e-3); the bounds are ~6-7x those, as the dp phase's.
+TP_LOSS_REL = 1e-3  # each step's loss
+TP_REL_L2 = 2e-2  # the exported LoRA (the text encoder's and the UNet's) and added rows
+
+
+def tp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
+    """Tensor parallelism over torch.distributed at sd21base (see the module
+    docstring): the rules' report at sd15 and sd21base; the one-process run
+    and two tp ranks over gloo on the one card and their resume, each a
+    process launched as a user would; K1/K2 at the ranks' new shapes."""
+    import numpy as np
+    import torch
+
+    from textboost_torch.models.configs import get_spec
+    from textboost_torch.parallel.tensor import TP_RULES
+    from textboost_torch.parallel.validate import validate_tp_rules_at_shape
+
+    t_phase = time.perf_counter()
+    clip_qkv, unet_qkv, embedding = TP_RULES[0][0], TP_RULES[6][0], TP_RULES[11][0]
+    reports = {}
+    for preset in ("sd15", "sd21base"):
+        t0 = time.perf_counter()
+        reports[preset] = r = validate_tp_rules_at_shape(preset, TP_RANKS, batch=8)
+        m = r["tp_rule_matches"]
+        print(f"[tp report] {preset} at tp {TP_RANKS} (meta device, {time.perf_counter() - t0:.1f} "
+              f"s): {r['split_weights']} weights split, tiling their wholes; CLIP q/k/v "
+              f"{m[clip_qkv]}, UNet q/k/v {m[unet_qkv]}, token embedding {m[embedding]}; by rule "
+              f"{list(m.values())}; a train step's all-reduces at batch 8 in bf16 "
+              f"{r['collectives']}; {len(r['whole'])} matched and left whole: "
+              f"{sorted({re.sub(r'transformer_blocks.*', '', k) for k in r['whole']})}", flush=True)
+    whole21 = reports["sd21base"]["whole"]
+    level0 = re.compile(r"unet/(down_blocks\.0|up_blocks\.3)\.attentions\.\d\.transformer_blocks"
+                        r"\.0\.attn[12]\.to_(q|k|v|out\.0)\.weight")
+    m15 = reports["sd15"]["tp_rule_matches"]
+    if not ((m15[clip_qkv], m15[unet_qkv], m15[embedding]) == (36, 96, 1)
+            and all(m15.values()) and not reports["sd15"]["whole"]
+            and len(whole21) == 40 and all(level0.fullmatch(k) for k in whole21)):
+        raise AssertionError("the tp rules' reports are not those of the configs")
+
+    spec = get_spec("sd21base")
+    per_step, per_round = expected_train_launches(spec), expected_launches(spec, 25)
+    rounds = DP_STEPS // DP_CADENCE
+    instance_dir = os.path.join(work, "instance")
+    os.makedirs(instance_dir)
+    write_instance_image(os.path.join(instance_dir, "teapot.png"), seed=1)
+    dirs = {name: os.path.join(work, name) for name in ("one", "two", "resumed")}
+
+    def ranks(name, nproc, *extra):
+        flags = paper_flags(instance_dir, dirs[name], f"--max_train_steps={DP_STEPS}",
+                            f"--checkpointing_steps={DP_CADENCE}",
+                            f"--validation_steps={DP_CADENCE}",
+                            f"--num_validation_images={TP_VALIDATION_IMAGES}",
+                            "--unet_params_to_train=crossattn_kv", *extra)
+        return launch_rank_program(work, name, nproc, flags,
+                                   program="--tp-rank" if nproc else "--dp-rank")
+
+    _, (one,) = ranks("one", 0)
+    two_out, two = ranks("two", TP_RANKS, f"--mesh_tp={TP_RANKS}")
+    shutil.copytree(os.path.join(dirs["two"], f"checkpoint-{DP_CADENCE}"),
+                    os.path.join(dirs["resumed"], f"checkpoint-{DP_CADENCE}"))
+    _, resumed = ranks("resumed", TP_RANKS, f"--mesh_tp={TP_RANKS}",
+                       "--resume_from_checkpoint=latest")
+    with open(os.path.join(dirs["two"], "training.log")) as f:
+        log = f.read()
+    split_lines = re.findall(r"tensor parallel over 2 ranks \(dp 1 x tp 2\), ([\w ]+): (\d+) "
+                             r"weights split .*?, (\d+) left whole", log)
+    backends = [(r["rank"], r["dp"].get("dp_backend"), r["dp"].get("dp_world")) for r in two]
+    losses = [r["loss_by_step"] for r in two]
+    files_one, files_two = sorted(dp_tree(dirs["one"])), sorted(dp_tree(dirs["two"]))
+
+    # The collectives a step: counted by each rank, and on the meta device.
+    want_tp = reports["sd21base"]["collectives"]
+    tp_steps = [r["tp"] for r in two]
+    warm = [float(np.median([t["tp_ms_by_step"][s - 1] for s in DP_WARM_STEPS])) for t in tp_steps]
+    print(f"[tp gloo] {TP_RANKS} ranks on the one card, python -m torch.distributed.run "
+          f"--standalone --nproc_per_node {TP_RANKS} -m textboost_torch.train --mesh_tp "
+          f"{TP_RANKS}: (rank, backend, world) {backends}; split {split_lines}; global batch 8 "
+          f"on both ranks, {DP_STEPS} steps in {two[0]['wall_s']:.1f} s (launch, set-up, "
+          f"{rounds} validation rounds of {len(PAPER_PROMPTS)} x {TP_VALIDATION_IMAGES} images "
+          f"on both ranks and export included; one process "
+          f"{one['wall_s']:.1f} s); losses by step rank 0 {losses[0]}, rank 1 "
+          f"{'the same' if losses[0] == losses[1] else losses[1]}; trainable weights after each "
+          f"step {'the same on both ranks' if two[0]['digests'] == two[1]['digests'] else 'DIFFER'}"
+          f"; tp all-reduces a step {tp_steps[0]['tp_fwd_calls_by_step'][-1]} forward + "
+          f"{tp_steps[0]['tp_bwd_calls_by_step'][-1]} backward, "
+          f"{tp_steps[0]['tp_bytes_by_step'][-1]} bytes (meta-device count {want_tp}), "
+          f"{warm[0]:.1f} / {warm[1]:.1f} ms a warm step on rank 0 / 1 (CUDA events: the copies "
+          f"to and from the host, gloo, the wait for the peer), by step "
+          f"{[[round(x, 1) for x in t['tp_ms_by_step']] for t in tp_steps]}; warm step "
+          f"{two[0]['warm_step_ms']:.1f} / {two[1]['warm_step_ms']:.1f} ms against "
+          f"{one['warm_step_ms']:.1f} ms in one process (steps {DP_WARM_STEPS}); peak "
+          f"{two[0]['peak_bytes'] / 2**30:.2f} / {two[1]['peak_bytes'] / 2**30:.2f} GiB against "
+          f"{one['peak_bytes'] / 2**30:.2f}; launches {two[0]['launches']} / "
+          f"{two[1]['launches']}, one process {one['launches']}; rank 0 wrote "
+          f"{len(two[0]['writes'])} paths, rank 1 {two[1]['writes']}; {smi}", flush=True)
+    if not (backends == [(0, "gloo", 1), (1, "gloo", 1)] and losses[0] == losses[1]
+            and len(losses[0]) == DP_STEPS and all(math.isfinite(x) for x in losses[0])
+            and len(two[0]["digests"]) == DP_STEPS and two[0]["digests"] == two[1]["digests"]
+            and resumed[0]["digests"] == resumed[1]["digests"]):
+        raise AssertionError("the two tp ranks disagree on the losses, the trainable weights "
+                             "or the backend")
+    if not (len(split_lines) == 2 and sum(int(n) for _, n, _ in split_lines)
+            == reports["sd21base"]["split_weights"]
+            and sum(int(w) for _, _, w in split_lines) == len(whole21)):
+        raise AssertionError(f"the trainer split {split_lines}, its report "
+                             f"{reports['sd21base']['split_weights']} weights, {len(whole21)} whole")
+    if two[1]["writes"] or not two[0]["writes"] or resumed[1]["writes"]:
+        raise AssertionError(f"rank 1 wrote into --output_dir: {two[1]['writes']} "
+                             f"{resumed[1]['writes']}")
+    if files_two != files_one:
+        raise AssertionError(f"the 2-rank run left {files_two}, the one-process run {files_one}")
+    for t in tp_steps + [r["tp"] for r in resumed]:
+        got = set(zip(t["tp_fwd_calls_by_step"], t["tp_bwd_calls_by_step"], t["tp_bytes_by_step"]))
+        if got != {(want_tp["fwd"], want_tp["bwd"], want_tp["bytes"])}:
+            raise AssertionError(f"the ranks' collectives a step {got}, derived {want_tp}")
+    want_one = {"flash": DP_STEPS * per_step[0] + rounds * per_round[0],
+                "flash_bwd": DP_STEPS * per_step[1],
+                "gn": DP_STEPS * per_step[2] + rounds * per_round[1],
+                "gn_bwd": DP_STEPS * per_step[3]}
+    rest = DP_STEPS - DP_CADENCE
+    want_resumed = {"flash": rest * per_step[0] + per_round[0], "flash_bwd": rest * per_step[1],
+                    "gn": rest * per_step[2] + per_round[1], "gn_bwd": rest * per_step[3]}
+    launches = [r["launches"] for r in two] + [one["launches"]]
+    if launches != [want_one] * 3 or [r["launches"] for r in resumed] != [want_resumed] * 2:
+        raise AssertionError(f"launches {launches} / resumed {[r['launches'] for r in resumed]}, "
+                             f"expected {want_one} / {want_resumed}")
+
+    res_losses = resumed[0]["loss_by_step"]
+    res_gap = max(abs(a - b) / abs(b) for a, b in zip(res_losses, losses[0][DP_CADENCE:]))
+    res_exports = dp_export_gaps(dirs["two"], dirs["resumed"])
+    one_gap = [abs(a - b) / abs(b) for a, b in zip(losses[0], one["loss_by_step"])]
+    one_exports = dp_export_gaps(dirs["one"], dirs["two"])
+    print(f"[tp resume] 2 ranks from checkpoint-{DP_CADENCE} to step {DP_STEPS}: losses "
+          f"{res_losses} against {losses[0][DP_CADENCE:]}, largest relative gap {res_gap:.3g} "
+          f"(limit {RESUME_LOSS_REL}); exports rel L2 {res_exports} (limit {RESUME_REL_L2}); "
+          f"rank 1 wrote {resumed[1]['writes']}", flush=True)
+    print(f"[tp vs one process] the 2 tp ranks against the one-process run at batch 8: loss "
+          f"gap by step {[float(f'{g:.3g}') for g in one_gap]} (limit {TP_LOSS_REL}); exports "
+          f"rel L2 {one_exports} (limit {TP_REL_L2})", flush=True)
+
+    # Every kernel at every shape the ranks gave it.
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_calls = train_step_calls("sd21base", unet_batch=8, encode_batch=8, checkpointing=False,
+                                  cross_lora_rank=4, tp=TP_RANKS)
+    images = len(PAPER_PROMPTS) * TP_VALIDATION_IMAGES
+    val_calls = group_norm_calls("sd21base", unet_batch=2 * images, decode_batch=images)
+    derived = {k: collections.Counter({key: DP_STEPS * n for key, n in c.items()})
+               for k, c in step_calls.items()}
+    derived_gn = collections.Counter(derived["gn"])
+    for part, n in (("unet", rounds * 25), ("decode", rounds)):
+        derived_gn.update({key: n * c for key, c in val_calls[part].items()})
+    seen = [r["shapes"] for r in two]
+    if seen[0] != seen[1] or seen[0]["gn"] != derived_gn or seen[0]["gn_bwd"] != \
+            derived["gn_bwd"] or seen[0]["flash_bwd"] != derived["flash_bwd"] \
+            or not derived["flash"] <= seen[0]["flash"]:
+        raise AssertionError("the tp ranks' kernel calls differ from each other or from those "
+                             "derived from the config at the ranks' local heads")
+    if (*TP_LEVEL1, TP_LEVEL1[1]) not in seen[0]["flash"]:
+        raise AssertionError(f"no flash call at the ranks' UNet level 1, {TP_LEVEL1}")
+    new_fwd = sorted(set(seen[0]["flash"]) - held["flash"])
+    new_bwd = sorted(set(seen[0]["flash_bwd"]) - held["flash_bwd"])
+    k1_err = check_flash_forward(gen, new_fwd)
+    k2_err = check_flash_backward(gen, [(b, n, h, d, mm, mm) for b, n, h, d, mm in new_bwd])
+    name = "unet_level1_8x1024x5x64"
+    k1 = {name: flash_forward_times(gen, *TP_LEVEL1, card)}
+    k2 = {name: flash_backward_times(gen, *TP_LEVEL1, card)}
+    f, b = k1[name], k2[name]
+    print(f"[tp flash] the ranks' {name}: forward {f['ms']:.4f} ms (bound {f['bound_ms']:.4f}, "
+          f"{f['bound_floor']}; SDPA {f['library_ms']:.4f}; plain {f['plain_ms']:.3f}); backward "
+          f"{b['ms']:.4f} ms (bound {b['bound_ms']:.4f}, {b['bound_floor']}; SDPA "
+          f"{b['library_ms']:.4f}; plain {b['plain_ms']:.3f}); K1 held now at {new_fwd}, K2 at "
+          f"{new_bwd}; the ranks' GroupNorm calls those derived (all held earlier); {smi}",
+          flush=True)
+    if not (res_gap <= RESUME_LOSS_REL and max(res_exports.values()) <= RESUME_REL_L2):
+        raise AssertionError("the 2-rank resume left the straight 2-rank run's trajectory")
+    if not (max(one_gap) <= TP_LOSS_REL and max(one_exports.values()) <= TP_REL_L2):
+        raise AssertionError("the 2 tp ranks left the one-process run's trajectory")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[tp] the whole phase in {phase_s:.1f} s; {smi}", flush=True)
+    return {
+        "report": {p: {"tp_rule_matches": list(r["tp_rule_matches"].values()),
+                       "whole": len(r["whole"])} for p, r in reports.items()},
+        "launches": {f"rank{r['rank']}": r["launches"] for r in two},
+        "launches_one_process": one["launches"],
+        "resumed_launches": {f"rank{r['rank']}": r["launches"] for r in resumed},
+        "collectives_per_step": {**want_tp, "ms_warm_rank0": warm[0], "ms_warm_rank1": warm[1]},
+        "warm_step_ms": {"one_process": one["warm_step_ms"],
+                         **{f"rank{r['rank']}": r["warm_step_ms"] for r in two}},
+        "peak_gib": {"one_process": one["peak_bytes"] / 2**30,
+                     **{f"rank{r['rank']}": r["peak_bytes"] / 2**30 for r in two}},
+        "loss_by_step": {"one_process": one["loss_by_step"], "two_ranks": losses[0],
+                         "resumed": res_losses},
+        "gap_to_one_process": {"loss": max(one_gap), **one_exports},
+        "resume_gap": {"loss": res_gap, **res_exports},
+        "run_s": {"one_process": one["wall_s"], "two_ranks": two[0]["wall_s"],
+                  "resumed": resumed[0]["wall_s"]},
+        "phase_s": phase_s, "k1": k1, "k2": k2, "k1_max_abs_err": k1_err,
+        "k2_max_abs_err": k2_err,
     }
 
 
@@ -3905,13 +4172,23 @@ def main() -> int:
     dp_work = tempfile.TemporaryDirectory()
     dp = dp_phase(gen, card, dp_work.name, smi, held)
     dp_work.cleanup()
+
+    # 16. main path: tensor parallel over torch.distributed at sd21base: one
+    # process and two tp ranks on the card over gloo and their resume, each
+    # launched as a user would ---------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_work = tempfile.TemporaryDirectory()
+    tp = tp_phase(gen, card, tp_work.name, smi, held)
+    tp_work.cleanup()
     by_path = {name: {"generate_sd15": launches.get(key, 0), "train_sd15": tr["launches"][key],
                       "paper_sd21base": paper["launches"][key],
                       "paper_sd21base_resumed": paper["resumed_launches"][key],
                       "snapshot_sd21base": snap["launches"][key],
                       "benchmark_sd21base": bench["launches"][key],
                       "sd21_768": sd21["launches"][key],
-                      **{f"dp_sd21base_{r}": n[key] for r, n in dp["launches"].items()}}
+                      **{f"dp_sd21base_{r}": n[key] for r, n in dp["launches"].items()},
+                      **{f"tp_sd21base_{r}": n[key] for r, n in tp["launches"].items()}}
                for name, key in (("flash_attention_fwd", "flash"), ("flash_attention_bwd", "flash_bwd"),
                                  ("group_norm_fwd", "gn"), ("group_norm_bwd", "gn_bwd"))}
     # The top-level numbers are the sd21 phase's, the newest main path: its
@@ -3926,7 +4203,7 @@ def main() -> int:
               "launches": sd21["launches"]["flash"],
               "max_abs_err": max(flash_err, paper["k1_max_abs_err"], snap["k1_max_abs_err"],
                                  bench["k1_max_abs_err"], sd21["k1_max_abs_err"],
-                                 dp["k1_max_abs_err"])},
+                                 dp["k1_max_abs_err"], tp["k1_max_abs_err"])},
              **{k: v for k, v in sd21["k1"][k_main].items() if k != "launches"},
              shape="B,N,H,D=8,9216,5,64 bf16 (sd21 UNet level 0 at 768 px: the train step at "
                    "batch 8, four prompts under CFG)",
@@ -3934,7 +4211,8 @@ def main() -> int:
                            **{f"snapshot_{k}": v for k, v in snap["k1"].items()},
                            **paper["k1"], **bench["k1"],
                            **{f"sd15_{k}": v for k, v in fa_t.items()},
-                           **{f"dp_{k}": v for k, v in dp["k1"].items()}},
+                           **{f"dp_{k}": v for k, v in dp["k1"].items()},
+                           **{f"tp_{k}": v for k, v in tp["k1"].items()}},
              per_generate_ms=flash_ms, launches_by_path=by_path["flash_attention_fwd"],
              variants={"generate": variants, "train": tr["variants"],
                        "paper": paper["variants"]}),
@@ -3944,14 +4222,15 @@ def main() -> int:
               "launches": sd21["launches"]["flash_bwd"],
               "max_abs_err": max(flash_bwd_err, paper["k2_max_abs_err"], snap["k2_max_abs_err"],
                                  bench["k2_max_abs_err"], sd21["k2_max_abs_err"],
-                                 dp["k2_max_abs_err"])},
+                                 dp["k2_max_abs_err"], tp["k2_max_abs_err"])},
              **{k: v for k, v in sd21["k2"][k_main].items() if k != "launches"},
              shape="B,N,H,D=8,9216,5,64 bf16 (sd21 UNet level 0 at 768 px, the train step at "
                    "batch 8)",
              other_shapes={**{k: v for k, v in sd21["k2"].items() if k != k_main},
                            **{f"snapshot_{k}": v for k, v in snap["k2"].items()},
                            **paper["k2"], **{f"sd15_{k}": v for k, v in fb_t.items()},
-                           **{f"dp_{k}": v for k, v in dp["k2"].items()}},
+                           **{f"dp_{k}": v for k, v in dp["k2"].items()},
+                           **{f"tp_{k}": v for k, v in tp["k2"].items()}},
              launches_by_path=by_path["flash_attention_bwd"],
              launches_per_train_step=snap["launches"]["flash_bwd"] / SNAPSHOT_STEPS),
         {"name": "group_norm_fwd", "route": "cuda",
@@ -4010,7 +4289,9 @@ def main() -> int:
         "sd21_768": {k: v for k, v in sd21.items()
                      if not (k in ("k1", "k2", "gn_main") or k.endswith("max_abs_err"))},
         "dp_sd21base": {k: v for k, v in dp.items()
-                        if not (k in ("k1", "k2", "gn_main") or k.endswith("max_abs_err"))}}
+                        if not (k in ("k1", "k2", "gn_main") or k.endswith("max_abs_err"))},
+        "tp_sd21base": {k: v for k, v in tp.items()
+                        if not (k in ("k1", "k2") or k.endswith("max_abs_err"))}}
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4018,6 +4299,6 @@ def main() -> int:
     return 0
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--dp-rank"] and sys.argv[3:4] == ["--"]:
-        sys.exit(dp_rank(sys.argv[2], sys.argv[4:]))
+    if sys.argv[1:2] in (["--dp-rank"], ["--tp-rank"]) and sys.argv[3:4] == ["--"]:
+        sys.exit(dp_rank(sys.argv[2], sys.argv[4:], digest=sys.argv[1] == "--tp-rank"))
     sys.exit(main())

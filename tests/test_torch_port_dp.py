@@ -527,8 +527,10 @@ def test_mesh_and_batch_checks():
     from textboost_torch.train.config import TrainConfig
     from textboost_torch.train.trainer import local_batch_size
 
-    with pytest.raises(NotImplementedError, match="A8: Data parallel and multi-host, its TP"):
-        mesh.make_mesh(None, 2, world=2)
+    # Tensor parallelism is served: 2 processes at tp 2 are one tp group.
+    assert mesh.make_mesh(None, 2, world=2) == mesh.Mesh(dp=1, tp=2, rank=0)
+    with pytest.raises(ValueError, match="--mesh_dp 2 x --mesh_tp 2 = 4 processes, but 2 were"):
+        mesh.make_mesh(2, 2, world=2)
     with pytest.raises(ValueError, match="--mesh_dp 2 x --mesh_tp 1 = 2 processes, but 1 were"):
         mesh.make_mesh(2, 1, world=1)
     assert mesh.make_mesh(None, 1, world=4) == mesh.Mesh(dp=4, tp=1, rank=0)
@@ -556,14 +558,17 @@ def test_one_process_has_no_group(monkeypatch):
     mesh.barrier()  # a no-op
 
 
-@pytest.mark.parametrize("gpus,parallel,sequential,want", [
-    ("0,1", 1, False, (2, "0,1")),
-    ("0,1,2", 1, False, (1, "0,1,2")),  # gcd(3, 8): the job runs in one process
-    ("0,1", 1, True, (1, "0,1")),  # in-process (where the environment is not changed)
-    ("3", 2, False, None),  # waves: one card per job
+@pytest.mark.parametrize("gpus,parallel,sequential,want,tp", [
+    ("0,1", 1, False, (2, "0,1"), 1),
+    ("0,1,2", 1, False, (1, "0,1,2"), 1),  # gcd(3, 8): the job runs in one process
+    ("0,1", 1, True, (1, "0,1"), 1),  # in-process (where the environment is not changed)
+    ("3", 2, False, None, 1),  # waves: one card per job
+    ("0,1", 1, False, (2, "0,1"), 2),  # one tp group of 2
+    ("0,1,2,3", 1, False, (4, "0,1,2,3"), 2),  # tp 2 x gcd(2, 8) groups
+    ("0,1,2", 1, False, "refused", 2),  # 3 cards make no groups of 2
 ])
 def test_runner_launches_a_job_over_its_cards(tmp_path, monkeypatch, capsys, gpus, parallel,
-                                              sequential, want):
+                                              sequential, want, tp):
     from textboost_torch import run_textboost_db as port_db
     from textboost_torch.utils import sweep
 
@@ -572,7 +577,14 @@ def test_runner_launches_a_job_over_its_cards(tmp_path, monkeypatch, capsys, gpu
     monkeypatch.setattr(sweep, "launch_waves", lambda jobs, n, out, archive, **kw: calls.append(
         {"waves": n, **kw}))
     argv = ["-m", "tiny", "--instances", "dog", "--outdir", str(tmp_path), "-g", gpus,
-            "--parallel", str(parallel)] + (["--sequential"] if sequential else [])
+            "--parallel", str(parallel), "--mesh-tp", str(tp)] + (
+        ["--sequential"] if sequential else [])
+    if want == "refused":
+        with pytest.raises(ValueError, match="--mesh-tp 2 splits the frozen models over groups "
+                                             "of 2 cards, but 3 cards are visible"):
+            port_db.main(port_db.parse_args(argv))
+        assert calls == []
+        return
     port_db.main(port_db.parse_args(argv))
     if want is None:
         assert calls == [{"waves": 2, "device": "cuda", "dry_run": False, "cards": ["3"]}]

@@ -416,10 +416,9 @@ def test_config_has_flag_parity_with_the_jax_cli():
     (["--mesh_dp", "2"], "multi-card"),
 ])
 def test_unserved_flags_raise_at_setup(tmp_path, flags, match):
-    # Tensor parallelism is not served; a --mesh_dp other than the launched
-    # world (one process here) is refused since data parallelism is.
-    error = ValueError if "--mesh_dp" in flags else NotImplementedError
-    with pytest.raises(error, match=match):
+    # A mesh other than the launched world (one process here) is refused:
+    # --mesh_tp 2 needs a launch of 2 processes, as --mesh_dp 2 does.
+    with pytest.raises(ValueError, match=match):
         train_main(["--device", "cpu", "--model_preset", "tiny", "--output_dir", str(tmp_path),
                     "--max_train_steps", "10", *flags])
 

@@ -12,7 +12,9 @@ Data parallel: shard k of n yields rows [k*B, (k+1)*B) of the global batch
 of n*B: every shard walks the one global index stream and keys each
 sample's rng on its global slot, (seed, s, k*B + i).  The shards'
 batches, concatenated, are the one-process batch of n*B, so a run does not
-depend on its world size.  (The JAX loader strides the index stream over
+depend on its world size.  The trainer's shard is its dp index
+(data/sharding.py::process_shard_info), so the ranks of one tensor-parallel
+group load the same rows.  (The JAX loader strides the index stream over
 the processes, `keys[shard::n]`, and keys the rng on the local slot: its
 shards of a one-image dataset are byte-identical, and the prior-prompt
 shards are not the one-process batch.)

@@ -41,10 +41,11 @@ class ShardedIndexIterator:
             epoch += 1
 
 
-def process_shard_info(num_workers: int = 1, worker_id: int = 0):
-    """(shard_id, num_shards) for this process x dataloader worker: the
-    rank and world of the torch.distributed group (one process without
-    one)."""
+def process_shard_info(num_workers: int = 1, worker_id: int = 0, tp: int = 1):
+    """(shard_id, num_shards) for this process x dataloader worker: the dp
+    index and dp size of the torch.distributed group laid out as (dp, tp)
+    (parallel/mesh.py: rank = dp_index * tp + tp_index), so that the ranks
+    of a tp group load the same rows; one process without a group."""
     from ..parallel.mesh import rank, world_size
 
-    return rank() * num_workers + worker_id, world_size() * num_workers
+    return rank() // tp * num_workers + worker_id, world_size() // tp * num_workers

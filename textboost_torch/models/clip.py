@@ -14,6 +14,11 @@ LoRA weights stay fp32 when the module is cast to another dtype, and they
 and the token embedding (fp32 once training grows it) are cast to the
 compute dtype, that of the position embedding, where they are used.  AdamW
 at the usual learning rates would lose most of its updates on bf16 weights.
+
+The attention, the MLP and the model (its token embedding) carry a `tp`
+(parallel/tensor.py): None computes them whole; a `TensorParallel` group,
+set by `shard_` on the frozen encoder, runs this rank's heads, its fc1
+columns and its vocabulary rows, with the collectives at the boundaries.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention
+from ..parallel.tensor import copy_to_tp, reduce_from_tp, row_parallel_linear
 from .configs import CLIPTextConfig
 from .layers import LoRALinear
 
@@ -46,8 +52,9 @@ class CLIPAttention(nn.Module):
                  causal: bool = True):
         super().__init__()
         dim = cfg.hidden_size
-        self.heads = cfg.num_attention_heads
+        self.heads = cfg.num_attention_heads  # this rank's heads when sharded
         self.causal = causal
+        self.tp = None
         # LoRA targets q/k/v only; out_proj stays dense.
         self.q_proj = LoRALinear(dim, dim, lora_rank, lora_alpha)
         self.k_proj = LoRALinear(dim, dim, lora_rank, lora_alpha)
@@ -56,10 +63,12 @@ class CLIPAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, use_lora: bool = True,
                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, n, c = x.shape
+        if self.tp is not None:
+            x = copy_to_tp(x, self.tp)
+        b, n, _ = x.shape
 
         def split(t):
-            return t.view(b, n, self.heads, c // self.heads)
+            return t.view(b, n, self.heads, t.shape[2] // self.heads)
 
         out = multi_head_attention(
             split(self.q_proj(x, use_lora)),
@@ -68,19 +77,24 @@ class CLIPAttention(nn.Module):
             causal=self.causal,
             # Key-padding mask [B, L] -> [B, 1, 1, L], with the causal one.
             mask=None if attention_mask is None else attention_mask[:, None, None, :],
-        )
-        return self.out_proj(out.reshape(b, n, c))
+        ).reshape(b, n, -1)
+        if self.tp is None:
+            return self.out_proj(out)
+        return row_parallel_linear(self.out_proj, out, self.tp)
 
 
 class CLIPMLP(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.act = ACT[cfg.hidden_act]
+        self.tp = None
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+        if self.tp is None:
+            return self.fc2(self.act(self.fc1(x)))
+        return row_parallel_linear(self.fc2, self.act(self.fc1(copy_to_tp(x, self.tp))), self.tp)
 
 
 class CLIPEncoderLayer(nn.Module):
@@ -117,6 +131,8 @@ class CLIPTextModel(nn.Module):
         super().__init__()
         self.config = cfg = config
         self.lora_rank = lora_rank
+        self.tp = None  # with a group: the embedding holds rows [vocab_start, +its rows)
+        self.vocab_start = 0
         vocab = vocab_size_override or cfg.vocab_size
         tm = self.text_model = _Container()
         tm.embeddings = _Container()
@@ -143,6 +159,18 @@ class CLIPTextModel(nn.Module):
         emb.weight.requires_grad_(old.requires_grad)
         self.text_model.embeddings.token_embedding = emb
 
+    def _embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
+        emb = self.token_embedding
+        if self.tp is None:
+            return emb(input_ids)
+        # The rows this rank holds; every other id looks up zeros, and the
+        # sum over the group holds each id's row once.
+        local = input_ids - self.vocab_start
+        inside = (local >= 0) & (local < emb.weight.shape[0])
+        rows = emb(torch.where(inside, local, torch.zeros_like(local)))
+        return reduce_from_tp(torch.where(inside[..., None], rows, torch.zeros_like(rows)),
+                              self.tp)
+
     def forward(self, input_ids: torch.Tensor, use_lora: bool = True,
                 attention_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -150,7 +178,7 @@ class CLIPTextModel(nn.Module):
         tm = self.text_model
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)[None, :]
         dtype = tm.embeddings.position_embedding.weight.dtype  # the compute dtype
-        hidden = (tm.embeddings.token_embedding(input_ids).to(dtype)
+        hidden = (self._embed_tokens(input_ids).to(dtype)
                   + tm.embeddings.position_embedding(pos))
         for layer in tm.encoder.layers:
             hidden = layer(hidden, use_lora, attention_mask)

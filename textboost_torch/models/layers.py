@@ -9,6 +9,11 @@ Each GroupNorm and attention layer carries an `impl`: "auto" takes the CUDA
 kernels (forward, and backward under autograd) where the dispatch rule
 sends the call (the plain versions on the CPU), "math" forces plain torch
 and its autograd.  `set_impl(model, impl)` sets it for a whole model.
+
+`CrossAttention` and `FeedForward` carry a `tp` (parallel/tensor.py): None
+computes the whole block; a `TensorParallel` group, set by `shard_`, runs
+the block on this rank's shard (its heads, its columns of the GEGLU
+halves) with the collectives at its input and output.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from torch import nn
 
 from ..ops.attention import multi_head_attention
 from ..ops.group_norm import group_norm, group_norm_reference
+from ..parallel.tensor import copy_to_tp, row_parallel_linear
 
 
 class GroupNorm(nn.Module):
@@ -55,12 +61,16 @@ class GroupNorm(nn.Module):
 
 
 class LoRALinear(nn.Linear):
-    """nn.Linear with an optional low-rank adapter branch."""
+    """nn.Linear with an optional low-rank adapter branch.  A column-parallel
+    shard (parallel/tensor.py) keeps the whole adapter and takes
+    `lora_rows`, its columns' rows of lora_B, so that the adapter's
+    checkpoint and export do not depend on the split."""
 
     def __init__(self, in_features: int, out_features: int, lora_rank: int = 0,
                  lora_alpha: Optional[float] = None, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
         self.lora_rank = lora_rank
+        self.lora_rows: Optional[slice] = None
         if lora_rank > 0:
             alpha = lora_alpha if lora_alpha is not None else lora_rank
             self.lora_scale = alpha / lora_rank
@@ -81,7 +91,8 @@ class LoRALinear(nn.Linear):
         y = super().forward(x)
         if self.lora_rank > 0 and use_lora:
             a = self.lora_A.weight.to(x.dtype)
-            b = self.lora_B.weight.to(x.dtype)
+            b = self.lora_B.weight
+            b = (b if self.lora_rows is None else b[self.lora_rows]).to(x.dtype)
             y = y + F.linear(F.linear(x, a), b) * self.lora_scale
         return y
 
@@ -161,12 +172,16 @@ class FeedForward(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
+        self.tp = None
         self.net = nn.ModuleList([GEGLU(dim, dim * 4), nn.Identity(), nn.Linear(dim * 4, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for mod in self.net:
-            x = mod(x)
-        return x
+        if self.tp is None:
+            for mod in self.net:
+                x = mod(x)
+            return x
+        x = self.net[1](self.net[0](copy_to_tp(x, self.tp)))
+        return row_parallel_linear(self.net[2], x, self.tp)
 
 
 class CrossAttention(nn.Module):
@@ -178,24 +193,30 @@ class CrossAttention(nn.Module):
                  kv_lora_rank: int = 0):
         super().__init__()
         context_dim = context_dim or dim
-        self.heads = heads
+        self.heads = heads  # this rank's heads when sharded
         self.impl = "auto"
+        self.tp = None
         self.to_q = nn.Linear(dim, dim, bias=False)
         self.to_k = LoRALinear(context_dim, dim, kv_lora_rank, bias=False)
         self.to_v = LoRALinear(context_dim, dim, kv_lora_rank, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.tp is not None:
+            x = copy_to_tp(x, self.tp)
+            context = None if context is None else copy_to_tp(context, self.tp)
         ctx = x if context is None else context
-        b, n, c = x.shape
+        b, n, _ = x.shape
 
         def split(t):
-            return t.view(b, t.shape[1], self.heads, c // self.heads)
+            return t.view(b, t.shape[1], self.heads, t.shape[2] // self.heads)
 
         out = multi_head_attention(
             split(self.to_q(x)), split(self.to_k(ctx)), split(self.to_v(ctx)), impl=self.impl
-        )
-        return self.to_out[0](out.reshape(b, n, c))
+        ).reshape(b, n, -1)
+        if self.tp is None:
+            return self.to_out[0](out)
+        return row_parallel_linear(self.to_out[0], out, self.tp)
 
 
 class BasicTransformerBlock(nn.Module):

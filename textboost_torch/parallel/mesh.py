@@ -1,18 +1,22 @@
-"""Data parallelism over torch.distributed: the `dp` axis of
-textboost_tpu/parallel/mesh.py, as the reference ran it (one torchrun/NCCL
-process per card, train_textboost.py:560-565,918-926,1108).
+"""The (dp, tp) mesh over torch.distributed: the axes of
+textboost_tpu/parallel/mesh.py, one process per card (the reference ran
+one torchrun/NCCL process per card, train_textboost.py:560-565,918-926,1108).
 
-    python -m torch.distributed.run --nproc_per_node 2 -m textboost_torch.train ...
+    python -m torch.distributed.run --nproc_per_node 2 -m textboost_torch.train ... [--mesh_tp 2]
 
-Each rank loads its rows of the global batch (data/loader.py), runs the
-step on them, and `GradReducer` averages what trains over the ranks once
-per micro-step, before the gradient surgery, the clip and AdamW, so that
-every rank applies the same update.  Rank 0 alone writes files.
+The world is laid out as the JAX mesh's `reshape(dp, tp)`: rank =
+dp_index * tp + tp_index.  The tp ranks of one dp index form a
+tensor-parallel group (parallel/tensor.py shards the frozen UNet and text
+encoder over it); they load the same rows and draw the same noise.  Each
+dp index loads its rows of the global batch (data/loader.py), runs the
+step on them, and `GradReducer` averages what trains once per micro-step,
+before the gradient surgery, the clip and AdamW, so that every rank
+applies the same update.  Rank 0 alone writes files.
 
 No `DistributedDataParallel`: it would reduce the whole [vocab, hidden]
 token-embedding gradient (202 MB per step at sd21base), where only the
 LoRA weights, the added embedding rows (and the UNet's LoRA, when it
-trains) change.  Tensor parallelism (`--mesh_tp > 1`) is not ported.
+trains) change.
 """
 from __future__ import annotations
 
@@ -29,8 +33,6 @@ logger = logging.getLogger("textboost_torch")
 
 # What torchrun (python -m torch.distributed.run) sets in each rank's environment.
 LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
-TP_MESSAGE = ("--mesh_tp > 1: multi-card training with tensor parallelism (ROADMAP.md queue "
-              "A8: Data parallel and multi-host, its TP item)")
 
 
 def launched() -> bool:
@@ -87,26 +89,43 @@ def barrier() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
+    """This rank's place in the (dp, tp) layout, and its groups: the ranks
+    of its tp group (one dp index) and of its dp group (one tp index);
+    None where the axis has one rank or no process group exists."""
+
     dp: int
     tp: int
     rank: int
+    dp_index: int = 0
+    tp_index: int = 0
+    tp_group: Optional[dist.ProcessGroup] = dataclasses.field(default=None, compare=False)
+    dp_group: Optional[dist.ProcessGroup] = dataclasses.field(default=None, compare=False)
 
 
 def make_mesh(dp: Optional[int] = None, tp: int = 1, world: Optional[int] = None) -> Mesh:
     """The (dp, tp) layout of `world` processes (default: the launched
-    world); dp defaults to the world.  The JAX trainer shrinks dp to fit
+    world); dp defaults to world // tp.  The JAX trainer shrinks dp to fit
     the batch (textboost_tpu/train/trainer.py:300-307), but launched
-    processes cannot be shrunk, so a mismatch raises."""
-    if tp > 1:
-        raise NotImplementedError(TP_MESSAGE)
+    processes cannot be shrunk, so a mismatch raises.  At tp > 1 under a
+    process group, every rank creates every tp group, then every dp group,
+    in the same order (`new_group` is collective)."""
     world = world_size() if world is None else world
-    dp = dp or world
+    dp = dp or max(world // tp, 1)
     if dp * tp != world:
         raise ValueError(
             f"--mesh_dp {dp} x --mesh_tp {tp} = {dp * tp} processes, but {world} were "
             f"launched: multi-card training runs one process per card (python -m "
             f"torch.distributed.run --nproc_per_node {dp * tp} -m textboost_torch.train ...)")
-    return Mesh(dp=dp, tp=tp, rank=rank())
+    r = rank()
+    groups = {}
+    if tp > 1 and dist.is_initialized():
+        for name, members in (
+                [("tp_group", range(d * tp, (d + 1) * tp)) for d in range(dp)]
+                + [("dp_group", range(t, world, tp)) for t in range(tp)]):
+            group = dist.new_group(list(members))
+            if r in members:
+                groups[name] = group
+    return Mesh(dp=dp, tp=tp, rank=r, dp_index=r // tp, tp_index=r % tp, **groups)
 
 
 class GradReducer:
@@ -115,18 +134,28 @@ class GradReducer:
     averaged in place.  One flat fp32 buffer holds the gradients of
     `params` (the LoRA weights), the added rows `[first_added_id:]` of the
     embedding's gradient and the step's loss scalars; one all_reduce(SUM)
-    over it, then a division by the world size.  Under gloo a CUDA buffer
-    goes through a pinned host copy.  `calls` and `bytes` count the
-    reduces, `milliseconds()` the time of each."""
+    over it, then a division by the world size.  Under tensor parallelism
+    the ranks of a tp group hold equal copies of all of these but the
+    gradients of the `params` in `tp_partial` (the UNet's LoRA on a
+    column-parallel to_k / to_v: each rank holds its heads' part), which
+    are summed over the tp group and averaged over dp: the one world sum,
+    divided by dp.  Under
+    gloo a CUDA buffer goes through a pinned host copy.  `calls` and
+    `bytes` count the reduces, `milliseconds()` the time of each."""
 
     SCALARS = ("den_loss", "kpl", "prior_loss")
 
     def __init__(self, embedding: torch.nn.Parameter, first_added_id: int,
-                 params: Sequence[torch.nn.Parameter]):
+                 params: Sequence[torch.nn.Parameter],
+                 tp_partial: Sequence[torch.nn.Parameter] = (), tp: int = 1):
         self.embedding = embedding
         self.first_added_id = first_added_id
         self.params = list(params)
         self.world = world_size()
+        partial = {id(p) for p in tp_partial} if tp > 1 else set()
+        # Each gradient's divisor, in buffer order (the embedding's rows first).
+        self.divisors = [self.world] + [self.world // tp if id(p) in partial else self.world
+                                        for p in self.params]
         self.calls = 0
         self.bytes = 0
         self._host_ms: List[float] = []
@@ -179,11 +208,11 @@ class GradReducer:
             self._marks.append(marks)
         else:
             self._host_ms.append(1e3 * (time.perf_counter() - t0))
-        flat.div_(self.world)
         offset = 0
-        for g in grads:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        for g, divisor in zip(grads, self.divisors):
+            g.copy_(flat[offset:offset + g.numel()].div_(divisor).view_as(g))
             offset += g.numel()
+        flat[offset:].div_(self.world)
         loss, *rest = flat[offset:]
         self.calls += 1
         self.bytes += flat.numel() * flat.element_size()

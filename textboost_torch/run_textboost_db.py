@@ -11,7 +11,8 @@ subprocess per instance (default), in-process one after the other
 (`--parallel N`).  With more than one card visible (`-g 0,1`, as the
 reference's runner named torchrun's cards), a subprocess job trains over
 them data-parallel under `python -m torch.distributed.run`
-(utils/sweep.py).  Each run dir gets a `cmd.txt` naming the command that
+(utils/sweep.py), and with `--mesh-tp T` each group of T cards splits the
+frozen models tensor-parallel (the cards must divide into such groups).  Each run dir gets a `cmd.txt` naming the command that
 ran (the module, its flags and --device); the JAX runner's copy of the
 training script is not made (the package is the repo's).
 """
@@ -82,7 +83,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--mixing", action="store_true", default=False)
     parser.add_argument("--desc", type=str, default=None)
     parser.add_argument("--data-dir", type=str, default="datasets/dreambooth_n1_train")
-    parser.add_argument("--mesh-tp", type=int, default=1)
+    parser.add_argument("--mesh-tp", type=int, default=1,
+                        help="tensor parallel: split the frozen UNet and text encoder over "
+                        "groups of T cards (a subprocess job over a multiple of T cards)")
     parser.add_argument("--sequential", action="store_true",
                         help="run in-process instead of one subprocess per instance")
     parser.add_argument("--parallel", type=int, default=1,

@@ -5,9 +5,8 @@ the same `TrainConfig` (flag-for-flag parity with the reference's
 
 `unsupported_flags` names the flags the port does not serve yet; the
 trainer raises NotImplementedError for each at setup, naming the ROADMAP
-item, so none is silently ignored (`--mesh_tp > 1` is refused by
-parallel/mesh.py::make_mesh, as is a `--mesh_dp` other than the launched
-world).
+item, so none is silently ignored (parallel/mesh.py::make_mesh refuses a
+`--mesh_dp` x `--mesh_tp` layout other than the launched world).
 
 Reference defaults are preserved, including the quirky ones:
 `--disable_weighted_sample` defaults True (the weighted sampler is dead in

@@ -40,14 +40,20 @@ def generate_prior_images(
     num_inference_steps: int = 25,
     guidance_scale: float = 7.5,
     seed: int = 0,
+    write: bool = True,
 ) -> int:
     """Top up `class_images_dir` to `num_prior_images` images with
-    `pipeline` (a TextToImagePipeline).  Returns the number generated."""
+    `pipeline` (a TextToImagePipeline).  Returns the number generated.
+    With `write` False the images are sampled and not saved: a
+    tensor-parallel peer's part of the sampling.  It counts the dir before
+    its first sampling call, which the writer cannot finish without it, so
+    both count the same images."""
     from PIL import Image
 
     class_images_dir = Path(class_images_dir)
-    class_images_dir.mkdir(parents=True, exist_ok=True)
-    cur = len(list(class_images_dir.iterdir()))
+    if write:
+        class_images_dir.mkdir(parents=True, exist_ok=True)
+    cur = len(list(class_images_dir.iterdir())) if class_images_dir.is_dir() else 0
     if cur >= num_prior_images:
         return 0
     prompt = f"a photo of {class_token}"
@@ -60,9 +66,11 @@ def generate_prior_images(
         images = pipeline(prompts, num_inference_steps=num_inference_steps,
                           guidance_scale=guidance_scale, generator=generator)
         for i, arr, caption in zip(idxs, images, prompts):
+            made += 1
+            if not write:
+                continue
             img = Image.fromarray(arr)
             digest = hashlib.sha1(img.tobytes()).hexdigest()  # noqa: S324 — a name, not security
             img.save(os.path.join(class_images_dir,
                                   f"{i + cur}-{digest}-{caption.replace(' ', '_')}.jpg"))
-            made += 1
     return made

@@ -21,13 +21,19 @@ and executes each batch's augmentation plans on the device
 (data/device_augment.py); `--validation_scheduler` picks the validation
 rounds' sampler (samplers/solvers.py::get_sampler).
 
-Under a torchrun launch (parallel/mesh.py) each rank trains on its rows of
-the --train_batch_size global batch: its slice of the loaders' global
-batch and of the global draws, one all-reduce of the trainable gradients
-per micro-step, the same update everywhere.  Rank 0 alone generates the
-class-prior images (the others wait at a barrier), and writes the log,
-metrics, trackers, profiler trace, checkpoints, validation grids and the
-export; every rank restores the same checkpoint on resume.
+Under a torchrun launch (parallel/mesh.py) each dp index trains on its
+rows of the --train_batch_size global batch: its slice of the loaders'
+global batch and of the global draws, one all-reduce of the trainable
+gradients per micro-step, the same update everywhere.  With --mesh_tp > 1
+the frozen UNet and text encoder are split over each tp group
+(parallel/tensor.py), whose ranks take the same rows and draws; the
+trainable text encoder and the UNet's LoRA stay whole on every rank, so
+that checkpoints, export and resume do not change.  The ranks of rank 0's
+tp group generate the class-prior images and run the validation rounds
+together (the other ranks wait at a barrier, or in the next step's
+reduce); rank 0 alone writes the images, the log, metrics, trackers,
+profiler trace, checkpoints, validation grids and the export; every rank
+restores the same checkpoint on resume.
 
 Flags the port does not serve yet raise NotImplementedError here
 (train/config.py::unsupported_flags).
@@ -70,6 +76,7 @@ from ..models.pretrained import load_models
 from ..models.textboost import load_null_embedding_asset
 from ..ops.schedule import NoiseSchedule
 from ..parallel.mesh import GradReducer, barrier, is_main, make_mesh
+from ..parallel.tensor import TensorParallel, shard_, tp_partial_parameters, tp_rule_report
 from ..pipelines.text_to_image import TextToImagePipeline
 from ..samplers.solvers import get_sampler
 from ..tokens.surgery import OBJECT_AUGMENTATIONS, STYLE_AUGMENTATIONS, plan_token_addition
@@ -140,16 +147,16 @@ def plan_tokens(tokenizer, concepts: List[Dict], initializer_token: str, *,
     return plan
 
 
-def local_batch_size(config: TrainConfig, world: int) -> int:
-    """Each rank's rows of the --train_batch_size global batch.  Raises
-    when the world does not divide the batch (textboost_tpu/train/
-    trainer.py:574-583), and for --augment_device at world > 1 (:603)."""
-    if world > 1 and config.augment_device:
+def local_batch_size(config: TrainConfig, dp: int) -> int:
+    """Each dp index's rows of the --train_batch_size global batch.  Raises
+    when dp does not divide the batch (textboost_tpu/train/trainer.py:
+    574-583), and for --augment_device at dp > 1 (:603)."""
+    if dp > 1 and config.augment_device:
         raise ValueError("--augment_device is single-process only")
-    if config.train_batch_size % world:
+    if config.train_batch_size % dp:
         raise ValueError(f"train_batch_size ({config.train_batch_size}) must be divisible by "
-                         f"the process count ({world})")
-    return config.train_batch_size // world
+                         f"the process count ({dp})")
+    return config.train_batch_size // dp
 
 
 class Trainer:
@@ -157,6 +164,10 @@ class Trainer:
         self.mesh = make_mesh(config.mesh_dp, config.mesh_tp)
         self.local_batch_size = local_batch_size(config, self.mesh.dp)
         self.is_main = is_main()
+        # Rank 0's tp group samples the prior images and validation grids.
+        self.in_main_group = self.mesh.dp_index == 0
+        self.tp = (TensorParallel(self.mesh.tp_group, self.mesh.tp, self.mesh.tp_index)
+                   if self.mesh.tp > 1 else None)
         problems = unsupported_flags(config)
         if config.attention_impl not in ATTENTION_IMPLS:
             problems.append(f"--attention_impl {config.attention_impl}: the port takes "
@@ -261,6 +272,17 @@ class Trainer:
 
         # Frozen reference encoder, captured BEFORE token surgery (:650).
         self.frozen_te = copy.deepcopy(te)
+        if self.tp is not None:
+            # The frozen encoder and the UNet split over the tp group; the
+            # trainable encoder and the VAE stay whole (:668-676).
+            for name, model in (("frozen text encoder", self.frozen_te), ("UNet", unet)):
+                counts, whole = tp_rule_report(model, self.mesh.tp)
+                shard_(model, self.tp)
+                logger.info("tensor parallel over %d ranks (dp %d x tp %d), %s: %d weights "
+                            "split (%s), %d left whole: %s", dist.get_world_size(),
+                            self.mesh.dp, self.mesh.tp, name, sum(counts.values()),
+                            {k: n for k, n in counts.items() if n}, len(whole), sorted(whole))
+            mark("frozen models split")
 
         # ---- embedding growth, norm stats, null embedding ----
         with torch.no_grad():
@@ -312,13 +334,14 @@ class Trainer:
 
         # ---- class-prior images (utils.py:50-114), from the base modules ----
         # (`--prior_generation_precision` is accepted and unused, as in JAX.)
-        # Rank 0 generates; the others read the dir after the barrier.
-        if cfg.with_image_prior and self.is_main:
+        # Rank 0's tp group samples and rank 0 writes; the others read the
+        # dir after the barrier.
+        if cfg.with_image_prior and self.in_main_group:
             made = generate_prior_images(
                 TextToImagePipeline(spec, self.tokenizer, self.frozen_te, unet, vae,
                                     device=dev, freeze=False),
                 cfg.class_data_dir, cfg.class_token, cfg.num_prior_images,
-                sample_batch_size=cfg.sample_batch_size, seed=cfg.seed)
+                sample_batch_size=cfg.sample_batch_size, seed=cfg.seed, write=self.is_main)
             if made:
                 logger.info("Generated %d class prior images", made)
         if cfg.with_image_prior:
@@ -340,7 +363,7 @@ class Trainer:
             raise ValueError(f"Unknown augment mode: {cfg.augment}")
         concepts_for_ds = [{**c, "instance_token": self.concept_tokens[c["instance_token"]]}
                            for c in self.concepts]
-        shard_id, num_shards = process_shard_info()
+        shard_id, num_shards = process_shard_info(tp=self.mesh.tp)
         dataset = TextBoostDataset(
             concepts_for_ds, self.tokenizer, num_instance=cfg.num_samples,
             template=cfg.template,
@@ -399,7 +422,8 @@ class Trainer:
         unet_lora = lora_parameters(unet) if self.train_unet else []
         # One all-reduce per micro-step under a launch (at world 1 too).
         self.reducer = (GradReducer(te.token_embedding.weight, first_added_id,
-                                    lora_parameters(te) + unet_lora)
+                                    lora_parameters(te) + unet_lora,
+                                    tp_partial=tp_partial_parameters(unet), tp=self.mesh.tp)
                         if dist.is_initialized() else None)
         if self.reducer is not None:
             emb_bytes = te.token_embedding.weight.numel() * 4
@@ -475,9 +499,10 @@ class Trainer:
 
     def _draws(self) -> Dict[str, torch.Tensor]:
         """The global batch's draws, from the generator that is equal on
-        every rank, and this rank's rows of them: instance rows
-        [r*L, (r+1)*L), then with the image prior the class rows
-        [B + r*L, B + (r+1)*L) (the class samples follow the instance ones)."""
+        every rank, and this dp index d's rows of them (a tp group's ranks
+        take the same): instance rows [d*L, (d+1)*L), then with the image
+        prior the class rows [B + d*L, B + (d+1)*L) (the class samples
+        follow the instance ones)."""
         cfg, local = self.config, self.local_batch_size
         halves = 2 if cfg.with_image_prior else 1
         draws = sample_draws(self.generator, batch_size=cfg.train_batch_size * halves,
@@ -485,7 +510,7 @@ class Trainer:
                              weighted_timesteps=self.step_config.weighted_timesteps)
         if local == cfg.train_batch_size:
             return draws
-        starts = [h * cfg.train_batch_size + self.mesh.rank * local for h in range(halves)]
+        starts = [h * cfg.train_batch_size + self.mesh.dp_index * local for h in range(halves)]
         return {k: torch.cat([v[s:s + local] for s in starts]) for k, v in draws.items()}
 
     def _count_augmentations(self, prompts: List[str]) -> None:
@@ -514,6 +539,7 @@ class Trainer:
         losses: List[torch.Tensor] = []  # each step's, fetched at the end
         accum = max(cfg.gradient_accumulation_steps, 1)
         loop_t = {"dispatch_ms": 0.0, "host_wait_ms": 0.0, "h2d_ms": 0.0}
+        tp_steps = []  # the tp collectives' call range of each step
         window_start = step
         profiler = None
         t0 = time.perf_counter()
@@ -528,6 +554,7 @@ class Trainer:
                 profiler = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
                 profiler.start()
+            tp_first = self.tp.calls if self.tp is not None else 0
             for _ in range(accum):
                 batch = next_batch
                 self._count_augmentations(next_prompts)
@@ -544,6 +571,8 @@ class Trainer:
                 loop_t["h2d_ms"] += (t3 - t2) * 1000
             step += 1
             losses.append(metrics["loss"])
+            if self.tp is not None:
+                tp_steps.append((tp_first, self.tp.calls))
             if profiler is not None and step - self.start_step == 15:
                 profiler.stop()
                 os.makedirs(cfg.profile_dir, exist_ok=True)
@@ -563,11 +592,9 @@ class Trainer:
                 if step % 100 == 0:
                     last_metrics.update(device_memory_stats(self.device))
                 self._log_metrics(step, last_metrics)
-            if not self.is_main:
-                continue
-            if cfg.checkpointing_steps and step % cfg.checkpointing_steps == 0:
+            if self.is_main and cfg.checkpointing_steps and step % cfg.checkpointing_steps == 0:
                 self.save(step)
-            if (cfg.validation_prompts and cfg.validation_steps
+            if (self.in_main_group and cfg.validation_prompts and cfg.validation_steps
                     and step % cfg.validation_steps == 0):
                 self.run_validation(step)
         if profiler is not None:
@@ -587,6 +614,8 @@ class Trainer:
                            "all_reduce_ms_by_call": ms})
             logger.info("all-reduce: %d calls, %d bytes each, median %.3f ms (%.3f-%.3f)",
                         r.calls, r.bytes // r.calls, float(np.median(ms)), min(ms), max(ms))
+        if tp_steps:
+            result.update(self._tp_by_step(tp_steps))
         # The writers' time overlapped the loop; they land before the run
         # is declared done (:1016-1022).
         self.join_checkpoint_writers()
@@ -601,6 +630,24 @@ class Trainer:
                        for key, values in self.timings.items() if values})
         result.update({f"aug:{k}": float(n) for k, n in self.augmentation_counts.items()})
         return result
+
+    def _tp_by_step(self, tp_steps) -> Dict[str, List[float]]:
+        """The tp collectives of each step (those of validation rounds and
+        set-up apart): calls forward and backward, bytes and ms."""
+        tp, ms = self.tp, self.tp.milliseconds()
+        out = {key: [] for key in ("tp_fwd_calls_by_step", "tp_bwd_calls_by_step",
+                                   "tp_bytes_by_step", "tp_ms_by_step")}
+        for a, b in tp_steps:
+            out["tp_fwd_calls_by_step"].append(tp.kinds[a:b].count("fwd"))
+            out["tp_bwd_calls_by_step"].append(tp.kinds[a:b].count("bwd"))
+            out["tp_bytes_by_step"].append(sum(tp.bytes[a:b]))
+            out["tp_ms_by_step"].append(sum(ms[a:b]))
+        logger.info("tensor-parallel all-reduces a step: %d forward + %d backward, %d bytes, "
+                    "median %.3f ms (%.3f-%.3f); %d calls in all", out["tp_fwd_calls_by_step"][-1],
+                    out["tp_bwd_calls_by_step"][-1], out["tp_bytes_by_step"][-1],
+                    float(np.median(out["tp_ms_by_step"])), min(out["tp_ms_by_step"]),
+                    max(out["tp_ms_by_step"]), tp.calls)
+        return out
 
     # ------------------------------------------------------------------
     def save(self, step: int) -> str:
@@ -679,7 +726,9 @@ class Trainer:
         seeded with --seed, in eval mode, then the modules' modes back) and
         write a (prompts x images) grid to validation_{step}.jpg.  The grid
         and the trackers' images are written on a writer thread, joined
-        before the next round and at the end of train()."""
+        before the next round and at the end of train().  Every rank of
+        rank 0's tp group samples (the sharded UNet needs them all); rank 0
+        alone writes."""
         cfg = self.config
         self.join_validation_writers()
         pipe = self._validation_pipe()
@@ -699,6 +748,8 @@ class Trainer:
                 m.train(mode)
         self.timings["validation"].append(time.perf_counter() - t0)
         path = os.path.join(cfg.output_dir, f"validation_{step}.jpg")
+        if not self.is_main:
+            return path
         n = max(cfg.num_validation_images, 1)
 
         def run():

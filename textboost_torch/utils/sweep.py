@@ -12,7 +12,8 @@ textboost_torch.train <flags> --device <device>`; a subprocess job spans
 the cards the runner sees (its `-g` list, else every visible card) as one
 data-parallel launch, `python -m torch.distributed.run --standalone
 --nproc_per_node=gcd(cards, batch)`, as the reference's runner launched
-torchrun over `-g`'s cards.
+torchrun over `-g`'s cards; with the DB runner's `--mesh-tp T`, T·gcd(cards
+/ T, batch) ranks, each tp group of T splitting the frozen models.
 """
 from __future__ import annotations
 
@@ -53,10 +54,14 @@ def visible_cards(gpus: Optional[str], device: str) -> List[str]:
     return [str(i) for i in range(torch.cuda.device_count())]
 
 
-def ranks_per_job(cards: int, batch: int) -> int:
-    """The processes of one subprocess job: one per card, as many as divide
-    the global batch."""
-    return math.gcd(cards, batch) if cards > 1 else 1
+def ranks_per_job(cards: int, batch: int, tp: int = 1) -> int:
+    """The processes of one subprocess job: one per card, tp per group, as
+    many groups as divide the global batch.  Raises when the cards do not
+    divide into tp groups."""
+    if tp > 1 and (cards < tp or cards % tp):
+        raise ValueError(f"--mesh-tp {tp} splits the frozen models over groups of {tp} cards, "
+                         f"but {cards} cards are visible: name a multiple of {tp} with -g")
+    return tp * math.gcd(cards // tp, batch) if cards > 1 else 1
 
 
 def archiver(outdir: str, device: str, nproc: int = 1):
@@ -85,7 +90,8 @@ def run_sweep(args, jobs: Sequence[Tuple[str, List[str]]], outdir: str) -> None:
         launch_waves(jobs, args.parallel, outdir, archiver(outdir, args.device), device=args.device,
                      dry_run=args.dry_run, cards=cards)
         return
-    nproc = 1 if args.sequential else ranks_per_job(len(cards), args.batch_size)
+    nproc = (1 if args.sequential
+             else ranks_per_job(len(cards), args.batch_size, getattr(args, "mesh_tp", 1)))
     archive = archiver(outdir, args.device, nproc)
     env = {"CUDA_VISIBLE_DEVICES": ",".join(cards)} if args.gpu and cards else {}
     for name, cmd in jobs:
