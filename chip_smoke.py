@@ -106,7 +106,24 @@ with the launch counts set to 0 just before and read just after:
     derived on the meta device at the ranks' local heads, and its
     collectives a step those counted there; K1/K2 are held at the new
     (8, 1024, 5, 64).  The ranks' program is `--tp-rank DIR -- FLAGS`
-    (`--dp-rank` with a digest of the trainable weights after each step).
+    (`--dp-rank` with a digest of the trainable weights after each step);
+  * the native formats and data-parallel generation (`native_dp_phase`):
+    the snapshot phase's seeded sd21base weights saved by `save_snapshot`
+    as the JAX package's native snapshot (spec.json and fp32 flax trees,
+    through the port's msgpack codec) and read back bit for bit; 2 train
+    steps with the paper's flags from it and from the diffusers snapshot
+    (the same losses and exports, bit for bit) and 4 seeds sampled from
+    each (the same images); then, as two ranks sharing the card over gloo
+    under `python -m torch.distributed.run`, `textboost_torch.inference`
+    (seeds 0-3, two a rank) and `textboost_torch.eval` (one instance, one
+    seed, --batch-size 16 in sub-chunks of 8, CLIP-T, CLIP-I and DINO read
+    from flax trees the port's codec wrote from seeded published
+    checkpoints), each rank's images held bit for bit, and the CSV, to one
+    process over the same sub-batch (that process's runs are the same rank
+    program alone, `--gen-rank DIR -- JOBS`), rank 1 writing nothing;
+    against all four seeds in one batch the gap is reported.  Each run's
+    launches and GroupNorm calls must be those derived from the config,
+    and every kernel is held at every shape the phase gave it.
 
 Before them: one sd15 UNet forward and one sd15 train step (batch 2) with
 the kernels and with plain math.  The GroupNorm kernels are held against
@@ -130,6 +147,7 @@ plain references are what they say.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -996,7 +1014,7 @@ def group_norm_bound(shape, groups: int, backward: bool) -> dict:
 L2_ROTATE_BYTES = 100 * 2**20  # inputs rotated over twice the 50 MB L2 for the L2-cold times
 
 
-def group_norm_table(gen, keys, launches: dict, backward: bool):
+def group_norm_table(gen, keys, launches: dict, backward: bool, timed: bool = True):
     """K3 (or K4, `backward`) at each (shape, groups, eps, silu) of `keys`,
     bf16: against its plain version under the GroupNorm limits, two calls
     bit-identical; its plan; its time L2-warm (the same inputs again) and
@@ -1007,6 +1025,8 @@ def group_norm_table(gen, keys, launches: dict, backward: bool):
     `aten.native_group_norm_backward`, the input gradient F.group_norm's
     autograd runs; neither has the SiLU); its bound; for a streamed plan the
     bytes it reads twice by design.  `launches[key]` is {path: launches}.
+    Without `timed` the kernel is held (both plans where there are two) and
+    no time is taken (the rows' times are None).
     Returns ({key: row}, max |error|)."""
     import itertools
 
@@ -1046,7 +1066,8 @@ def group_norm_table(gen, keys, launches: dict, backward: bool):
             ga16, be16 = ga.to(bf16), be.to(bf16)
             _, lmu, lrs = torch.ops.aten.native_group_norm(x, ga16, be16, b, c, hw, groups, eps)
             library_ms = cuda_ms(lambda: torch.ops.aten.native_group_norm_backward(
-                dy, x, lmu, lrs, ga16, b, c, hw, groups, [True, False, False]), 10)
+                dy, x, lmu, lrs, ga16, b, c, hw, groups, [True, False, False]), 10) \
+                if timed else None
             del lmu, lrs
         else:
             ry, rmu, rrs = gn.group_norm_reference(x, ga, be, groups, eps, silu)
@@ -1064,7 +1085,8 @@ def group_norm_table(gen, keys, launches: dict, backward: bool):
 
             inputs = (x,)
             ga16, be16 = ga.to(bf16), be.to(bf16)
-            library_ms = cuda_ms(lambda: F.group_norm(x, groups, ga16, be16, eps), 10)
+            library_ms = cuda_ms(lambda: F.group_norm(x, groups, ga16, be16, eps), 10) \
+                if timed else None
         out, again = kernel(*inputs), kernel(*inputs)
         torch.cuda.synchronize()
         pairs = zip(out, again) if isinstance(out, tuple) else [(out, again)]
@@ -1076,7 +1098,7 @@ def group_norm_table(gen, keys, launches: dict, backward: bool):
             raise AssertionError(f"two calls of {tag} on the same inputs differ at {key}")
         worst = max(worst, err.max().item())
         del out, again, err
-        warm = cuda_ms(lambda: kernel(*inputs), 10)
+        warm = cuda_ms(lambda: kernel(*inputs), 10) if timed else None
         shared_ms = None
         if plan.regs:
             shared = gn.split_span(plan.span, plan.elem_bytes, plan.tensors, plan.vector,
@@ -1086,24 +1108,29 @@ def group_norm_table(gen, keys, launches: dict, backward: bool):
                 if not check(kernel(*inputs))[1]:
                     raise AssertionError(f"{tag} in shared memory disagrees with its plain "
                                          f"version at {key}")
-                shared_ms = cuda_ms(lambda: kernel(*inputs), 10)
+                if timed:
+                    shared_ms = cuda_ms(lambda: kernel(*inputs), 10)
             finally:
                 gn.plan_group_norm = planner
-        in_bytes = sum(t.numel() * t.element_size() for t in inputs)
-        copies = [tuple(t.clone() for t in inputs)
-                  for _ in range(max(2, -(-L2_ROTATE_BYTES // in_bytes)))]
-        rotation = itertools.cycle(copies)
-        cold = cuda_ms(lambda: kernel(*next(rotation)), max(10, len(copies)))
-        del copies, rotation
+        cold = None
+        if timed:
+            in_bytes = sum(t.numel() * t.element_size() for t in inputs)
+            copies = [tuple(t.clone() for t in inputs)
+                      for _ in range(max(2, -(-L2_ROTATE_BYTES // in_bytes)))]
+            rotation = itertools.cycle(copies)
+            cold = cuda_ms(lambda: kernel(*next(rotation)), max(10, len(copies)))
+            del copies, rotation
         rows[key] = {"plan": plan, "ms": warm, "cold_ms": cold, "shared_memory_ms": shared_ms,
                      "library_ms": library_ms, **group_norm_bound(shape, groups, backward),
                      "launches": launches[key]}
         shared_note = "" if shared_ms is None else f" (in shared memory {shared_ms:.4f})"
+        times = (f"ms {warm:.4f} warm{shared_note} {cold:.4f} cold; " if timed else
+                 "held (both plans where there are two), not timed; ")
         print(f"[{tag}] {'x'.join(map(str, shape))} G={groups} eps={eps:g} silu={int(silu)}: "
-              f"k={plan.cluster} {holds(plan)} {plan.threads} thr; ms {warm:.4f} warm"
-              f"{shared_note} {cold:.4f} cold; bound_ms {rows[key]['bound_ms']:.4f} "
-              f"({rows[key]['bytes']} bytes); {library} {library_ms:.4f}; launches "
-              f"{launches[key]}", flush=True)
+              f"k={plan.cluster} {holds(plan)} {plan.threads} thr; {times}bound_ms "
+              f"{rows[key]['bound_ms']:.4f} ({rows[key]['bytes']} bytes); "
+              + (f"{library} {library_ms:.4f}; " if timed else "")
+              + f"launches {launches[key]}", flush=True)
         if plan.streamed:
             print(f"[{tag} plan] {'x'.join(map(str, shape))}: streamed, re-reads "
                   f"{plan.reread_bytes(b, groups)} bytes by design (the plan's arithmetic, "
@@ -2221,7 +2248,8 @@ def vqa_gaps(logits, reference, yes_id: int) -> dict:
     return out
 
 
-def write_scorer_weights(root: str, dev, clip_cfg=None, vit_cfg=None, t5_cfg=None) -> dict:
+def write_scorer_weights(root: str, dev, clip_cfg=None, vit_cfg=None, t5_cfg=None,
+                         vqa: bool = True) -> dict:
     """A scorer-weights dir in the published torch layouts, from seeded
     weights, by default at the published widths: `clip/` a transformers
     CLIPModel dir (ViT-L/14-336: fp32 model.safetensors with the
@@ -2233,7 +2261,7 @@ def write_scorer_weights(root: str, dev, clip_cfg=None, vit_cfg=None, t5_cfg=Non
     model.safetensors.index.json; the untied head's rows relabelled by
     `favour_yes_`, read back through the port's scorer), `tokenizer.json` and
     `config.json` (yes_token_id and the geometry that differs from
-    clip-flant5-xxl's).
+    clip-flant5-xxl's); without `vqa`, `clip` and `dino` alone.
     Returns the bytes written per part."""
     import torch
 
@@ -2264,6 +2292,9 @@ def write_scorer_weights(root: str, dev, clip_cfg=None, vit_cfg=None, t5_cfg=Non
     del dino
     state["mask_token"] = torch.zeros(1, vit_cfg.hidden_size)
     torch.save(state, os.path.join(root, "dino"))
+    parts = ("clip", "dino") + (("vqa",) if vqa else ())
+    if not vqa:
+        return _part_bytes(root, parts)
 
     vqa = os.path.join(root, "vqa")
     vision = seeded(lambda: CLIPVisionModel(vis), dev, f32, SCORER_SEED + 2)
@@ -2309,9 +2340,14 @@ def write_scorer_weights(root: str, dev, clip_cfg=None, vit_cfg=None, t5_cfg=Non
     del state
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    return _part_bytes(root, parts)
+
+
+def _part_bytes(root: str, parts) -> dict:
+    """{part: bytes on disk} of files or dirs under `root`."""
     return {part: sum(p.stat().st_size for p in Path(root, part).rglob("*") if p.is_file())
             if Path(root, part).is_dir() else Path(root, part).stat().st_size
-            for part in ("clip", "dino", "vqa")}
+            for part in parts}
 
 
 def benchmark_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
@@ -3206,6 +3242,31 @@ def run_launch(argv, what: str, timeout_s: float = DP_LAUNCH_TIMEOUT_S) -> str:
     return out
 
 
+def record_writes(root: str) -> list:
+    """From now on, every path under `root` (relative to it) that this
+    process opens for writing, makes, renames or removes, seen by an audit
+    hook, is appended to the list returned."""
+    writes = []
+    write_flags = os.O_WRONLY | os.O_RDWR | os.O_CREAT
+
+    def audit(event, args):
+        if event == "open":
+            path, mode, flags = args
+            writing = ((isinstance(mode, str) and any(c in mode for c in "wax+"))
+                       or (isinstance(flags, int) and flags & write_flags))
+        elif event in ("os.mkdir", "os.rename", "os.remove", "shutil.rmtree"):
+            path, writing = args[0], True
+        else:
+            return
+        if writing and isinstance(path, (str, bytes, os.PathLike)):
+            full = os.path.abspath(os.fsdecode(path))
+            if full == root or full.startswith(root + os.sep):
+                writes.append(os.path.relpath(full, root))
+
+    sys.addaudithook(audit)
+    return writes
+
+
 def dp_rank(json_dir: str, argv, digest: bool = False) -> int:
     """The program of each process `dp_phase` and `tp_phase` launch
     (`python chip_smoke.py --dp-rank DIR -- FLAGS`, alone or under python -m
@@ -3228,23 +3289,6 @@ def dp_rank(json_dir: str, argv, digest: bool = False) -> int:
     rank = int(os.environ.get("RANK", "0"))
     output_dir = os.path.abspath(next(a.split("=", 1)[1] for a in argv
                                       if a.startswith("--output_dir=")))
-    writes = []
-    write_flags = os.O_WRONLY | os.O_RDWR | os.O_CREAT
-
-    def audit(event, args):
-        if event == "open":
-            path, mode, flags = args
-            writing = ((isinstance(mode, str) and any(c in mode for c in "wax+"))
-                       or (isinstance(flags, int) and flags & write_flags))
-        elif event in ("os.mkdir", "os.rename", "os.remove", "shutil.rmtree"):
-            path, writing = args[0], True
-        else:
-            return
-        if writing and isinstance(path, (str, bytes, os.PathLike)):
-            full = os.path.abspath(os.fsdecode(path))
-            if full == output_dir or full.startswith(output_dir + os.sep):
-                writes.append(os.path.relpath(full, output_dir))
-
     digests = []
 
     def weights_digest(call, state, batch, metrics):
@@ -3254,7 +3298,7 @@ def dp_rank(json_dir: str, argv, digest: bool = False) -> int:
         flat = torch.cat([p.detach().reshape(-1).float() for p in parts]).cpu().numpy()
         digests.append(hashlib.sha1(flat.tobytes()).hexdigest())
 
-    sys.addaudithook(audit)
+    writes = record_writes(output_dir)
     tr = instrumented_train(argv, on_step=weights_digest if digest else None)
     ev = tr["events"]
     step_ms = [ev[s - 2].elapsed_time(ev[s - 1]) for s in range(2, len(ev) + 1)]
@@ -3809,6 +3853,416 @@ def tp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     }
 
 
+# The native snapshot and data-parallel generation at sd21base
+# (`native_dp_phase`): the snapshot phase's seeded diffusers snapshot saved as
+# the JAX package's native layout and served from it; then inference and the
+# eval over two ranks sharing the card (gloo), each held to one-process runs
+# over the same sub-batch.
+NATIVE_STEPS = 2  # train steps from each snapshot dir
+GEN_SEEDS = (0, 1, 2, 3)
+GEN_RANKS = 2  # sharing the one card over gloo, as the dp phase's ranks
+GEN_BATCH = 16  # the eval's --batch-size: sub-chunks of 8 a rank
+GEN_INSTANCE = "teapot"  # the instance the eval samples (one seed, 25 prompts)
+
+
+def gen_rank(json_dir: str, jobs_path: str) -> int:
+    """The program of each process `native_dp_phase` launches (`python
+    chip_smoke.py --gen-rank DIR -- JOBS`, alone or under python -m
+    torch.distributed.run): joins the launch's process group when there is
+    one, then runs each job of the JSON file JOBS ({"watch": dir, "jobs":
+    [[entry, argv], ...]}, entry `inference` or `eval`) through the entry
+    point's `main` under the launch counts (`kernel_calls`), and writes this
+    rank's numbers into DIR/rank{RANK}.json: per job its launches, the
+    prompts of each sampling call and its seconds; the kernel shapes; every
+    path it opened for writing or made under `watch` (an audit hook).  An
+    inference job's images (rank 0's, gathered) go to DIR/rank0_job{i}.npy."""
+    import numpy as np
+    import torch
+
+    from textboost_torch import inference
+    from textboost_torch.eval import __main__ as eval_cli
+    from textboost_torch.parallel import mesh
+    from textboost_torch.pipelines.text_to_image import TextToImagePipeline
+
+    with open(jobs_path) as f:
+        spec = json.load(f)
+    writes = record_writes(os.path.abspath(spec["watch"]))
+    images, batches = [], []
+    real_generate, real_call = inference.generate, TextToImagePipeline.__call__
+
+    def generate(args):
+        images.append(real_generate(args))
+        return images[-1]
+
+    def call(self, prompts, *args, **kwargs):
+        batches.append(len(prompts))
+        return real_call(self, prompts, *args, **kwargs)
+
+    inference.generate, TextToImagePipeline.__call__ = generate, call
+    shapes = {name: collections.Counter() for name in ("flash", "flash_bwd", "gn", "gn_bwd")}
+    jobs = []
+    with mesh.distributed("cuda"):
+        rank = mesh.rank()
+        for i, (entry, argv) in enumerate(spec["jobs"]):
+            images.clear()
+            batches.clear()
+            with kernel_calls(f"the {entry} job") as rec:
+                t0 = time.perf_counter()
+                if entry == "inference":
+                    inference.main(inference.parse_args(argv))
+                else:
+                    eval_cli.main(argv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            for name, c in rec["shapes"].items():
+                shapes[name].update(c)
+            jobs.append({"entry": entry, "launches": rec["launches"], "batches": list(batches),
+                         "s": seconds})
+            if images and images[0] is not None:
+                np.save(os.path.join(json_dir, f"rank{rank}_job{i}.npy"), images[0])
+        mesh.barrier()
+    out = {"rank": rank, "jobs": jobs, "writes": sorted(set(writes)),
+           "shapes": {k: [[repr(key), n] for key, n in c.items()] for k, c in shapes.items()},
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    with open(os.path.join(json_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def generation_calls(batches) -> dict:
+    """The kernel launches and GroupNorm calls derived from the config at
+    sd21base for sampling calls of `batches` prompts (25 steps, CFG)."""
+    from textboost_torch.models.configs import get_spec
+
+    flash, gn = expected_launches(get_spec("sd21base"), 25)
+    calls = collections.Counter()
+    for n in batches:
+        c = group_norm_calls("sd21base", unet_batch=2 * n, decode_batch=n)
+        calls.update({key: 25 * m for key, m in c["unet"].items()})
+        calls.update(c["decode"])
+    return {"launches": {"flash": flash * len(batches), "flash_bwd": 0,
+                         "gn": gn * len(batches), "gn_bwd": 0}, "gn": calls}
+
+
+def native_dp_phase(gen, card: dict, work: str, smi: str, held: dict, snap: str) -> dict:
+    """The JAX package's native formats and data-parallel generation at
+    sd21base (see the module docstring): the seeded diffusers snapshot
+    `snap` saved as a native snapshot and read back bit for bit; training
+    and sampling from it against the diffusers dir; inference and the eval
+    over two ranks sharing the card against one-process runs over the same
+    sub-batch, the eval's CLIP and DINO read from flax trees the port wrote;
+    every kernel held at every shape the phase gave it."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from textboost_torch.eval import scorer_weights
+    from textboost_torch.models.configs import get_spec
+    from textboost_torch.models.pretrained import PARTS, load_models, save_snapshot
+    from textboost_torch.utils import msgpack
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    per_step = dict(zip(("flash", "flash_bwd", "gn", "gn_bwd"),
+                        expected_train_launches(get_spec("sd21base"))))
+    part_s = {}
+
+    # a. the native snapshot: saved, then read back bit for bit ------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    source = load_models(snap, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    load_diffusers_s = time.perf_counter() - t0
+    native = os.path.join(work, "native_sd21base")
+    t0 = time.perf_counter()
+    save_snapshot(source, native)
+    save_s = time.perf_counter() - t0
+    shutil.copytree(os.path.join(snap, "tokenizer"), os.path.join(native, "tokenizer"))
+    part_bytes = {p: os.path.getsize(os.path.join(native, f"{p}.msgpack")) for p in PARTS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = load_models(native, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    load_native_s = time.perf_counter() - t0
+    compared = 0
+    for part in PARTS:
+        a, b = getattr(source, part).state_dict(), getattr(back, part).state_dict()
+        if a.keys() != b.keys():
+            raise AssertionError(f"the native {part} holds other keys than its source")
+        for key in a:
+            if not torch.equal(a[key], b[key]):
+                raise AssertionError(f"the native snapshot's {part} {key} is not its source")
+            compared += 1
+    if back.spec.name != "sd21base":
+        raise AssertionError(f"the native snapshot loaded as {back.spec.name}")
+    del source, back, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[native snapshot] save_snapshot of the seeded sd21base weights (read from the "
+          f"diffusers snapshot in {load_diffusers_s:.2f} s, fp32): "
+          f"{sum(part_bytes.values())} bytes of flax trees ({part_bytes}) in {save_s:.2f} s; "
+          f"load_models read it back in {load_native_s:.2f} s, spec.json sd21base, {compared} "
+          f"tensors bit-equal to their source; {smi}", flush=True)
+    part_s["a_snapshot"] = time.perf_counter() - t_phase
+
+    # b. two train steps from the native dir and from the diffusers dir ---------
+    t0 = time.perf_counter()
+    instance_dir = os.path.join(work, "instance")
+    os.makedirs(instance_dir)
+    write_instance_image(os.path.join(instance_dir, "teapot.png"), seed=1)
+    train = {}
+    for name, base in (("native", native), ("diffusers", snap)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        train[name] = instrumented_train(paper_flags(
+            instance_dir, os.path.join(work, f"train_{name}"),
+            f"--pretrained_model_name_or_path={base}", f"--max_train_steps={NATIVE_STEPS}",
+            "--checkpointing_steps=0", "--validation_steps=0"))
+    dirs = {name: os.path.join(work, f"train_{name}") for name in train}
+    losses = {name: t["metrics"]["loss_by_step"] for name, t in train.items()}
+    tree_a, tree_b = dp_tree(dirs["native"]), dp_tree(dirs["diffusers"])
+    saved = [k for k in tree_a if k.endswith((".pt", ".bin"))]
+
+    def config(raw):  # the adapter records its base's path, which differs by design
+        return {k: v for k, v in json.loads(raw).items() if k != "base_model_name_or_path"}
+
+    differ = sorted(k for k in tree_a if k not in saved and k != "metrics.jsonl" and (
+        config(tree_a[k]) != config(tree_b[k]) if k.endswith("adapter_config.json")
+        else tree_b.get(k) != tree_a[k]))
+    differ += [k for k in saved if not same_state(*(
+        torch.load(os.path.join(d, k), map_location="cpu", weights_only=True)
+        for d in dirs.values()))]
+    want_train = {k: NATIVE_STEPS * n for k, n in per_step.items()}
+    same_files = not differ and tree_a.keys() == tree_b.keys()
+    print(f"[native train] {NATIVE_STEPS} steps with the paper's flags from the native dir and "
+          f"from the diffusers dir: losses {losses['native']} / "
+          f"{'the same bits' if losses['native'] == losses['diffusers'] else losses['diffusers']};"
+          f" {len(tree_a)} files {'bit-identical' if same_files else f'DIFFER: {differ}'} "
+          f"(torch.save files by value); {train['native']['run_s']:.1f} / "
+          f"{train['diffusers']['run_s']:.1f} s; launches {train['native']['launches']} / "
+          f"{train['diffusers']['launches']}; {smi}", flush=True)
+    if not (losses["native"] == losses["diffusers"] and len(losses["native"]) == NATIVE_STEPS
+            and all(math.isfinite(x) for x in losses["native"])):
+        raise AssertionError("training from the native dir left the diffusers dir's losses")
+    if not same_files:
+        raise AssertionError(f"the exports from the two dirs differ: {differ}")
+    if any(t["launches"] != want_train for t in train.values()):
+        raise AssertionError(f"the runs launched {[t['launches'] for t in train.values()]}, "
+                             f"expected {want_train}")
+    part_s["b_train"] = time.perf_counter() - t0
+
+    # c. the scorer trees: CLIP and DINO in the published layouts, as flax trees ---
+    weights, trees = os.path.join(work, "scorer_weights"), os.path.join(work, "scorer_trees")
+    t0 = time.perf_counter()
+    written = write_scorer_weights(weights, dev, vqa=False)
+    os.makedirs(trees)
+    tree_tensors = 0
+    for name, read, inverse in (
+            ("clip", scorer_weights.clip_weights, scorer_weights.clip_tree_from_state_dict),
+            ("dino", scorer_weights.dino_weights, scorer_weights.dino_tree_from_state_dict)):
+        state = dict(read(os.path.join(weights, name)).items())
+        with open(os.path.join(trees, f"{name}.msgpack"), "wb") as f:
+            msgpack.dump(inverse(state), f)
+        got = scorer_weights.part_weights(os.path.join(trees, name), name)
+        if set(got) != set(state) or not all(torch.equal(got[k], state[k]) for k in state):
+            raise AssertionError(f"the {name} tree does not read back as its checkpoint")
+        tree_tensors += len(state)
+        del state, got
+    shutil.rmtree(weights)
+    tree_bytes = _part_bytes(trees, ("clip.msgpack", "dino.msgpack"))
+    print(f"[native scorer trees] CLIP ViT-L/14-336 and DINOv2 ViT-L/14 from seeded published "
+          f"checkpoints ({written}) written as flax trees by the port's codec {tree_bytes} in "
+          f"{time.perf_counter() - t0:.2f} s; read back, {tree_tensors} tensors bit-equal to "
+          f"the checkpoints'; {smi}", flush=True)
+    part_s["c_scorer_trees"] = time.perf_counter() - t0
+
+    # d. inference and the eval over two ranks; at the same time, in one
+    # process, the runs they are held to and inference from the diffusers dir
+    t0 = time.perf_counter()
+    model_dir = dirs["native"]
+    gen_root = os.path.join(work, "gen")
+    sweep_dir, data, val = (os.path.join(gen_root, d) for d in ("sweep", "data", "val"))
+    shutil.copytree(model_dir, os.path.join(sweep_dir, GEN_INSTANCE))
+    for root, seed in ((data, 300), (val, 301)):
+        os.makedirs(os.path.join(root, GEN_INSTANCE))
+        write_instance_image(os.path.join(root, GEN_INSTANCE, "0.png"), seed=seed)
+
+    def inference_job(base, seeds, grid):
+        return ["inference", [model_dir, "--model", base, "--prompt",
+                              f"photo of a <{GEN_INSTANCE}> {GEN_INSTANCE}", "--seeds",
+                              *map(str, seeds), "--steps", "25", "--guidance-scale", "7.5",
+                              "--lora-rank", "4", "--output", os.path.join(gen_root, grid)]]
+
+    def eval_job(batch, desc):
+        return ["eval", [sweep_dir, "--model", native, "--instances", GEN_INSTANCE, "--seeds",
+                         "0", "--batch-size", str(batch), "--steps", "25", "--metric", "clip-t",
+                         "clip-i", "dino", "--scorer-weights", trees, "--train-dir", data,
+                         "--val-dir", val, "--outdir", os.path.join(gen_root, "bench"),
+                         "--output-desc", desc]]
+
+    def jobs_file(name, jobs):
+        path = os.path.join(work, f"{name}_jobs.json")
+        with open(path, "w") as f:
+            json.dump({"watch": gen_root, "jobs": jobs}, f)
+        return [path]
+
+    half, sub = len(GEN_SEEDS) // GEN_RANKS, GEN_BATCH // GEN_RANKS
+    one_jobs = ([inference_job(native, GEN_SEEDS[r * half:(r + 1) * half], f"one{r}.png")
+                 for r in range(GEN_RANKS)]
+                + [inference_job(native, GEN_SEEDS, "one_batch.png"),
+                   inference_job(snap, GEN_SEEDS, "diffusers.png"), eval_job(sub, "one")])
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        one_run = pool.submit(launch_rank_program, work, "gen_one", 0,
+                              jobs_file("gen_one", one_jobs), "--gen-rank")
+        dp_out, ranks = launch_rank_program(work, "gen_dp", GEN_RANKS, jobs_file("gen_dp", [
+            inference_job(native, GEN_SEEDS, "grid_dp.png"), eval_job(GEN_BATCH, "dp")]),
+            program="--gen-rank")
+        _, (one,) = one_run.result()
+    part_s["d_generation"] = time.perf_counter() - t0
+    dp_json, one_json = (os.path.join(work, f"{n}_json") for n in ("gen_dp", "gen_one"))
+    dp_images = np.load(os.path.join(dp_json, "rank0_job0.npy"))
+    one_images = [np.load(os.path.join(one_json, f"rank0_job{i}.npy")) for i in range(4)]
+    native_batch, diffusers_batch = one_images[GEN_RANKS:]
+    same_inference = np.array_equal(dp_images, np.concatenate(one_images[:GEN_RANKS]))
+    gap = np.abs(dp_images.astype(np.int16) - native_batch).max(axis=-1)
+    one_batch = {"max_uint8_gap": int(gap.max()), "pixels_differ": float((gap > 0).mean())}
+    bench = os.path.join(gen_root, "bench")
+    names = {d: sorted(os.listdir(os.path.join(bench, f"sweep_{d}", "seed0", GEN_INSTANCE)))
+             for d in ("dp", "one")}
+    same_eval = names["dp"] == names["one"] and len(names["dp"]) == 25 and all(
+        np.array_equal(*(np.asarray(Image.open(os.path.join(bench, f"sweep_{d}", "seed0",
+                                                            GEN_INSTANCE, n)))
+                         for d in ("dp", "one"))) for n in names["dp"])
+    csvs = {}
+    for d in ("dp", "one"):
+        with open(os.path.join(sweep_dir, f"metric_last_{d}.csv")) as f:
+            csvs[d] = f.read()
+    backends = re.findall(r"torch\.distributed: rank (\d) of (\d) .*backend (\w+)", dp_out)
+    want_batches = [[[half], [sub, sub]], [[half], [sub, 25 - 3 * sub]]]
+    want_one = [[half], [half], [len(GEN_SEEDS)], [len(GEN_SEEDS)], [sub, sub, sub, 25 - 3 * sub]]
+    got_batches = [[j["batches"] for j in r["jobs"]] for r in ranks]
+    one_batches = [j["batches"] for j in one["jobs"]]
+    derived = [generation_calls([b for job in rb for b in job]) for rb in want_batches]
+    derived_one = generation_calls([b for job in want_one for b in job])
+    launches = [{k: sum(j["launches"][k] for j in r["jobs"]) for k in per_step} for r in ranks]
+    one_launches = {k: sum(j["launches"][k] for j in one["jobs"]) for k in per_step}
+    rank_s = [[round(j["s"], 2) for j in r["jobs"]] for r in ranks]
+    one_s = [round(j["s"], 2) for j in one["jobs"]]
+    print(f"[native inference] textboost_torch.inference, seeds {list(GEN_SEEDS)} in one "
+          f"batch, from the native dir ({one_s[2]} s) and the diffusers dir ({one_s[3]} s, load "
+          f"included): {native_batch.shape} "
+          f"{'bit-identical' if np.array_equal(native_batch, diffusers_batch) else 'DIFFERENT'}"
+          f"; launches {one['jobs'][2]['launches']} / {one['jobs'][3]['launches']}; {smi}",
+          flush=True)
+    print(f"[dp generation] python -m torch.distributed.run --standalone --nproc_per_node "
+          f"{GEN_RANKS}, each rank textboost_torch.inference (seeds {list(GEN_SEEDS)}) then "
+          f"textboost_torch.eval ({GEN_INSTANCE}, seed 0, --batch-size {GEN_BATCH}, CLIP-T, "
+          f"CLIP-I, DINO from the flax trees): (rank, world, backend) {backends}; "
+          f"{ranks[0]['wall_s']:.1f} s of command, the jobs' s by rank {rank_s}; prompts per "
+          f"sampling call by rank {got_batches}; launches {launches}; rank 0 wrote "
+          f"{len(ranks[0]['writes'])} paths, rank 1 {ranks[1]['writes']}; the one-process runs "
+          f"(at the same time, sharing the card: {one['wall_s']:.1f} s of command, jobs {one_s} "
+          f"s) sampled {one_batches} prompts a call, launches {one_launches}; {smi}", flush=True)
+    print(f"[dp generation vs one process] inference: the gathered grid "
+          f"{'bit-identical to' if same_inference else 'DIFFERENT from'} one-process runs over "
+          f"each rank's seeds; against all {len(GEN_SEEDS)} seeds in one batch (reported, not "
+          f"held) the largest uint8 gap {one_batch['max_uint8_gap']}, pixels that differ "
+          f"{one_batch['pixels_differ']:.4f}; eval: {len(names['dp'])} images "
+          f"{'bit-identical to' if same_eval else 'DIFFERENT from'} one process at "
+          f"--batch-size {sub}, CSV {'identical' if csvs['dp'] == csvs['one'] else 'DIFFERENT'}: "
+          f"{csvs['dp'].splitlines()[1:]}; {smi}", flush=True)
+    if not np.array_equal(native_batch, diffusers_batch) or native_batch.shape != (
+            len(GEN_SEEDS), 512, 512, 3):
+        raise AssertionError("sampling from the native dir gave other images than the "
+                             "diffusers dir")
+    if sorted(backends) != [("0", "2", "gloo"), ("1", "2", "gloo")]:
+        raise AssertionError(f"the generation ranks joined as {backends}")
+    for line in (f"Sharding the {len(GEN_SEEDS)} seeds over {GEN_RANKS} ranks, {half} a rank",
+                 f"Sharding generation batches over {GEN_RANKS} ranks: sub-chunks of {sub} "
+                 "prompts"):
+        if line not in dp_out:
+            raise AssertionError(f"the launch printed no {line!r}")
+    if not (same_inference and same_eval and csvs["dp"] == csvs["one"]):
+        raise AssertionError("a rank's images or the CSV differ from the one-process run over "
+                             "the same sub-batch")
+    if ranks[1]["writes"] or not {"grid_dp.png", "sweep/metric_last_dp.csv"} <= set(
+            ranks[0]["writes"]):
+        raise AssertionError(f"writes: rank 0 {ranks[0]['writes'][:5]}, rank 1 "
+                             f"{ranks[1]['writes']}")
+    if got_batches != want_batches or one_batches != want_one:
+        raise AssertionError(f"sampling calls of {got_batches} / {one_batches} prompts")
+    if launches != [d["launches"] for d in derived] or one_launches != derived_one["launches"]:
+        raise AssertionError(f"launches {launches} / {one_launches}, derived "
+                             f"{[d['launches'] for d in derived]} / {derived_one['launches']}")
+    if [r["shapes"]["gn"] for r in ranks] != [d["gn"] for d in derived] or \
+            one["shapes"]["gn"] != derived_one["gn"]:
+        raise AssertionError("the generation's GroupNorm calls differ from those derived from "
+                             "the config")
+
+    # e. every kernel at every shape the phase gave it ----------------------------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    seen = {k: collections.Counter() for k in per_step}
+    for shapes in [t["shapes"] for t in train.values()] + [r["shapes"] for r in ranks + [one]]:
+        for k in seen:
+            seen[k].update(shapes[k])
+    new_flash = sorted(set(seen["flash"]) - held["flash"])
+    new_flash_bwd = sorted(set(seen["flash_bwd"]) - held["flash_bwd"])
+    k1_err = check_flash_forward(gen, new_flash)
+    k2_err = check_flash_backward(gen, [(b, n, h, d, m, m) for b, n, h, d, m in new_flash_bwd])
+    tail = ((2 * (25 - 3 * sub), 320, 64, 64), 32, 1e-6, False)  # the tail's UNet level 0
+    new_gn = set(seen["gn"]) - set(held["gn_rows"])
+    rows, gn_err = group_norm_table(gen, new_gn - {tail}, {k: {"native_dp": n} for k, n in
+                                                           seen["gn"].items()},
+                                    backward=False, timed=False)
+    timed_rows, tail_err = group_norm_table(gen, {tail}, {tail: {"native_dp": seen["gn"][tail]}},
+                                            backward=False)
+    bwd_rows, gn_bwd_err = group_norm_table(
+        gen, set(seen["gn_bwd"]) - set(held["gn_bwd_rows"]),
+        {k: {"native_dp": n} for k, n in seen["gn_bwd"].items()}, backward=True, timed=False)
+    k1 = {"tail_unet_level0_2x4096x5x64": flash_forward_times(gen, 2, 4096, 5, 64, card),
+          "eval_vae_mid_8x4096x1x512": flash_forward_times(gen, sub, 4096, 1, 512, card)}
+    print(f"[native dp kernels] K1 at the phase's {len(seen['flash'])} shapes "
+          f"{sorted(seen['flash'])} ({len(new_flash)} new, held now), K2 at "
+          f"{dict(seen['flash_bwd'])} ({len(new_flash_bwd)} new); GroupNorm at "
+          f"{len(seen['gn'])} forward and {len(seen['gn_bwd'])} backward keys, "
+          f"{len(rows) + len(timed_rows)} + {len(bwd_rows)} new ones held now; K1 times: " +
+          "; ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, SDPA "
+                    f"{v['library_ms']:.4f}, plain {v['plain_ms']:.3f})" for k, v in k1.items())
+          + f"; K3 at {tail[0]} {timed_rows[tail]['ms']:.4f} ms (bound "
+          f"{timed_rows[tail]['bound_ms']:.4f}, F.group_norm {timed_rows[tail]['library_ms']:.4f})"
+          f"; {smi}", flush=True)
+    shutil.rmtree(native)
+    part_s["e_kernels"] = time.perf_counter() - t0
+    phase_s = time.perf_counter() - t_phase
+    print(f"[native dp] the whole phase in {phase_s:.1f} s (the native dir deleted; by part "
+          f"{ {k: round(v, 1) for k, v in part_s.items()} }); {smi}", flush=True)
+    return {
+        "launches": {"train_native": train["native"]["launches"],
+                     "train_diffusers": train["diffusers"]["launches"],
+                     "inference_native_batch": one["jobs"][2]["launches"],
+                     "inference_diffusers_batch": one["jobs"][3]["launches"],
+                     **{f"gen_rank{r['rank']}": launches[i] for i, r in enumerate(ranks)},
+                     "gen_one_process": one_launches},
+        "snapshot": {"native_bytes": sum(part_bytes.values()), "part_bytes": part_bytes,
+                     "save_s": save_s, "load_native_s": load_native_s,
+                     "load_diffusers_s": load_diffusers_s, "tensors_equal": compared},
+        "train": {name: {"losses": losses[name], "run_s": t["run_s"]}
+                  for name, t in train.items()},
+        "scorer_tree_bytes": tree_bytes,
+        "dp_generation": {"command_s": ranks[0]["wall_s"], "rank_job_s": rank_s,
+                          "one_process_command_s": one["wall_s"],
+                          "one_process_job_s": [j["s"] for j in one["jobs"]],
+                          "peak_gib": [r["peak_bytes"] / 2**30 for r in ranks],
+                          "batches": got_batches, "one_batch": one_batch},
+        "phase_s": phase_s, "part_s": part_s, "k1": k1,
+        "gn_tail": group_norm_json(timed_rows[tail]),
+        "k1_max_abs_err": k1_err, "k2_max_abs_err": k2_err,
+        "gn_max_abs_err": max(gn_err, tail_err), "gn_bwd_max_abs_err": gn_bwd_err,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -4146,7 +4600,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     snapshot_work = tempfile.TemporaryDirectory()
     snap = snapshot_run_phase(gen, card, snapshot_work.name, smi, held)
-    snapshot_work.cleanup()
+    # The seeded snapshot serves the native phase last; the rest goes now.
+    for name in os.listdir(snapshot_work.name):
+        path = os.path.join(snapshot_work.name, name)
+        if name != "sd21base_snapshot":
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
 
     # 13. main path: the DreamBooth benchmark: the sweep runner's training,
     # the eval's generation and its four scorers --------------------------
@@ -4181,6 +4639,16 @@ def main() -> int:
     tp_work = tempfile.TemporaryDirectory()
     tp = tp_phase(gen, card, tp_work.name, smi, held)
     tp_work.cleanup()
+
+    # 17. main path: the JAX package's native snapshot written, read and
+    # served, and inference and the eval over two ranks on the card ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    native_work = tempfile.TemporaryDirectory()
+    nd = native_dp_phase(gen, card, native_work.name, smi, held,
+                         os.path.join(snapshot_work.name, "sd21base_snapshot"))
+    native_work.cleanup()
+    snapshot_work.cleanup()
     by_path = {name: {"generate_sd15": launches.get(key, 0), "train_sd15": tr["launches"][key],
                       "paper_sd21base": paper["launches"][key],
                       "paper_sd21base_resumed": paper["resumed_launches"][key],
@@ -4188,7 +4656,8 @@ def main() -> int:
                       "benchmark_sd21base": bench["launches"][key],
                       "sd21_768": sd21["launches"][key],
                       **{f"dp_sd21base_{r}": n[key] for r, n in dp["launches"].items()},
-                      **{f"tp_sd21base_{r}": n[key] for r, n in tp["launches"].items()}}
+                      **{f"tp_sd21base_{r}": n[key] for r, n in tp["launches"].items()},
+                      **{f"native_dp_sd21base_{r}": n[key] for r, n in nd["launches"].items()}}
                for name, key in (("flash_attention_fwd", "flash"), ("flash_attention_bwd", "flash_bwd"),
                                  ("group_norm_fwd", "gn"), ("group_norm_bwd", "gn_bwd"))}
     # The top-level numbers are the sd21 phase's, the newest main path: its
@@ -4203,7 +4672,8 @@ def main() -> int:
               "launches": sd21["launches"]["flash"],
               "max_abs_err": max(flash_err, paper["k1_max_abs_err"], snap["k1_max_abs_err"],
                                  bench["k1_max_abs_err"], sd21["k1_max_abs_err"],
-                                 dp["k1_max_abs_err"], tp["k1_max_abs_err"])},
+                                 dp["k1_max_abs_err"], tp["k1_max_abs_err"],
+                                 nd["k1_max_abs_err"])},
              **{k: v for k, v in sd21["k1"][k_main].items() if k != "launches"},
              shape="B,N,H,D=8,9216,5,64 bf16 (sd21 UNet level 0 at 768 px: the train step at "
                    "batch 8, four prompts under CFG)",
@@ -4212,7 +4682,8 @@ def main() -> int:
                            **paper["k1"], **bench["k1"],
                            **{f"sd15_{k}": v for k, v in fa_t.items()},
                            **{f"dp_{k}": v for k, v in dp["k1"].items()},
-                           **{f"tp_{k}": v for k, v in tp["k1"].items()}},
+                           **{f"tp_{k}": v for k, v in tp["k1"].items()},
+                           **{f"native_dp_{k}": v for k, v in nd["k1"].items()}},
              per_generate_ms=flash_ms, launches_by_path=by_path["flash_attention_fwd"],
              variants={"generate": variants, "train": tr["variants"],
                        "paper": paper["variants"]}),
@@ -4222,7 +4693,8 @@ def main() -> int:
               "launches": sd21["launches"]["flash_bwd"],
               "max_abs_err": max(flash_bwd_err, paper["k2_max_abs_err"], snap["k2_max_abs_err"],
                                  bench["k2_max_abs_err"], sd21["k2_max_abs_err"],
-                                 dp["k2_max_abs_err"], tp["k2_max_abs_err"])},
+                                 dp["k2_max_abs_err"], tp["k2_max_abs_err"],
+                                 nd["k2_max_abs_err"])},
              **{k: v for k, v in sd21["k2"][k_main].items() if k != "launches"},
              shape="B,N,H,D=8,9216,5,64 bf16 (sd21 UNet level 0 at 768 px, the train step at "
                    "batch 8)",
@@ -4239,13 +4711,14 @@ def main() -> int:
          "launches": sd21["launches"]["gn"],
          "max_abs_err": max(gn_err, paper["gn_max_abs_err"], snap["gn_max_abs_err"],
                             bench["gn_max_abs_err"], sd21["gn_max_abs_err"],
-                            dp["gn_max_abs_err"]),
+                            dp["gn_max_abs_err"], nd["gn_max_abs_err"]),
          **{k: v for k, v in sd21["gn_main"]["fwd"].items() if k != "launches"},
          "shape": "8x320x96x96 bf16 G=32 eps=1e-6 silu=off (sd21 at 768 px)",
          "other_shapes": {**{name: group_norm_json(gn_rows[key]) for name, key in (
              ("sd15_8x320x64x64", main_key), ("resnet_silu_8x320x64x64", level0),
              ("vae_silu_4x128x512x512", ((4, 128, 512, 512), 32, 1e-6, True)))},
-             "dp_4x320x64x64": dp["gn_main"]["fwd"]},
+             "dp_4x320x64x64": dp["gn_main"]["fwd"],
+             "native_dp_tail_2x320x64x64": nd["gn_tail"]},
          "per_dp_rank_step": dp["group_norm_per_rank_step"]["group_norm_fwd"],
          "plain_ms_sd15_8x320x64x64": gn_plain, "per_sd21_phase": sd21["group_norm"]["group_norm_fwd"],
          "per_generate": gn_sums["generate"], "per_train_step": gn_sums["train_step"],
@@ -4257,7 +4730,7 @@ def main() -> int:
          "launches": sd21["launches"]["gn_bwd"],
          "max_abs_err": max(gn_bwd_err, paper["gn_bwd_max_abs_err"], snap["gn_bwd_max_abs_err"],
                             bench["gn_bwd_max_abs_err"], sd21["gn_bwd_max_abs_err"],
-                            dp["gn_bwd_max_abs_err"]),
+                            dp["gn_bwd_max_abs_err"], nd["gn_bwd_max_abs_err"]),
          **{k: v for k, v in sd21["gn_main"]["bwd"].items() if k != "launches"},
          "shape": "8x320x96x96 bf16 G=32 eps=1e-6 silu=off (sd21 at 768 px)",
          "other_shapes": {"sd15_8x320x64x64": group_norm_json(gn_bwd_rows[main_key]),
@@ -4291,7 +4764,9 @@ def main() -> int:
         "dp_sd21base": {k: v for k, v in dp.items()
                         if not (k in ("k1", "k2", "gn_main") or k.endswith("max_abs_err"))},
         "tp_sd21base": {k: v for k, v in tp.items()
-                        if not (k in ("k1", "k2") or k.endswith("max_abs_err"))}}
+                        if not (k in ("k1", "k2") or k.endswith("max_abs_err"))},
+        "native_dp_sd21base": {k: v for k, v in nd.items()
+                               if not (k in ("k1", "gn_tail") or k.endswith("max_abs_err"))}}
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4301,4 +4776,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] in (["--dp-rank"], ["--tp-rank"]) and sys.argv[3:4] == ["--"]:
         sys.exit(dp_rank(sys.argv[2], sys.argv[4:], digest=sys.argv[1] == "--tp-rank"))
+    if sys.argv[1:2] == ["--gen-rank"] and sys.argv[3:4] == ["--"] and len(sys.argv) == 5:
+        sys.exit(gen_rank(sys.argv[2], sys.argv[4]))
     sys.exit(main())

@@ -282,15 +282,19 @@ def test_clip_flant5_yes_probability_matches_jax(tmp_path):
 
 
 def test_flax_trees_converted_for_the_jax_package_are_refused(tmp_path):
-    (tmp_path / "clip.msgpack").write_bytes(b"\x80")
-    with pytest.raises(ValueError, match="flax"):
+    """The converted trees load (tests/test_torch_port_native.py); a tree
+    that does not fit the scorer is refused, naming its file, and a
+    `params/` .safetensors is never taken for a torch checkpoint."""
+    (tmp_path / "clip.msgpack").write_bytes(b"\x80")  # an empty map: no params
+    with pytest.raises(ValueError, match="clip: the flax tree there does not fit"):
         scorer_weights.load_scorers(str(tmp_path), device="cpu")
     from textboost_torch.lora.peft_io import save_safetensors
 
-    save_safetensors({"params/t5/shared/embedding": np.zeros((2, 2), np.float32)},
-                     str(tmp_path / "t5.safetensors"))
-    with pytest.raises(ValueError, match="flax"):
-        scorer_weights.resolve(str(tmp_path / "t5"))
+    save_safetensors({"params/shared/embedding": np.zeros((2, 2), np.float32)},
+                     str(tmp_path / "vision.safetensors"))
+    assert scorer_weights.resolve(str(tmp_path / "vision")) is None
+    with pytest.raises(ValueError, match="vision: the flax tree there does not fit"):
+        scorer_weights.load_vqa_parts(CLIPT5Model(*tiny_vqa_config()), str(tmp_path))
 
 
 # ---------------------------------------------------------------------------

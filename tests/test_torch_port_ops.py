@@ -264,11 +264,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'textboost_tpu', 'transformers'))\n"
+        "('jax', 'jaxlib', 'flax', 'textboost_tpu', 'transformers', 'msgpack', 'ml_dtypes', "
+        "'safetensors'))\n"
         "assert not bad, bad\n"
         "assert {'textboost_torch.data.device_augment', 'textboost_torch.data.aux_datasets', "
-        "'textboost_torch.tools.gen_null_emb', 'textboost_torch.parallel.mesh'} "
-        "<= set(sys.modules)\n"
+        "'textboost_torch.tools.gen_null_emb', 'textboost_torch.parallel.mesh', "
+        "'textboost_torch.utils.msgpack'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('textboost_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

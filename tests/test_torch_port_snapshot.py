@@ -179,8 +179,10 @@ def test_published_key_sets_load_strictly_on_the_meta_device(family, clip):
 
 
 def test_a_native_jax_snapshot_is_refused(tmp_path):
+    """Native snapshots load (tests/test_torch_port_native.py); one without
+    its msgpack trees is refused, naming the missing file."""
     (tmp_path / "spec.json").write_text(json.dumps({"name": "tiny"}))
-    with pytest.raises(NotImplementedError, match="flax and msgpack"):
+    with pytest.raises(FileNotFoundError, match="text_encoder.msgpack is missing"):
         load_models(str(tmp_path), device="cpu")
 
 

@@ -14,16 +14,30 @@ VQAScore into `<sweep>/metric{_ckptN|_last}{_desc}.csv` (the reference's
 columns, "%.3f").  Consecutive instances over one base share the resident
 base weights (`load_textboost_pipeline(reuse=)`).
 
+Over several ranks (one process per card):
+
+    python -m torch.distributed.run --nproc_per_node 2 -m textboost_torch.eval <sweep> ...
+
+When --batch-size B divides over the W ranks (the JAX CLI's condition for
+sharding each generation batch over a dp mesh of its devices,
+eval_dreambooth.py:126-134), the prompts of each (instance, seed) are cut
+into sub-chunks of B/W and sub-chunk j is sampled by rank j % W: the rows
+a dp-sharded batch of B gives each device.  Rank 0 gathers each chunk's
+images and alone writes them; after a barrier it alone scores.  A rank's
+images are the bits a one-process run at --batch-size B/W gives, so the CSV
+is that run's.  When B does not divide, rank 0 samples every chunk (the JAX
+CLI then runs on one device) and the other ranks wait for it.  Every rank
+keeps the resident base across instances (`reuse=`).
+
 Deviations from the JAX CLI:
-  * no dp mesh over devices: the batch runs on one card (multi-card
-    generation is ROADMAP A8);
   * the tail chunk (25 = 16 + 9) runs at its own size; the JAX CLI padded it
     to a full batch to reuse one compiled program;
   * the seed's latent is drawn from `torch.Generator(device).manual_seed(seed)`
     as [h/8, w/8, 4] (`seed_latent`): threefry cannot be reproduced, so the
     two CLIs give different images for the same seed;
-  * scorer weights are the published torch checkpoints, read directly
-    (eval/scorer_weights.py); the JAX package's msgpack files are refused.
+  * scorer weights are the published torch checkpoints or the JAX package's
+    converted flax trees (`*.msgpack`, `params/` `.safetensors`), read
+    without flax (eval/scorer_weights.py).
 """
 from __future__ import annotations
 
@@ -111,10 +125,13 @@ def output_dir(args) -> str:
 
 
 def generate(args) -> str:
-    """Sample every instance's prompts for every seed; returns the image dir."""
+    """Sample every instance's prompts for every seed (over the launch's
+    ranks when its process group is joined, as the module docstring says);
+    returns the image dir."""
     from PIL import Image
 
     from ..device import resolve_device
+    from ..parallel import mesh
     from ..pipelines.loading import load_textboost_pipeline
     from .dreambooth_bench import INSTANCES, prompts_for
 
@@ -126,11 +143,20 @@ def generate(args) -> str:
     device = resolve_device(args.device)
     model, size = detect_model(args)
     path = args.path.rstrip("/")
+    world, rank = mesh.world_size(), mesh.rank()
+    sub = args.batch_size // world if args.batch_size % world == 0 else None
+    if world > 1 and rank == 0:
+        print(f"Sharding generation batches over {world} ranks: sub-chunks of {sub} prompts"
+              if sub else f"--batch-size {args.batch_size} does not divide over {world} "
+              "ranks: rank 0 generates every batch", flush=True)
+    if sub is None and rank > 0:
+        return outdir  # rank 0 generates alone; `main` waits for it
     pipeline = None
     for instance, cls in instances.items():
         model_path = os.path.join(path, instance)
         if not os.path.isdir(model_path):
-            print(f"[skip] missing instance dir: {model_path}")
+            if rank == 0:
+                print(f"[skip] missing instance dir: {model_path}")
             continue
         pipeline = load_textboost_pipeline(
             model_path, model, checkpoint=args.checkpoint, lora_rank=args.lora_rank,
@@ -147,16 +173,42 @@ def generate(args) -> str:
         for seed in args.seeds:
             latent = seed_latent(seed, size, device)
             dst = os.path.join(outdir, f"seed{seed}", instance)
-            os.makedirs(dst, exist_ok=True)
+            if rank == 0:
+                os.makedirs(dst, exist_ok=True)
             for i in range(0, len(prompt_list), args.batch_size):
                 prompts = [p.format(identifier) for p in prompt_list[i:i + args.batch_size]]
-                images = pipeline(prompts, num_inference_steps=args.steps, guidance_scale=7.5,
-                                  latents=latent, height=size * 8, width=size * 8)
+                images = _sample_chunk(pipeline, prompts, latent, size, args.steps,
+                                       sub if world > 1 else None)
+                if images is None:  # another rank's chunk: rank 0 writes it
+                    continue
                 for prompt, image in zip(prompts, images):
                     fname = f"{prompt.replace(identifier, cls).replace(' ', '_')}.png"
                     Image.fromarray(image).save(os.path.join(dst, fname))
-            print(f"[{instance}] seed {seed}: {len(prompt_list)} images")
+            if rank == 0:
+                print(f"[{instance}] seed {seed}: {len(prompt_list)} images")
     return outdir
+
+
+def _sample_chunk(pipeline, prompts, latent, size: int, steps: int, sub: Optional[int]):
+    """One chunk's images; with `sub`, this rank samples its sub-chunks (j %
+    world == rank) and rank 0 returns the chunk's images gathered in prompt
+    order, the other ranks None."""
+    from ..parallel import mesh
+
+    def sample(batch):
+        return pipeline(batch, num_inference_steps=steps, guidance_scale=7.5, latents=latent,
+                        height=size * 8, width=size * 8)
+
+    if sub is None:
+        return sample(prompts)
+    world, rank = mesh.world_size(), mesh.rank()
+    mine = [prompts[j:j + sub] for j in range(0, len(prompts), sub)][rank::world]
+    parts = mesh.gather_to_main([sample(batch) for batch in mine])
+    if parts is None:
+        return None
+    # Sub-chunk j is rank j % world's (j // world)-th: interleave them back.
+    return np.concatenate([parts[j % world][j // world]
+                           for j in range(sum(len(p) for p in parts))])
 
 
 def load_dir_images(path):
@@ -268,9 +320,15 @@ def compute_metrics(args, outdir: str) -> Optional[str]:
 
 
 def main(argv: Optional[List[str]] = None) -> Optional[str]:
+    """Generate, then score on rank 0 (see the module docstring); returns
+    the CSV path (None on the other ranks and without metrics)."""
+    from ..parallel import mesh
+
     args = parse_args(argv)
-    outdir = generate(args)
-    return compute_metrics(args, outdir)
+    with mesh.distributed(args.device):
+        outdir = generate(args)
+        mesh.barrier()  # rank 0 has written every image
+        return compute_metrics(args, outdir) if mesh.is_main() else None
 
 
 if __name__ == "__main__":

@@ -24,12 +24,22 @@ The layouts read (the ones convert_scorers.py reads for the JAX package):
 Keys a checkpoint holds that the model has no use for are dropped by name
 only: the `position_ids` buffers, CLIP's `logit_scale`, DINOv2's
 `mask_token`, T5's tied `embed_tokens` copies, and what the cut vision
-tower of clip-flant5 does not run.  The JAX package's converted flax trees
-(`*.msgpack`, or `.safetensors` of `params/...` names) are refused with a
-message: the card has neither flax nor msgpack.
+tower of clip-flant5 does not run.
 
-`*_state_dict_from_jax` carry the JAX package's scorer param trees (numpy)
-into the port's keys, for the parity tests.
+Each part may instead be a flax param tree converted for the JAX package
+by `convert_scorers.py`, read in the JAX package's precedence
+(textboost_tpu/eval/scorer_weights.py::_maybe_msgpack, eval/vqa.py's
+`_load_params`): `<part>.safetensors` whose names are `params/...` (the
+streaming converter's output), then `<part>.msgpack`
+(`flax.serialization.to_bytes`, read by utils/msgpack.py), then the torch
+checkpoint.  A `.safetensors` of transformers' names is a torch checkpoint.
+Both tree files are mapped, not read whole; the trees go through
+`*_state_dict_from_jax` into the same strict load.
+
+`*_state_dict_from_jax` carry the JAX package's scorer param trees (numpy
+arrays or torch tensors) into the port's keys; `clip_tree_from_state_dict`
+and `dino_tree_from_state_dict` are their inverses, for writing the trees
+the JAX package reads.
 """
 from __future__ import annotations
 
@@ -39,11 +49,19 @@ import os
 import re
 from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple, Union
 
-import numpy as np
 import torch
 
-from ..lora.peft_io import safetensors_readers
-from ..models.convert import _nb, _wb, flatten_tree, state_dict_from_jax
+from ..lora.peft_io import safetensors_header, safetensors_mapped, safetensors_readers
+from ..models.convert import (
+    _nb,
+    _wb,
+    as_float32,
+    flatten_tree,
+    jax_tree_from_state_dict,
+    state_dict_from_jax,
+    unflatten_tree,
+)
+from ..utils import msgpack
 from .clip_scorer import CLIPConfig, CLIPScorer, layers_run, load_strict
 from .dino import DINOScorer, ViTConfig
 
@@ -122,24 +140,38 @@ def _dropping(base: Mapping, drop) -> Renamed:
     return Renamed(base, {k: k for k in base if not drop(k)})
 
 
+def _is_jax_tree(path: str) -> bool:
+    return any(k.startswith("params/") for k in safetensors_header(path))
+
+
+def read_jax_tree(base: str) -> Optional[Mapping]:
+    """The flax param tree converted for the JAX package at `base`, in its
+    precedence: `base.safetensors` of `params/...` names, then
+    `base.msgpack`; None when there is neither."""
+    path = base + ".safetensors"
+    if os.path.isfile(path) and _is_jax_tree(path):
+        return unflatten_tree({tuple(k.split("/")): v
+                               for k, v in safetensors_mapped(path).items()})
+    if os.path.isfile(base + ".msgpack"):
+        return msgpack.load(base + ".msgpack")
+    return None
+
+
 def resolve(base: str) -> Optional[str]:
     """The torch checkpoint at `base` (with one of SUFFIXES), None when there
-    is none; raises where there is only a flax tree converted for the JAX
-    package."""
+    is none (a `.safetensors` flax tree is not one)."""
     for suffix in SUFFIXES:
         path = base + suffix
-        if not os.path.exists(path):
-            continue
-        if suffix == ".safetensors" and any(k.startswith("params/") for k in Checkpoint(path)):
-            raise ValueError(f"{path} is a flax param tree streamed by convert_scorers.py for "
-                             "the JAX package; textboost_torch reads the torch checkpoint "
-                             f"itself: put it at {base}")
-        return path
-    if os.path.isfile(base + ".msgpack"):
-        raise ValueError(f"{base}.msgpack is a flax param tree written by convert_scorers.py "
-                         f"for the JAX package; textboost_torch reads the torch checkpoint "
-                         f"itself (no flax or msgpack on the card): put it at {base}")
+        if os.path.exists(path) and not (suffix == ".safetensors" and _is_jax_tree(path)):
+            return path
     return None
+
+
+def _from_tree(base: str, tree: Mapping, convert: Callable[[Mapping], Mapping]) -> Mapping:
+    try:
+        return convert(tree)
+    except (KeyError, AttributeError, TypeError) as e:
+        raise ValueError(f"{base}: the flax tree there does not fit the scorer ({e!r})") from e
 
 
 def clip_weights(path: str) -> Mapping:
@@ -242,13 +274,19 @@ def t5_weights(path: str, tied: bool) -> Mapping:
 
 
 def load_vqa_parts(model, weights_dir: str) -> None:
-    """Load `<weights_dir>/{vision,projector,t5}` into a CLIPT5Model."""
+    """Load `<weights_dir>/{vision,projector,t5}` (a flax tree or a torch
+    checkpoint each, see the module docstring) into a CLIPT5Model."""
     for part in VQA_PARTS:
-        path = resolve(os.path.join(weights_dir, part))
-        if path is None:
-            raise FileNotFoundError(f"{os.path.join(weights_dir, part)} (a torch checkpoint, "
-                                    f"with or without one of {SUFFIXES[1:]}) is missing")
-        if part == "vision":
+        base = os.path.join(weights_dir, part)
+        tree = read_jax_tree(base)
+        path = None if tree is not None else resolve(base)
+        if tree is not None:
+            weights = _from_tree(base, tree, VQA_FROM_JAX[part])
+        elif path is None:
+            raise FileNotFoundError(f"{base} (a torch checkpoint, with or without one of "
+                                    f"{SUFFIXES[1:]}, or a flax tree: .safetensors of "
+                                    "params/ names, .msgpack) is missing")
+        elif part == "vision":
             weights = vision_tower_weights(path, model.vision_config.num_hidden_layers,
                                            model.vision.feature_layer)
         elif part == "projector":
@@ -258,28 +296,38 @@ def load_vqa_parts(model, weights_dir: str) -> None:
         load_strict(getattr(model, part), weights)
 
 
+def part_weights(base: str, name: str) -> Optional[Mapping]:
+    """The weights of the CLIP (`name` "clip") or DINO ("dino") scorer at
+    `base`: a flax tree, else a torch checkpoint (see the module
+    docstring); None when there is neither."""
+    read, from_jax = {"clip": (clip_weights, clip_state_dict_from_jax),
+                      "dino": (dino_weights, dino_state_dict_from_jax)}[name]
+    tree = read_jax_tree(base)
+    if tree is not None:
+        return _from_tree(base, tree, from_jax)
+    path = resolve(base)
+    return None if path is None else read(path)
+
+
 def load_scorers(weights_dir: str, device: Union[str, torch.device] = "cuda"
                  ) -> Tuple[CLIPScorer, DINOScorer]:
-    """<weights_dir>/{clip,dino} -> (CLIPScorer, DINOScorer) at their published
-    geometry; a missing part is a seeded random init, with a warning."""
+    """<weights_dir>/{clip,dino} (a flax tree or a torch checkpoint each) ->
+    (CLIPScorer, DINOScorer) at their published geometry; a missing part is
+    a seeded random init, with a warning."""
     out = []
-    for name, scorer, config, read in (("clip", CLIPScorer, CLIPConfig(), clip_weights),
-                                       ("dino", DINOScorer, ViTConfig(), dino_weights)):
-        path = resolve(os.path.join(weights_dir, name))
-        if path is None:
-            print(f"WARNING: {os.path.join(weights_dir, name)} missing; the "
-                  f"{name.upper()} scorer is random-init.")
-        out.append(scorer(config, weights=None if path is None else read(path), device=device))
+    for name, scorer, config in (("clip", CLIPScorer, CLIPConfig()),
+                                 ("dino", DINOScorer, ViTConfig())):
+        base = os.path.join(weights_dir, name)
+        weights = part_weights(base, name)
+        if weights is None:
+            print(f"WARNING: {base} missing; the {name.upper()} scorer is random-init.")
+        out.append(scorer(config, weights=weights, device=device))
     return tuple(out)
 
 
 # ---------------------------------------------------------------------------
 # The JAX package's scorer param trees -> the port's keys (parity tests)
 # ---------------------------------------------------------------------------
-def _t(arr) -> torch.Tensor:
-    return torch.tensor(np.asarray(arr, np.float32))
-
-
 def _vision_from_jax(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
     out = {}
     sub = {"q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
@@ -287,7 +335,7 @@ def _vision_from_jax(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
            "layer_norm1": "layer_norm1", "layer_norm2": "layer_norm2",
            "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
     for path, leaf in flatten_tree(tree).items():
-        arr = _t(leaf)
+        arr = as_float32(leaf)
         if path[0] == "patch_embedding":
             out[prefix + "embeddings.patch_embedding.weight"] = arr.permute(3, 2, 0, 1)
         elif path[0] == "class_embedding":
@@ -311,8 +359,8 @@ def clip_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     tree = params["params"]
     out = dict(state_dict_from_jax("text_encoder", {"params": tree["text_model"]}))
     out.update(_vision_from_jax(tree["vision_model"], "vision_model."))
-    out["text_projection.weight"] = _t(tree["text_projection"]["kernel"]).T
-    out["visual_projection.weight"] = _t(tree["visual_projection"]["kernel"]).T
+    out["text_projection.weight"] = as_float32(tree["text_projection"]["kernel"]).T
+    out["visual_projection.weight"] = as_float32(tree["visual_projection"]["kernel"]).T
     return out
 
 
@@ -320,7 +368,7 @@ def dino_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX DINOScorer's param tree -> the port's ViTFeatures state dict."""
     out = {}
     for path, leaf in flatten_tree(params["params"]).items():
-        arr = _t(leaf)
+        arr = as_float32(leaf)
         if path[0] == "patch_embed":
             out[f"patch_embed.proj.{_wb(path[1])}"] = (arr.permute(3, 2, 0, 1)
                                                        if path[1] == "kernel" else arr)
@@ -346,7 +394,7 @@ def t5_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX T5ForConditionalGeneration's param tree -> the port's keys."""
     out = {}
     for path, leaf in flatten_tree(params["params"]).items():
-        arr = _t(leaf)
+        arr = as_float32(leaf)
         if path[0] == "shared":
             out["shared.weight"] = arr
         elif path[0] == "lm_head":
@@ -369,13 +417,98 @@ def t5_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def projector_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX mm_projector's param tree -> the port's nn.Sequential keys."""
+    out = {}
+    for path, leaf in flatten_tree(params["params"]).items():
+        i = int(re.match(r"linear_(\d+)$", path[0]).group(1))
+        arr = as_float32(leaf)
+        out[f"{2 * i}.{_wb(path[1])}"] = arr.T if path[1] == "kernel" else arr
+    return out
+
+
+VQA_FROM_JAX = {"vision": lambda params: _vision_from_jax(params["params"], ""),
+                "projector": projector_state_dict_from_jax, "t5": t5_state_dict_from_jax}
+
+
 def vqa_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX CLIPT5Model's {vision, projector, t5} trees -> the port's
     CLIPT5Model state dict."""
-    out = {f"vision.{k}": v for k, v in _vision_from_jax(params["vision"]["params"], "").items()}
-    for path, leaf in flatten_tree(params["projector"]["params"]).items():
-        i = int(re.match(r"linear_(\d+)$", path[0]).group(1))
-        arr = _t(leaf)
-        out[f"projector.{2 * i}.{_wb(path[1])}"] = arr.T if path[1] == "kernel" else arr
-    out.update({f"t5.{k}": v for k, v in t5_state_dict_from_jax(params["t5"]).items()})
-    return out
+    return {f"{part}.{k}": v for part in VQA_PARTS
+            for k, v in VQA_FROM_JAX[part](params[part]).items()}
+
+
+# ---------------------------------------------------------------------------
+# The port's scorer state dicts -> the JAX package's trees
+# ---------------------------------------------------------------------------
+_VISION_SUB = {"self_attn.q_proj": "q_proj", "self_attn.k_proj": "k_proj",
+               "self_attn.v_proj": "v_proj", "self_attn.out_proj": "out_proj",
+               "layer_norm1": "layer_norm1", "layer_norm2": "layer_norm2",
+               "mlp.fc1": "fc1", "mlp.fc2": "fc2"}
+
+
+def _leaf(wb: str, norm: bool) -> str:
+    return ("scale" if norm else "kernel") if wb == "weight" else "bias"
+
+
+def _vision_to_jax(state: Mapping[str, torch.Tensor], prefix: str) -> Dict:
+    flat = {}
+    for key, arr in state.items():
+        sub = key[len(prefix):]
+        if sub == "embeddings.patch_embedding.weight":
+            flat[("patch_embedding", "kernel")] = arr.permute(2, 3, 1, 0)
+        elif sub == "embeddings.class_embedding":
+            flat[("class_embedding",)] = arr
+        elif sub == "embeddings.position_embedding.weight":
+            flat[("position_embedding",)] = arr
+        elif sub.startswith(("pre_layrnorm.", "post_layernorm.")):
+            name, wb = sub.split(".")
+            flat[(name, _leaf(wb, True))] = arr
+        else:
+            i, rest = re.match(r"encoder\.layers\.(\d+)\.(.+)$", sub).groups()
+            mod, wb = rest.rsplit(".", 1)
+            norm = mod.startswith("layer_norm")
+            flat[(f"layers_{i}", _VISION_SUB[mod], _leaf(wb, norm))] = (
+                arr.T if wb == "weight" and not norm else arr)
+    return unflatten_tree(flat)
+
+
+def clip_tree_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's CLIPModel state dict (transformers' keys) -> the JAX
+    CLIPScorer's param tree (views of the tensors): the inverse of
+    `clip_state_dict_from_jax`."""
+    text = {k: v for k, v in state.items() if k.startswith("text_model.")}
+    vision = {k: v for k, v in state.items() if k.startswith("vision_model.")}
+    tree = {"text_model": jax_tree_from_state_dict("text_encoder", text)["params"],
+            "vision_model": _vision_to_jax(vision, "vision_model."),
+            "text_projection": {"kernel": state["text_projection.weight"].T},
+            "visual_projection": {"kernel": state["visual_projection.weight"].T}}
+    return {"params": tree}
+
+
+def dino_tree_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's ViTFeatures state dict (the hub layout) -> the JAX
+    DINOScorer's param tree (views of the tensors): the inverse of
+    `dino_state_dict_from_jax`."""
+    flat = {}
+    for key, arr in state.items():
+        if key.startswith("patch_embed.proj."):
+            wb = key.rsplit(".", 1)[1]
+            flat[("patch_embed", _leaf(wb, False))] = arr.permute(2, 3, 1, 0) if wb == "weight" else arr
+        elif key == "cls_token":
+            flat[(key,)] = arr.reshape(-1)
+        elif key in ("pos_embed", "register_tokens"):
+            flat[(key,)] = arr.reshape(-1, arr.shape[-1])
+        elif key.startswith("norm."):
+            flat[("norm", _leaf(key.split(".")[1], True))] = arr
+        else:
+            i, rest = re.match(r"blocks\.(\d+)\.(.+)$", key).groups()
+            mod, wb = rest.rsplit(".", 1)
+            name = mod.rsplit(".", 1)[-1]  # attn.qkv -> qkv, mlp.fc1 -> fc1, ls1 -> ls1
+            if wb == "gamma":
+                flat[(f"blocks_{i}", name)] = arr
+            elif name in ("norm1", "norm2"):
+                flat[(f"blocks_{i}", name, _leaf(wb, True))] = arr
+            else:
+                flat[(f"blocks_{i}", name, _leaf(wb, False))] = arr.T if wb == "weight" else arr
+    return {"params": unflatten_tree(flat)}

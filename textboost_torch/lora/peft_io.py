@@ -84,6 +84,29 @@ def safetensors_readers(path: str) -> Dict[str, Callable[[], torch.Tensor]]:
             for name, info in header.items() if name != "__metadata__"}
 
 
+def safetensors_mapped(path: str) -> Dict[str, torch.Tensor]:
+    """{name: CPU tensor} of a .safetensors file over a copy-on-write
+    mapping of it: nothing is read until a tensor is (BF16 kept)."""
+    import mmap
+
+    with open(path, "rb") as f:
+        header, data_start = _read_header(f)
+        buf = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = info["data_offsets"]
+        dtype = _ST_DTYPES[info["dtype"]]
+        if end == begin:  # frombuffer takes no empty span
+            out[name] = torch.empty(info["shape"], dtype=dtype)
+            continue
+        t = torch.frombuffer(buf, dtype=dtype, offset=data_start + begin,
+                             count=(end - begin) // dtype.itemsize)
+        out[name] = t.reshape(info["shape"])
+    return out
+
+
 def load_safetensors(path: str) -> Dict[str, np.ndarray]:
     """Read a .safetensors file -> {name: numpy array} (BF16 as float32)."""
     out: Dict[str, np.ndarray] = {}

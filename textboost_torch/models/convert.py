@@ -1,8 +1,10 @@
 """Weights from the JAX package's param trees into the port's modules.
 
 `state_dict_from_jax(kind, params)` takes a JAX param tree (`{"params":
-{...}}` as nested dicts of numpy arrays) of the text encoder, UNet or VAE
-and returns the port's state dict.  The name mapping is a copy of
+{...}}` as nested dicts of numpy arrays or torch tensors) of the text
+encoder, UNet or VAE and returns the port's state dict;
+`jax_tree_from_state_dict` is its inverse (`jax_path` inverts the key
+mapping), which the port's `save_snapshot` writes.  The name mapping is a copy of
 textboost_tpu/models/convert.py (flax path -> diffusers/transformers key);
 the layout rules are: Dense kernel [in, out] -> weight [out, in]; Conv
 kernel HWIO -> OIHW; lora_a [in, r] -> lora_A.weight [r, in]; lora_b
@@ -39,6 +41,17 @@ def flatten_tree(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
         else:
             out[prefix + (key,)] = val
     return out
+
+
+def unflatten_tree(flat: Mapping[Path, object]) -> Dict:
+    """{path tuple: leaf} -> nested dicts (the inverse of `flatten_tree`)."""
+    tree: Dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
 
 
 def _wb(leaf: str) -> str:
@@ -172,14 +185,24 @@ def vae_key(path: Path) -> Tuple[str, str]:
 KEY_MAPPERS = {"text_encoder": clip_key, "unet": unet_key, "vae": vae_key}
 
 
+def as_float32(leaf) -> torch.Tensor:
+    """A tree leaf as an fp32 CPU tensor: a torch leaf (the port's msgpack
+    and safetensors readers give tensors over the file's mapping) is used
+    as it is when fp32, else cast; a numpy or JAX array is copied (JAX's
+    arrays are read-only)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf if leaf.dtype == torch.float32 else leaf.float()
+    return torch.tensor(np.asarray(leaf, np.float32))
+
+
 def state_dict_from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX param tree of `kind` (text_encoder|unet|vae) -> port state dict
-    (fp32 CPU tensors)."""
+    (fp32 CPU tensors; transposes are views of the leaves)."""
     mapper = KEY_MAPPERS[kind]
     tree = params["params"] if "params" in params else params
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in flatten_tree(tree).items():
-        arr = np.asarray(leaf, np.float32)
+        arr = as_float32(leaf)
         if path[-1] in ("lora_a", "lora_b"):  # the TE's q/k/v or the UNet's attn2 to_k/to_v
             if kind == "vae":
                 raise KeyError(f"No torch mapping for VAE leaf: {'/'.join(path)}")
@@ -188,14 +211,87 @@ def state_dict_from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
             arr = arr.T  # [in, r] -> [r, in]; [r, out] -> [out, r]
         else:
             key, kind_ = mapper(path)
-            if kind_ == "linear" and arr.ndim == 2:
-                arr = arr.T
-            elif kind_ == "conv" and arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)
-            elif kind_ == "conv" and arr.ndim == 2:
-                arr = arr.T
-        out[key] = torch.tensor(arr)  # a copy: JAX's arrays are read-only
+            arr = _to_torch_layout(arr, kind_)
+        out[key] = arr
     return out
+
+
+def _to_torch_layout(arr: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "linear" and arr.dim() == 2:
+        return arr.T
+    if kind == "conv" and arr.dim() == 4:
+        return arr.permute(3, 2, 0, 1)
+    if kind == "conv" and arr.dim() == 2:
+        return arr.T
+    return arr
+
+
+def _to_jax_layout(arr: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "conv" and arr.dim() == 4:
+        return arr.permute(2, 3, 1, 0)  # OIHW -> HWIO
+    return _to_torch_layout(arr, kind)  # a transpose is its own inverse
+
+
+# The port's module path -> the flax module path, one rewrite at a time;
+# `jax_path` then checks the result against the forward mappers.
+_MODULE_REWRITES = [(re.compile(a), b) for a, b in (
+    (r"^text_model\.embeddings\.(token|position)_embedding\.weight$", r"\1_embedding"),
+    (r"^text_model\.encoder\.layers\.(\d+)\.", r"layers_\1."),
+    (r"^text_model\.", ""),
+    (r"(down|up)_blocks\.(\d+)\.resnets\.(\d+)", r"\1_\2_resnet_\3"),
+    (r"(down|up)_blocks\.(\d+)\.attentions\.(\d+)", r"\1_\2_attn_\3"),
+    (r"(down|up)_blocks\.(\d+)\.(down|up)samplers\.0", r"\1_\2_\3sample"),
+    (r"mid_block\.resnets\.(\d+)", r"mid_resnet_\1"),
+    (r"mid_block\.attentions\.0", "mid_attn"),
+    (r"transformer_blocks\.(\d+)", r"transformer_blocks_\1"),
+    (r"to_out\.0", "to_out"),
+    (r"ff\.net\.(\d)", r"ff.net_\1"),
+    (r"time_embedding\.linear_(\d)", r"time_embedding_linear_\1"),
+)]
+
+
+def jax_path(kind: str, key: str) -> Tuple[Path, str]:
+    """Port key of `kind` -> (flax path, kind in linear|conv|norm|embed|lora):
+    the inverse of `KEY_MAPPERS[kind]`, held to it (the path found must map
+    back to `key`)."""
+    mapper = KEY_MAPPERS[kind]
+    name = key
+    for pattern, repl in _MODULE_REWRITES:
+        name = pattern.sub(repl, name)
+    parts = tuple(name.split("."))
+    if parts[-2:] in (("lora_A", "weight"), ("lora_B", "weight")) and kind != "vae":
+        path = parts[:-2] + ("lora_a" if parts[-2] == "lora_A" else "lora_b",)
+        base = mapper(path[:-1] + ("kernel",))[0]
+        if base[: -len("weight")] + ".".join(parts[-2:]) == key:
+            return path, "lora"
+    elif parts[-1] in ("weight", "bias"):
+        for leaf in (("kernel", "scale") if parts[-1] == "weight" else ("bias",)):
+            try:
+                found, kind_ = mapper(parts[:-1] + (leaf,))
+            except KeyError:
+                continue
+            if found == key:
+                return parts[:-1] + (leaf,), kind_
+    elif len(parts) == 1:
+        try:
+            found, kind_ = mapper(parts)
+        except KeyError:
+            found = None
+        if found == key:
+            return parts, kind_
+    raise KeyError(f"No flax path for the {kind} key {key}")
+
+
+def jax_tree_from_state_dict(kind: str, state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """Port state dict of `kind` -> the JAX param tree `{"params": {...}}`
+    that `state_dict_from_jax` maps back to it: each leaf a view of its
+    tensor in the JAX layout (Dense kernels [in, out], Conv kernels HWIO,
+    LoRA a [in, r] and b [r, out]), in its dtype and on its device."""
+    flat = {}
+    for key, val in state_dict.items():
+        path, kind_ = jax_path(kind, key)
+        flat[path] = val.T if kind_ == "lora" else _to_jax_layout(val, kind_)
+    return {"params": unflatten_tree(flat)}
 
 
 # Hub checkpoints written by pre-0.17 diffusers name the VAE attention

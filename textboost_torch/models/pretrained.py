@@ -1,9 +1,17 @@
 """Model bundles: the three modules of a model family, loaded or seeded, and placed.
 
-Counterpart of textboost_tpu/models/pretrained.py.  A local diffusers
-snapshot dir (`model_index.json` layout) loads through
+Counterpart of textboost_tpu/models/pretrained.py.  A snapshot dir loads in
+the JAX package's search order: its native layout first (`spec.json`, whose
+`name` picks the spec, and `{text_encoder,unet,vae}.msgpack`, the flax
+param trees its `save_snapshot` writes; read by the port's own msgpack
+codec, utils/msgpack.py, and mapped by `convert.state_dict_from_jax`),
+then a diffusers snapshot (`model_index.json` layout) through
 `convert.read_snapshot`, its family taken from the text encoder's width
-unless a preset names it.  A preset is filled with a seeded random init that
+unless a preset names it.  A native snapshot holds base weights only: LoRA
+leaves found in one are passed over (flax's `from_state_dict` reads only
+the keys of the JAX loader's base template), so the adapters keep their
+fresh init.  `save_snapshot` writes the native layout, fp32 leaves in the
+JAX layout, that the JAX package's `load_models` reads.  A preset is filled with a seeded random init that
 follows the JAX package's flax initializers: lecun-normal (truncated)
 Dense/Conv kernels with zero biases in the UNet and VAE, normal(0.02)
 kernels and embeddings in CLIP, LoRA A ~ N(0, 1/r) and B = 0, ones/zeros
@@ -16,9 +24,10 @@ the same with and without it.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import os
-from typing import Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -27,12 +36,21 @@ from ..device import resolve_device
 from ..lora.partition import lora_parameters
 from .clip import CLIPTextModel
 from .configs import ModelSpec, get_spec
-from .convert import read_snapshot, snapshot_family
+from ..utils import msgpack
+from .convert import (
+    flatten_tree,
+    jax_tree_from_state_dict,
+    read_snapshot,
+    snapshot_family,
+    state_dict_from_jax,
+    unflatten_tree,
+)
 from .layers import GroupNorm, LoRALinear
 from .unet import UNet2DCondition
 from .vae import AutoencoderKL
 
 PARTS = ("text_encoder", "unet", "vae")
+NATIVE_SPEC = "spec.json"  # the native snapshot's marker: {"name": <preset>}
 UNET_LORA_SEED_OFFSET = 7
 
 # std of a standard normal truncated to [-2, 2]; flax's truncated_normal
@@ -117,6 +135,44 @@ def _load_part(name: str, mod: nn.Module, state_dict) -> None:
                        f"({len(missing)}), unexpected {unexpected[:5]} ({len(unexpected)})")
 
 
+def read_native_snapshot(path: str) -> Tuple[str, Dict[str, Dict[str, torch.Tensor]]]:
+    """(spec name, {part: state dict}) of a native snapshot dir: each
+    `<part>.msgpack` tree, its LoRA leaves passed over, under the port's
+    keys (fp32 tensors over the files' mappings; bf16 leaves cast)."""
+    with open(os.path.join(path, NATIVE_SPEC)) as f:
+        name = json.load(f)["name"]
+    parts = {}
+    for part in PARTS:
+        file = os.path.join(path, f"{part}.msgpack")
+        if not os.path.isfile(file):
+            raise FileNotFoundError(f"{file} is missing: a native snapshot holds spec.json and "
+                                    f"{', '.join(p + '.msgpack' for p in PARTS)}")
+        tree = msgpack.load(file)
+        flat = flatten_tree(tree.get("params", tree))
+        base = {p: v for p, v in flat.items() if p[-1] not in ("lora_a", "lora_b")}
+        try:
+            parts[part] = state_dict_from_jax(part, unflatten_tree(base))
+        except KeyError as e:
+            raise KeyError(f"{file}: {e}") from e
+    return name, parts
+
+
+def save_snapshot(bundle: ModelBundle, out_dir: str) -> None:
+    """Write `bundle`'s base weights as a native snapshot: `spec.json` and
+    each part's flax param tree, fp32 leaves in the JAX layout (the LoRA
+    adapters are left out), one leaf copied to the host at a time."""
+    os.makedirs(out_dir, exist_ok=True)
+    for part in PARTS:
+        mod = getattr(bundle, part)
+        adapters = {id(p) for p in lora_parameters(mod)}
+        state = {k: v.detach() for k, v in mod.state_dict(keep_vars=True).items()
+                 if id(v) not in adapters}
+        with open(os.path.join(out_dir, f"{part}.msgpack"), "wb") as f:
+            msgpack.dump(jax_tree_from_state_dict(part, state), f, convert=lambda t: t.float())
+    with open(os.path.join(out_dir, NATIVE_SPEC), "w") as f:
+        json.dump({"name": bundle.spec.name}, f)
+
+
 def load_models(
     model_name_or_path: Optional[str] = None,
     *,
@@ -128,23 +184,24 @@ def load_models(
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,
 ) -> ModelBundle:
-    """Diffusers snapshot dir or preset name -> ModelBundle of frozen-ready
+    """Snapshot dir (native or diffusers) or preset name -> ModelBundle of frozen-ready
     modules in eval mode, on `device`, cast to `dtype` (the VAE to
     `vae_dtype` when given; GroupNorm affines and LoRA adapters stay fp32).
-    `preset` names the family of a snapshot in place of the inferred one."""
+    `preset` names the family of a diffusers snapshot in place of the
+    inferred one; a native snapshot's spec.json names its own (as in the JAX
+    package, `preset` is then not read)."""
     dev = resolve_device(device)
     snapshot = None
     if model_name_or_path and os.path.isdir(model_name_or_path):
-        if os.path.isfile(os.path.join(model_name_or_path, "spec.json")):
-            raise NotImplementedError(
-                f"{model_name_or_path}: a textboost_tpu native snapshot (spec.json + msgpack) "
-                "needs flax and msgpack, which the card's machine does not have; load a "
-                "diffusers snapshot (model_index.json layout) instead")
-        if not os.path.isfile(os.path.join(model_name_or_path, "model_index.json")):
-            raise FileNotFoundError(f"{model_name_or_path} holds no model_index.json: not a "
-                                    "diffusers snapshot")
-        snapshot = read_snapshot(model_name_or_path)
-        spec = get_spec(preset or snapshot_family(model_name_or_path))
+        if os.path.isfile(os.path.join(model_name_or_path, NATIVE_SPEC)):
+            spec_name, snapshot = read_native_snapshot(model_name_or_path)
+            spec = get_spec(spec_name)
+        elif os.path.isfile(os.path.join(model_name_or_path, "model_index.json")):
+            snapshot = read_snapshot(model_name_or_path)
+            spec = get_spec(preset or snapshot_family(model_name_or_path))
+        else:
+            raise FileNotFoundError(f"{model_name_or_path} holds neither spec.json (a native "
+                                    "snapshot) nor model_index.json (a diffusers snapshot)")
     else:
         spec = get_spec(preset or model_name_or_path or "sd15")
     modules = build_models(spec, lora_rank=lora_rank, unet_lora_rank=unet_lora_rank,

@@ -20,11 +20,12 @@ trains) change.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -69,6 +70,19 @@ def init_distributed(device: str = "cuda") -> Optional[str]:
     return backend
 
 
+@contextlib.contextmanager
+def distributed(device: str = "cuda") -> Iterator[Optional[str]]:
+    """The block as a rank of a torchrun launch: joins its process group
+    (`init_distributed`) unless one is joined already, and leaves it after
+    the block when it joined it; yields the backend (None in one process)."""
+    owned = not dist.is_initialized() and init_distributed(device) is not None
+    try:
+        yield dist.get_backend() if dist.is_initialized() else None
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
 def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
@@ -85,6 +99,17 @@ def barrier() -> None:
     """Wait for every rank (a no-op in one process)."""
     if dist.is_initialized():
         dist.barrier()
+
+
+def gather_to_main(value: Any) -> Optional[List[Any]]:
+    """Every rank's `value` (any picklable object) on rank 0, in rank order,
+    None on the other ranks; [value] in one process.  A collective: every
+    rank calls it, in the same order."""
+    if not dist.is_initialized():
+        return [value]
+    out = [None] * dist.get_world_size() if is_main() else None
+    dist.gather_object(value, out, dst=0)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -38,18 +38,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     device_parser.add_argument("--device", type=str, default="cuda")
     ns, rest = device_parser.parse_known_args(argv)
 
-    import torch.distributed as dist
-
-    from ..parallel.mesh import barrier, init_distributed
+    from ..parallel.mesh import barrier, distributed
     from .config import parse_args
     from .trainer import Trainer
 
     config = parse_args(rest)
-    owned = not dist.is_initialized() and init_distributed(ns.device) is not None
-    try:
+    with distributed(ns.device):
         result = Trainer(config, device=ns.device).train()
         barrier()  # rank 0's export has landed before any rank leaves
         return result
-    finally:
-        if owned:
-            dist.destroy_process_group()
