@@ -30,6 +30,23 @@ with the launch counts set to 0 just before and read just after:
     GroupNorm calls must also be those derived from the config), and its
     artifacts, the augmentation tokens in its captions, and the native
     image ops against this machine's PIL are checked;
+  * `--attention_impl flash` at sd15 (`flash_impl_phase`): the flash
+    launches a train step (31 K1, 29 K2) and a validation round (751 K1)
+    derived on the meta device (also with --gradient_checkpointing and at a
+    tp rank's local heads); K2 at every form it serves since that flag came
+    (the 77 text keys at sd15's three levels and sd21base's level 0, sd15's
+    160-wide heads, D = 100, the VAE's 512-wide head, bf16 and fp32, a
+    kv_len inside the last tile, a packed fp32 view) against its plain
+    version on the same inputs (fp32 limits against fp64 for fp32 inputs),
+    with the variant that served it, a dropped-tile control, bit-identical
+    repeats and an untouched canary past N and M, timed beside its bound,
+    its plain version and SDPA; one sd15 step (batch 2) under flash against
+    the same step under auto at bf16 and fp32, with a control; then
+    `textboost_torch.train.main --attention_impl flash` at sd15, 512 px,
+    batch 8: 4 steps at bf16 with a validation round of one image, and 2
+    steps at the CLI's default fp32, whose launches must be those derived;
+    every kernel is held at every shape the runs gave it (K3/K4 in fp32 at
+    the fp32 run's GroupNorm keys);
   * the snapshot run: a full-width sd21base diffusers snapshot written from
     seeded weights (fp32 text encoder and VAE, fp16 UNet, a 49408-entry BPE
     tokenizer with sd2's pad token) is loaded back by `load_models` (family
@@ -81,25 +98,26 @@ with the launch counts set to 0 just before and read just after:
     path, with its launches at batch 8 and 16, its device time and host time
     per batch, and the bytes each path sends to the card per step;
   * data parallel (`dp_phase`): the paper run's flags at sd21base, global
-    batch 8, 6 steps with a checkpoint and a validation round every 3, each
-    run launched as a user would: in one process; under `python -m
+    batch 8, 4 steps with a checkpoint every 2 and a validation round at
+    step 4, each run launched as a user would: in one process; under `python -m
     torch.distributed.run --nproc_per_node 1 -m textboost_torch.train`
     (NCCL at world 1), which must leave the same bits; with two ranks
     sharing the card over gloo (batch 4 each), whose losses must be equal
     on both ranks and within a stated bf16 bound of the one-process run's,
-    rank 0 alone writing; and two ranks resumed from its checkpoint-3.  Each
+    rank 0 alone writing; and two ranks resumed from its checkpoint-2.  Each
     rank's launches must be those derived from the config at batch 4, and
     every kernel is held at the ranks' shapes.  The ranks' program is this
     script (`--dp-rank DIR -- FLAGS`: the trainer's `main` under the
     launch counts, its numbers into DIR);
   * tensor parallel (`tp_phase`): the report of the tp rules at sd15 and
     sd21base (parallel/validate.py, on the meta device); then the paper
-    run's flags plus the UNet's kv-LoRA at sd21base, global batch 8, 6 steps
-    with a checkpoint and a validation round every 3: in one process, with
+    run's flags plus the UNet's kv-LoRA at sd21base, global batch 8, 4 steps
+    with a checkpoint every 2 and a validation round at step 4: in one
+    process, with
     `--mesh_tp 2` as two ranks sharing the card over gloo (the frozen UNet
     and text encoder split by heads and FFN columns, both ranks on the same
     batch 8 and in every validation round), and those two ranks resumed
-    from checkpoint-3.  The ranks' losses and trainable weights (a digest
+    from checkpoint-2.  The ranks' losses and trainable weights (a digest
     after every step) must be equal, their losses and exports within a
     stated bf16 bound of the one process's, rank 1 must write nothing, each
     rank's launches must be the one process's, its kernel calls those
@@ -183,6 +201,14 @@ UNET_REL_L2 = 5e-2  # sd15 UNet output, kernels vs math, bf16 through ~100 layer
 # row, and must fail both limits.
 FLASH_BWD_REL_L2 = 5e-3
 FLASH_BWD_ROW_REL_L2 = 2e-2
+# fp32 inputs (K1's and K2's CUDA-core forms under --attention_impl flash):
+# against the plain version on the same inputs computed in fp64, relative L2
+# overall and over the worst row; lse absolute.  fp32 sums over up to 4096
+# keys in another order cost ~1e-6 (sqrt(4096) x 2^-24 x the terms'
+# spread); a kernel that drops one 32-key tile costs > 0.05.
+FLASH_FP32_REL_L2 = 1e-5
+FLASH_FP32_ROW_REL_L2 = 1e-4
+FLASH_FP32_LSE_ATOL = 1e-4
 # GroupNorm backward: dx in bf16 against the plain version from the same
 # inputs: one bf16 ulp where two fp32 results round apart.
 GN_BWD_RTOL, GN_BWD_ATOL = 2.0**-7, 1e-3
@@ -217,23 +243,27 @@ WGMMA_VARIANTS = {"wgmma", "wgmma_wide"}
 
 
 def flash_floors_ms(b: int, n: int, m: int, h: int, d: int, *, backward: bool,
-                    sm_count: int, sm_clock_hz: float) -> dict:
+                    sm_count: int, sm_clock_hz: float, fp32: bool = False) -> dict:
     """The least times (ms) the card could take for attention over q
-    [b, n, h, d], k/v [b, m, h, d] in a 16-bit type, one per resource:
-    "bytes" (every input read once, every output written once, lse fp32),
-    "tensor_cores" (two products forward, five backward, 2 operations per
-    multiply-add, at the card's dense 16-bit rate) and "exponentials" (one
-    ex2 per score at 16 per SM and clock)."""
+    [b, n, h, d], k/v [b, m, h, d] in a 16-bit type (or fp32), one per
+    resource: "bytes" (every input read once, every output written once,
+    lse fp32), "tensor_cores" (two products forward, five backward, 2
+    operations per multiply-add, at the card's dense 16-bit rate; in fp32
+    "cuda_cores", at the CUDA cores' fp32 rate) and "exponentials" (one ex2
+    per score at 16 per SM and clock)."""
     q_el, kv_el = b * n * h * d, b * m * h * d
+    size = 4 if fp32 else 2
     if backward:  # q, o, dO in, dq out; k, v in, dk, dv out; lse
-        nbytes = 2 * (4 * q_el + 4 * kv_el) + 4 * b * h * n
+        nbytes = size * (4 * q_el + 4 * kv_el) + 4 * b * h * n
         products = 5
     else:  # q in, o out; k, v in; lse
-        nbytes = 2 * (2 * q_el + 2 * kv_el) + 4 * b * h * n
+        nbytes = size * (2 * q_el + 2 * kv_el) + 4 * b * h * n
         products = 2
+    ops = products * 2 * b * h * n * m * d
     return {
         "bytes": nbytes / H100_BYTES_PER_S * 1e3,
-        "tensor_cores": products * 2 * b * h * n * m * d / H100_BF16_FLOPS * 1e3,
+        ("cuda_cores" if fp32 else "tensor_cores"):
+            ops / (H100_FP32_FLOPS if fp32 else H100_BF16_FLOPS) * 1e3,
         "exponentials": b * h * n * m / (EX2_PER_SM_CLOCK * sm_count * sm_clock_hz) * 1e3,
     }
 
@@ -298,11 +328,12 @@ def attention_fp32(q, k, v, scale: float, p_dtype=None, drop_keys: int = 0):
 PLAIN_SCORE_BYTES = 4 * 2**30  # the plain attention's fp32 [c, H, N, M] scores per call
 
 
-def plain_chunk(b: int, n: int, m: int, h: int) -> int:
+def plain_chunk(b: int, n: int, m: int, h: int, itemsize: int = 4) -> int:
     """Samples per call of the plain attention (forward or backward) whose
-    fp32 scores fit in PLAIN_SCORE_BYTES: sd21's 9216-token attention at
-    batch 32 would need 54 GB of scores in one call."""
-    return max(1, min(b, PLAIN_SCORE_BYTES // (4 * h * n * m)))
+    fp32 (or, as a reference, fp64) scores fit in PLAIN_SCORE_BYTES: sd21's
+    9216-token attention at batch 32 would need 54 GB of scores in one
+    call."""
+    return max(1, min(b, PLAIN_SCORE_BYTES // (itemsize * h * n * m)))
 
 
 def plain_attention(q, k, v, scale: float, backward_of=None):
@@ -313,7 +344,7 @@ def plain_attention(q, k, v, scale: float, backward_of=None):
     from textboost_torch.ops import flash_attention as fa
 
     b, n, h, _ = q.shape
-    c = plain_chunk(b, n, k.shape[1], h)
+    c = plain_chunk(b, n, k.shape[1], h, 8 if q.dtype == torch.float64 else 4)
     parts = []
     for i in range(0, b, c):
         sl = slice(i, i + c)
@@ -613,38 +644,50 @@ def check_flash_backward(gen, shapes=((8, 4096, 8, 40, 4096, 4096), (8, 1024, 8,
     return worst
 
 
-def check_flash_forward(gen, shapes) -> float:
-    """K1 against its plain version computed in fp32 at each (B, N, H, D, M)
-    of `shapes`, with the P-in-bf16 and dropped-tile controls printed; the
-    dropped tile must fail the limits.  Returns the largest |o error|."""
+def check_flash_forward(gen, shapes, dtype=None) -> float:
+    """K1 against its plain version at each (B, N, H, D, M) of `shapes` in
+    `dtype` (bf16 by default): computed in fp32 for a 16-bit type, with the
+    P-in-bf16 and dropped-tile controls printed, or in fp64 for fp32 inputs
+    (the fp32 limits), with the dropped-tile control; the dropped tile must
+    fail the limits.  Returns the largest |o error|."""
     import torch
 
     from textboost_torch.ops import flash_attention as fa
 
     dev, bf16 = gen.device, torch.bfloat16
+    dtype = dtype or bf16
+    fp32 = dtype == torch.float32
+    rel_lim, row_lim, lse_lim = ((FLASH_FP32_REL_L2, FLASH_FP32_ROW_REL_L2, FLASH_FP32_LSE_ATOL)
+                                 if fp32 else (FLASH_REL_L2, FLASH_ROW_REL_L2, FLASH_LSE_ATOL))
     worst = 0.0
     for b, n, h, d, m in shapes:
-        q = torch.randn(b, n, h, d, generator=gen, device=dev).to(bf16)
-        k = torch.randn(b, m, h, d, generator=gen, device=dev).to(bf16)
-        v = torch.randn(b, m, h, d, generator=gen, device=dev).to(bf16)
+        q = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, m, h, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, m, h, d, generator=gen, device=dev).to(dtype)
         o, lse = fa.flash_attention_forward(q, k, v, scale=d**-0.5)
         torch.cuda.synchronize()
-        ro, rl = plain_attention(q.float(), k.float(), v.float(), d**-0.5)
-        eo = (o.float() - ro).abs().max().item()
-        el = (lse - rl).abs().max().item()
-        rel, row = flash_errors(o, ro)
-        p_bf16 = flash_errors(attention_fp32(q, k, v, d**-0.5, p_dtype=bf16).to(bf16), ro)
-        dropped = flash_errors(attention_fp32(q, k, v, d**-0.5, drop_keys=64).to(bf16), ro)
-        print(f"[flash] B,N,H,D,M={b},{n},{h},{d},{m}: o rel L2 {rel:.3g} (limit "
-              f"{FLASH_REL_L2}), worst row {row:.3g} (limit {FLASH_ROW_REL_L2}), max|o err| "
+        rdt = torch.float64 if fp32 else torch.float32
+        ro, rl = plain_attention(q.to(rdt), k.to(rdt), v.to(rdt), d**-0.5)
+        eo = (o.to(rdt) - ro).abs().max().item()
+        el = (lse.to(rdt) - rl).abs().max().item()
+        rel, row = flash_errors(o.to(rdt), ro)
+        if fp32:
+            p_bf16 = (float("nan"),) * 2
+            dropped = flash_errors(plain_attention(q.to(rdt), k[:, 64:].to(rdt), v[:, 64:].to(rdt),
+                                                   d**-0.5)[0], ro)
+        else:
+            p_bf16 = flash_errors(attention_fp32(q, k, v, d**-0.5, p_dtype=bf16).to(bf16), ro)
+            dropped = flash_errors(attention_fp32(q, k, v, d**-0.5, drop_keys=64).to(bf16), ro)
+        print(f"[flash] B,N,H,D,M={b},{n},{h},{d},{m} {str(dtype)[6:]}: o rel L2 {rel:.3g} "
+              f"(limit {rel_lim}), worst row {row:.3g} (limit {row_lim}), max|o err| "
               f"{eo:.3g} of max|o| {ro.abs().max().item():.3g}, max|lse err| {el:.3g}; "
               f"controls rel L2 / worst row: P in bf16 {p_bf16[0]:.3g} / {p_bf16[1]:.3g}, "
               f"first 64 keys dropped {dropped[0]:.3g} / {dropped[1]:.3g}", flush=True)
-        if not (dropped[0] > FLASH_REL_L2 and dropped[1] > FLASH_ROW_REL_L2):
+        if not (dropped[0] > rel_lim and dropped[1] > row_lim):
             raise AssertionError("the flash limits would pass a kernel that drops a key tile")
-        if not (rel <= FLASH_REL_L2 and row <= FLASH_ROW_REL_L2 and el <= FLASH_LSE_ATOL):
+        if not (rel <= rel_lim and row <= row_lim and el <= lse_lim):
             raise AssertionError(f"flash attention disagrees with its plain version at "
-                                 f"{b, n, h, d, m}")
+                                 f"{b, n, h, d, m} {dtype}")
         worst = max(worst, eo)
         del q, k, v, o, lse, ro, rl
     return worst
@@ -713,6 +756,168 @@ def check_flash_edges() -> None:
             report.append("each sample bit-identical to its own call")
         print(f"[flash_edges] B,N,H,D,M,kv_len={b},{n},{h},{d},{m},{kv} {dtype}: rel L2 / worst "
               f"row: " + "; ".join(report), flush=True)
+
+
+# K2's forms that --attention_impl flash brings: (name, B, N, H, D, M,
+# kv_len, dtype name, the variant that must serve it, timed).  The
+# sd15 cross-attentions over the 77 text keys at the three levels, sd15's
+# 160-wide heads at 16x16 latents (self and cross), sd21base's level-0
+# cross-attention, D = 100 (no whole 16-byte chunks), the VAE's single
+# 512-wide head, each in bf16 and the main ones in fp32; then untimed edge
+# cases: a kv_len inside the last tile, a query length off the 128-row
+# tile, a head dim that is no multiple of 4.
+FLASH_BWD_FORMS = (
+    ("sd15_cross0_8x4096x8x40_m77", 8, 4096, 8, 40, 77, 77, "bfloat16", "wgmma", True),
+    ("sd15_cross1_8x1024x8x80_m77", 8, 1024, 8, 80, 77, 77, "bfloat16", "wgmma", True),
+    ("sd15_cross2_8x256x8x160_m77", 8, 256, 8, 160, 77, 77, "bfloat16", "cuda_cores", True),
+    ("sd15_self2_8x256x8x160", 8, 256, 8, 160, 256, 256, "bfloat16", "cuda_cores", True),
+    ("sd21base_cross0_8x4096x5x64_m77", 8, 4096, 5, 64, 77, 77, "bfloat16", "wgmma", True),
+    ("d100_2x1024x4x100", 2, 1024, 4, 100, 1024, 1024, "bfloat16", "cuda_cores", True),
+    ("vae_2x4096x1x512", 2, 4096, 1, 512, 4096, 4096, "bfloat16", "cuda_cores", True),
+    ("fp32_sd15_self0_8x4096x8x40", 8, 4096, 8, 40, 4096, 4096, "float32", "cuda_cores", True),
+    ("fp32_sd15_cross0_8x4096x8x40_m77", 8, 4096, 8, 40, 77, 77, "float32", "cuda_cores", True),
+    ("fp32_sd15_self2_8x256x8x160", 8, 256, 8, 160, 256, 256, "float32", "cuda_cores", True),
+    ("fp32_d100_2x1024x4x100", 2, 1024, 4, 100, 1024, 1024, "float32", "cuda_cores", True),
+    ("fp32_vae_2x4096x1x512", 2, 4096, 1, 512, 4096, 4096, "float32", "cuda_cores", True),
+    ("fp32_kv_tail_1x256x2x100_m256_kv200", 1, 256, 2, 100, 256, 200, "float32", "cuda_cores",
+     False),
+    ("ragged_2x300x3x80_m77_kv70", 2, 300, 3, 80, 77, 70, "bfloat16", "wgmma", False),
+    ("fp32_odd_1x300x2x33_m130", 1, 300, 2, 33, 130, 130, "float32", "cuda_cores", False),
+)
+CANARY_ROWS = 8  # rows past N (dq) or M (dk, dv) in each output buffer, which no launch may write
+CANARY = 7.0
+
+
+def k2_variant(dtype_name: str, d: int) -> str:
+    """The K2 variant that must serve an aligned call in `dtype_name` at head
+    dim `d`: wgmma for a 16-bit type at D <= 128 in whole 16-byte chunks,
+    else the CUDA cores."""
+    sixteen_bit = dtype_name in ("bfloat16", "float16")
+    return "wgmma" if sixteen_bit and d <= 128 and d % 8 == 0 else "cuda_cores"
+
+
+def check_flash_backward_form(gen, b, n, h, d, m, kv, dtype, variant, q=None, k=None, v=None):
+    """K2 at one form against its plain version on the same q, k, v, o, lse
+    and dO (computed in fp32 for a 16-bit type, in fp64 for fp32), with the
+    variant that served it, a dropped-tile control (the plain version over
+    keys past the variant's first key tile: 64 keys wgmma, 32 CUDA cores),
+    two calls bit-identical, zero rows past kv_len and an untouched canary
+    past N and M in the output buffers.  q, k, v may be given (views).
+    Returns (report, the largest |error|)."""
+    import torch
+
+    from textboost_torch.ops import flash_attention as fa
+
+    dev = gen.device
+    fp32 = dtype == torch.float32
+    rel_lim, row_lim = ((FLASH_FP32_REL_L2, FLASH_FP32_ROW_REL_L2) if fp32
+                        else (FLASH_BWD_REL_L2, FLASH_BWD_ROW_REL_L2))
+    if q is None:
+        q = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, m, h, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, m, h, d, generator=gen, device=dev).to(dtype)
+    do = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype)
+    scale = d**-0.5
+    o, lse = fa.flash_attention_forward(q, k, v, scale=scale, kv_len=kv)
+    bufs = [torch.full((b, rows + CANARY_ROWS, h, d), CANARY, dtype=dtype, device=dev)
+            for rows in (n, m, m)]
+    out = tuple(x[:, :rows] for x, rows in zip(bufs, (n, m, m)))
+    fa.bwd_variant_counts.clear()
+    grads = fa.flash_attention_backward(q, k, v, o, lse, do, scale=scale, kv_len=kv, out=out)
+    again = fa.flash_attention_backward(q, k, v, o, lse, do, scale=scale, kv_len=kv)
+    torch.cuda.synchronize()
+    where = f"{b, n, h, d, m, kv} {dtype}"
+    if dict(fa.bwd_variant_counts) != {variant: 2}:
+        raise AssertionError(f"the flash backward at {where} went through "
+                             f"{dict(fa.bwd_variant_counts)}, not {variant}")
+    if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+        raise AssertionError(f"two calls of the flash backward differ at {where}")
+    if not all(bool((x[:, rows:] == CANARY).all()) for x, rows in zip(bufs, (n, m, m))):
+        raise AssertionError(f"the flash backward wrote past N or M at {where}")
+    if grads[1][:, kv:].any() or grads[2][:, kv:].any():
+        raise AssertionError(f"dk or dv past kv_len is not zero at {where}")
+    rdt = torch.float64 if fp32 else torch.float32
+    ins = [t.to(rdt) for t in (q, k[:, :kv], v[:, :kv], o, lse, do)]
+    tile = 64 if variant == "wgmma" else 32
+    pad = (0, 0, 0, 0, 0, m - kv)
+    ref = plain_attention(*ins[:3], scale, backward_of=ins[3:])
+    ref = (ref[0], *(torch.nn.functional.pad(r, pad) for r in ref[1:]))
+    skip = plain_attention(ins[0], ins[1][:, tile:], ins[2][:, tile:], scale,
+                           backward_of=ins[3:])
+    skip = (skip[0], *(torch.nn.functional.pad(r, (0, 0, 0, 0, tile, m - kv)) for r in skip[1:]))
+    report, worst = [], 0.0
+    for name, g, r, c in zip(("dq", "dk", "dv"), grads, ref, skip):
+        rel, row = grad_errors(g.to(rdt), r)
+        crel, crow = grad_errors(c.to(dtype).to(rdt), r)
+        report.append(f"{name} {rel:.3g} / {row:.3g} (control {crel:.3g} / {crow:.3g})")
+        if not (crel > rel_lim and crow > row_lim):
+            raise AssertionError(f"the flash backward limits would pass a kernel that skips a "
+                                 f"key tile ({name} at {where})")
+        if not (rel <= rel_lim and row <= row_lim):
+            raise AssertionError(f"flash backward {name} disagrees with its plain version at "
+                                 f"{where}: {rel:.3g} / {row:.3g}")
+        worst = max(worst, (g.to(rdt) - r).abs().max().item())
+    text = (f"{variant}, rel L2 / worst row (limits {rel_lim} / {row_lim}; control: the first "
+            f"{tile} keys skipped): " + "; ".join(report) + "; two calls bit-identical, canary "
+            f"past N and M untouched")
+    return text, worst
+
+
+def check_flash_backward_forms(gen, card: dict) -> dict:
+    """K2 at every form of FLASH_BWD_FORMS (`check_flash_backward_form`),
+    plus a packed fp32 qkv view read in place; the timed forms' ms, plain
+    version's ms, SDPA's forward+backward minus forward, and bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from textboost_torch.ops import flash_attention as fa
+
+    dev = gen.device
+    rows, worst = {}, 0.0
+    for name, b, n, h, d, m, kv, dt, variant, timed in FLASH_BWD_FORMS:
+        dtype = getattr(torch, dt)
+        text, err = check_flash_backward_form(gen, b, n, h, d, m, kv, dtype, variant)
+        worst = max(worst, err)
+        line = f"[flash_bwd forms] {name} B,N,H,D,M,kv_len={b},{n},{h},{d},{m},{kv} {dt}: {text}"
+        if timed:
+            q, do = (torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, m, h, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+            scale = d**-0.5
+            o, lse = fa.flash_attention_forward(q, k, v, scale=scale)
+            qt, kt, vt = (z.transpose(1, 2).contiguous().requires_grad_() for z in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+
+            def sdpa_fwd():
+                return F.scaled_dot_product_attention(qt, kt, vt)
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+
+            row = {
+                "dtype": dt, "variant": variant, "shape": [b, n, h, d, m],
+                "ms": cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                                  scale=scale), 5, 1),
+                "plain_ms": cuda_ms(lambda: plain_attention(q, k, v, scale, (o, lse, do)), 2, 1),
+                "library_ms": cuda_ms(sdpa_fwd_bwd, 5, 1) - cuda_ms(sdpa_fwd, 5, 1),
+                **bound_of(flash_floors_ms(b, n, m, h, d, backward=True,
+                                           fp32=dtype == torch.float32, **card)),
+            }
+            rows[name] = row
+            line += (f"; {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, {row['bound_floor']}; "
+                     f"SDPA fwd+bwd minus fwd {row['library_ms']:.4f}; plain {row['plain_ms']:.3f})")
+            del q, k, v, do, o, lse, qt, kt, vt, dot
+        print(line, flush=True)
+        torch.cuda.empty_cache()
+    # q, k, v as slices of one packed fp32 [1, 1024, 2, 3 * 40 + 1] tensor:
+    # strides of 121 elements, read in place by the CUDA-core variant.
+    packed = torch.randn(1, 1024, 2, 121, generator=gen, device=dev)
+    q, k, v = (packed[..., 1 + 40 * i:1 + 40 * (i + 1)] for i in range(3))
+    text, err = check_flash_backward_form(gen, 1, 1024, 2, 40, 1024, 1024, torch.float32,
+                                          "cuda_cores", q, k, v)
+    worst = max(worst, err)
+    print(f"[flash_bwd forms] packed fp32 q/k/v views (strides 121 elements) "
+          f"B,N,H,D=1,1024,2,40: {text}", flush=True)
+    return {"rows": rows, "max_abs_err": worst}
 
 
 def flash_forward_times(gen, b: int, n: int, h: int, d: int, card: dict) -> dict:
@@ -854,6 +1059,305 @@ def train_step_parity(gen, instance_dir: str, output_dir: str):
     return out, shapes
 
 
+# --attention_impl flash at sd15 (`flash_impl_phase`): the training main
+# path at bf16 (FLASH_BF16_STEPS steps, then one validation round of one
+# image of FLASH_PROMPT) and at the CLI's default fp32 (FLASH_FP32_STEPS).
+FLASH_BF16_STEPS = 4
+FLASH_FP32_STEPS = 2
+FLASH_PROMPT = "photo of a <v*> dog"
+# One sd15 train step (batch 2) under --attention_impl flash against the
+# same step under auto (one state, batch and draws): relative difference of
+# the loss and relative L2 of the LoRA and added-embedding gradients.  bf16:
+# flash sends the cross-attentions and the 256-token level to the kernels,
+# auto to plain math, and the two round at other places, as the kernels and
+# math do in `train_step_parity`: its bounds.  fp32: both sum in
+# fp32 in another order (~1e-6 an attention) through the UNet's forward and
+# backward.  The control, a flash backward that leaves out the first 32
+# keys' dk and dv, must exceed the bound.
+FLASH_LOSS_REL = {"bf16": TRAIN_LOSS_REL, "fp32": 1e-4}
+FLASH_GRAD_REL_L2 = {"bf16": TRAIN_GRAD_REL_L2, "fp32": 1e-3}
+GN_FP32_TOL = 1e-5  # K3/K4 in fp32 against their plain versions (atol and rtol)
+
+
+def flash_flags(instance_dir: str, output_dir: str, batch: int, steps: int, bf16: bool, *extra):
+    """The sd15 training main path's flags with --attention_impl flash, at
+    bf16 or at the CLI's default fp32 (no --mixed_precision)."""
+    flags = train_flags(instance_dir, output_dir, batch, steps)
+    if not bf16:
+        i = flags.index("--mixed_precision")
+        del flags[i:i + 2]
+    return flags + ["--attention_impl", "flash", *extra]
+
+
+def flash_step_parity(gen, instance_dir: str, output_dir: str, bf16: bool) -> dict:
+    """One sd15 train step at batch 2 from one state, batch and draws under
+    'flash' and under 'auto', and the control (module note above)."""
+    import torch
+
+    from textboost_torch.lora.partition import lora_parameters
+    from textboost_torch.models.layers import set_attention_impl
+    from textboost_torch.ops import flash_attention as fa
+    from textboost_torch.train.config import parse_args
+    from textboost_torch.train.step import forward_backward
+    from textboost_torch.train.trainer import Trainer
+
+    prec = "bf16" if bf16 else "fp32"
+    trainer = Trainer(parse_args(flash_flags(instance_dir, output_dir, 2, 1, bf16)), device="cuda")
+    state, te = trainer.state, trainer.text_encoder
+    lora = lora_parameters(te)
+    with torch.no_grad():
+        for p in lora[1::2]:  # lora_B: nonzero, so that lora_A has gradients too
+            p.normal_(0.0, 0.01, generator=gen)
+    try:
+        batch = trainer._device_batch(next(iter(trainer.train_loader)),
+                                      next(iter(trainer.prior_loader)))
+    finally:
+        trainer.train_loader.stop()
+        trainer.prior_loader.stop()
+    draws = trainer._draws()
+
+    def run(impl):
+        for mod in (state.unet, state.vae):
+            set_attention_impl(mod, impl)
+        fa.launches = fa.bwd_launches = 0
+        loss, _ = forward_backward(state, trainer.step_config, batch, draws)
+        lora_grad = torch.cat([p.grad.float().flatten() for p in lora])
+        emb_grad = te.token_embedding.weight.grad[trainer.first_added_id:].float().clone()
+        return loss.item(), lora_grad, emb_grad, (fa.launches, fa.bwd_launches)
+
+    flash = run("flash")
+    auto = run("auto")
+    real_bwd = fa.flash_attention_backward
+
+    def skipping(*args, **kwargs):
+        dq, dk, dv = real_bwd(*args, **kwargs)
+        dk[:, :32] = 0
+        dv[:, :32] = 0
+        return dq, dk, dv
+
+    fa.flash_attention_backward = skipping
+    try:
+        control = run("flash")
+    finally:
+        fa.flash_attention_backward = real_bwd
+    out = {
+        "loss_rel_diff": abs(flash[0] - auto[0]) / abs(auto[0]),
+        "lora_grad_rel_l2": rel_l2(flash[1], auto[1]),
+        "emb_grad_rel_l2": rel_l2(flash[2], auto[2]),
+        "control_lora_grad_rel_l2": rel_l2(control[1], auto[1]),
+        "control_emb_grad_rel_l2": rel_l2(control[2], auto[2]),
+        "launches_flash": flash[3], "launches_auto": auto[3],
+    }
+    loss_lim, grad_lim = FLASH_LOSS_REL[prec], FLASH_GRAD_REL_L2[prec]
+    print(f"[flash parity] sd15 {prec} batch 2, one step under flash vs auto: loss "
+          f"{flash[0]:.7g} vs {auto[0]:.7g} (rel {out['loss_rel_diff']:.3g}, bound {loss_lim}); "
+          f"rel L2 of the LoRA grads {out['lora_grad_rel_l2']:.3g}, of the added-embedding grad "
+          f"{out['emb_grad_rel_l2']:.3g} (bound {grad_lim}); control (dk, dv of the first 32 "
+          f"keys left out) {out['control_lora_grad_rel_l2']:.3g} / "
+          f"{out['control_emb_grad_rel_l2']:.3g}; K1 / K2 launches flash {flash[3]}, auto "
+          f"{auto[3]}", flush=True)
+    if not (out["control_lora_grad_rel_l2"] > grad_lim and out["control_emb_grad_rel_l2"] > grad_lim):
+        raise AssertionError(f"the {prec} flash-vs-auto bound would pass a backward that drops "
+                             f"a key tile")
+    if not (out["loss_rel_diff"] <= loss_lim and out["lora_grad_rel_l2"] <= grad_lim
+            and out["emb_grad_rel_l2"] <= grad_lim):
+        raise AssertionError(f"the sd15 {prec} step under flash disagrees with the step under auto")
+    del trainer, state, te, lora, batch, draws
+    return out
+
+
+def check_group_norm_fp32(gen, fwd_keys, bwd_keys) -> float:
+    """K3 and K4 in fp32 at each (shape, groups, eps, silu) key against their
+    plain versions (GN_FP32_TOL; mean and rstd GN_STAT_RTOL).  Returns the
+    largest |error|."""
+    import torch
+
+    from textboost_torch.ops import group_norm as gn
+
+    dev, worst = gen.device, 0.0
+    for keys, backward in ((fwd_keys, False), (bwd_keys, True)):
+        for shape, groups, eps, silu in sorted(keys):
+            c = shape[1]
+            x = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+            gamma = torch.rand(c, generator=gen, device=dev) + 0.5
+            beta = torch.randn(c, generator=gen, device=dev)
+            y, mean, rstd = gn.group_norm_forward(x, gamma, beta, groups, eps=eps, silu=silu)
+            ry, rmean, rrstd = gn.group_norm_reference(x, gamma, beta, groups, eps, silu)
+            torch.testing.assert_close(mean, rmean, atol=1e-6, rtol=GN_STAT_RTOL)
+            torch.testing.assert_close(rstd, rrstd, atol=0, rtol=GN_STAT_RTOL)
+            got, ref = y, ry
+            if backward:
+                dy = torch.randn(shape, generator=gen, device=dev)
+                got = gn.group_norm_backward(x, gamma, beta, mean, rstd, dy, groups, eps, silu)
+                ref = gn.group_norm_backward_reference(x, gamma, beta, mean, rstd, dy, groups,
+                                                       eps, silu)
+            torch.testing.assert_close(got, ref, atol=GN_FP32_TOL, rtol=GN_FP32_TOL,
+                                       msg=lambda m: f"fp32 GroupNorm {shape} {silu}: {m}")
+            worst = max(worst, (got - ref).abs().max().item())
+            del x, y, mean, rstd, ry, rmean, rrstd, got, ref
+    return worst
+
+
+def flash_impl_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
+    """`--attention_impl flash` at sd15 (see the module docstring): the
+    launches derived on the meta device; K2 at its new forms; one step under
+    flash against the same step under auto at bf16 and fp32; the training
+    main path at bf16 with a validation round and at fp32; every kernel held
+    at every shape the runs gave it."""
+    import torch
+
+    from textboost_torch.models.configs import get_spec
+
+    t_phase = time.perf_counter()
+    spec = get_spec("sd15")
+
+    # a. the launches, derived on the meta device -----------------------------
+    def totals(calls):
+        return {k: sum(c.values()) for k, c in calls.items()}
+
+    per_step = train_step_calls("sd15", 8, 8, checkpointing=False, cross_lora_rank=0,
+                                impl="flash")
+    n_step = totals(per_step)
+    val = sampling_flash_calls("sd15", 2, 1)
+    round_k1 = 25 * sum(val["unet"].values()) + sum(val["decode"].values())
+    round_gn = expected_launches(spec, 25)[1]
+    if (n_step["flash"], n_step["flash_bwd"], round_k1) != (31, 29, 751):
+        raise AssertionError(f"the flash launches derived from the config {n_step}, a round "
+                             f"{round_k1}, are not 31 / 29 a step and 751 a round")
+    auto_step = totals(train_step_calls("sd15", 8, 8, checkpointing=False, cross_lora_rank=0))
+    ckpt_step = totals(train_step_calls("sd15", 8, 8, checkpointing=True, cross_lora_rank=0,
+                                        impl="flash"))
+    tp_calls = train_step_calls("sd15", 8, 8, checkpointing=False, cross_lora_rank=0,
+                                impl="flash", tp=2)
+    print(f"[flash derivation] sd15 batch 8 a train step under flash {n_step} (auto "
+          f"{auto_step}); with --gradient_checkpointing {ckpt_step}; a tp rank of 2 "
+          f"{totals(tp_calls)} at local heads {sorted(tp_calls['flash'])}; a validation round "
+          f"(one image of one prompt, CFG): K1 {round_k1} (30 a UNet call x 25, 1 decode), "
+          f"K3 {round_gn}", flush=True)
+
+    # b. K2 at its new forms ---------------------------------------------------
+    forms = check_flash_backward_forms(gen, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. one step under flash against the same step under auto ----------------
+    instance_dir = os.path.join(work, "instance")
+    os.makedirs(instance_dir)
+    write_instance_image(os.path.join(instance_dir, "dog.png"), seed=0)
+    parity = {}
+    for prec in ("bf16", "fp32"):
+        parity[prec] = flash_step_parity(gen, instance_dir, os.path.join(work, f"parity_{prec}"),
+                                         prec == "bf16")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # d. the main path: bf16 with a validation round, then fp32 ----------------
+    runs = {}
+    for prec, steps in (("bf16", FLASH_BF16_STEPS), ("fp32", FLASH_FP32_STEPS)):
+        out = os.path.join(work, f"run_{prec}")
+        extra = (["--validation_steps", str(steps), "--validation_prompts", FLASH_PROMPT,
+                  "--num_validation_images", "1"] if prec == "bf16" else [])
+        # Every bf16 K1 call of the run is wgmma or wgmma_wide; fp32 takes the CUDA cores.
+        run = instrumented_train(flash_flags(instance_dir, out, 8, steps, prec == "bf16", *extra),
+                                 trace_call=steps - 1,
+                                 variants=WGMMA_VARIANTS if prec == "bf16" else {"cuda_cores"})
+        dt = "bfloat16" if prec == "bf16" else "float32"
+        want_bwd = collections.Counter()
+        for key, c in per_step["flash_bwd"].items():
+            want_bwd[k2_variant(dt, key[3])] += steps * c
+        rounds = 1 if prec == "bf16" else 0
+        want = {"flash": steps * n_step["flash"] + rounds * round_k1,
+                "flash_bwd": steps * n_step["flash_bwd"],
+                "gn": steps * n_step["gn"] + rounds * round_gn,
+                "gn_bwd": steps * n_step["gn_bwd"]}
+        m = run["metrics"]
+        ev = run["events"]
+        step_ms = [ev[i - 1].elapsed_time(ev[i]) for i in range(1, len(ev))]
+        busy = sum(run["kernel_ms"].values())
+        port_ms = {name: sum(ms for key, ms in run["kernel_ms"].items()
+                             if any(tag in key for tag in tags))
+                   for name, tags in (("flash_attention_fwd", ("flash_fwd",)),
+                                      ("flash_attention_bwd", ("flash_bwd", "dq_kernel",
+                                                               "dkdv_kernel")),
+                                      ("group_norm", ("group_norm",)))}
+        print(f"[flash run] sd15 512 px batch 8 {prec} --attention_impl flash, {steps} steps"
+              f"{', a validation round of one image at step ' + str(steps) if rounds else ''} in "
+              f"{run['run_s']:.1f} s (model init, validation and export included): loss "
+              f"{m['loss']:.6g}, kpl {m['kpl']:.3g}, grad_norm {m['grad_norm']:.3g}; steps 2.. "
+              f"{[round(x, 1) for x in step_ms]} ms (CUDA events); traced step {steps}: "
+              f"{run['traced_wall_ms']:.1f} ms wall, {busy:.1f} ms of kernels (idle "
+              f"{1 - busy / run['traced_wall_ms']:.3f}), flash fwd "
+              f"{port_ms['flash_attention_fwd']:.1f} ms, flash bwd "
+              f"{port_ms['flash_attention_bwd']:.1f} ms; launches {run['launches']} (expected "
+              f"{want}); K1 by variant {run['variants']}, K2 {run['bwd_variants']}; {smi}",
+              flush=True)
+        for name, ms in run["kernel_ms"].most_common(6):
+            print(f"[flash run]   {ms:8.2f} ms  {name[:100]}", flush=True)
+        if run["launches"] != want:
+            raise AssertionError(f"the {prec} flash run launched {run['launches']}, "
+                                 f"expected {want}")
+        if run["bwd_variants"] != dict(want_bwd):
+            raise AssertionError(f"the {prec} flash run's K2 launches went through "
+                                 f"{run['bwd_variants']}, expected {dict(want_bwd)}")
+        if m["steps"] != steps or not all(math.isfinite(m[key]) for key in (
+                "loss", "kpl", "grad_norm", "added_embedding_norm")):
+            raise AssertionError(f"the {prec} flash run returned {m}")
+        names = ["text_encoder/adapter_model.safetensors", "text_encoder/adapter_config.json",
+                 "v*.bin", "training.log"] + ([f"validation_{steps}.jpg"] if rounds else [])
+        for name in names:
+            if not os.path.isfile(os.path.join(out, name)):
+                raise AssertionError(f"the {prec} flash run wrote no {name}")
+        runs[prec] = {"launches": run["launches"], "variants": run["variants"],
+                      "bwd_variants": run["bwd_variants"], "run_s": run["run_s"],
+                      "steps_ms": step_ms, "traced_step_wall_ms": run["traced_wall_ms"],
+                      "traced_step_kernel_ms": busy, "traced_port_kernel_ms": port_ms,
+                      "final_loss": m["loss"], "shapes": run["shapes"]}
+        shutil.rmtree(out)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # e. every kernel at every shape the runs gave it ---------------------------
+    form_keys = {(b, n, h, d, mm, dt) for _, b, n, h, d, mm, kv, dt, _, _ in FLASH_BWD_FORMS
+                 if kv == mm}
+    k1_err = k2_err = 0.0
+    held_now = {"k1": [], "k2": []}
+    for prec, dt in (("bf16", "bfloat16"), ("fp32", "float32")):
+        dtype = getattr(torch, dt)
+        shapes = runs[prec].pop("shapes")
+        k1_new = sorted(set(shapes["flash"]) - (held["flash"] if prec == "bf16" else set()))
+        k1_err = max(k1_err, check_flash_forward(gen, k1_new, dtype) if k1_new else 0.0)
+        held_now["k1"] += [(*k, dt) for k in k1_new]
+        bwd = sorted(k for k in set(shapes["flash_bwd"])
+                     if (*k, dt) not in form_keys
+                     and not (prec == "bf16" and k in held["flash_bwd"]))
+        for b, n, h, d, mm in bwd:
+            text, err = check_flash_backward_form(gen, b, n, h, d, mm, mm, dtype,
+                                                  k2_variant(dt, d))
+            k2_err = max(k2_err, err)
+            print(f"[flash_bwd] the {prec} run's B,N,H,D,M={b},{n},{h},{d},{mm}: {text}",
+                  flush=True)
+        held_now["k2"] += [(*k, dt) for k in bwd]
+        runs[prec]["k2_per_step"] = {str(k): c / (FLASH_BF16_STEPS if prec == "bf16"
+                                                  else FLASH_FP32_STEPS)
+                                     for k, c in shapes["flash_bwd"].items()}
+        if prec == "fp32":
+            gn_err = check_group_norm_fp32(gen, set(shapes["gn"]), set(shapes["gn_bwd"]))
+            print(f"[flash kernels] K3 / K4 in fp32 at the fp32 run's {len(shapes['gn'])} / "
+                  f"{len(shapes['gn_bwd'])} GroupNorm keys against their plain versions "
+                  f"(atol = rtol = {GN_FP32_TOL}): max|err| {gn_err:.3g}", flush=True)
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[flash kernels] held now: K1 at {held_now['k1']}, K2 at {held_now['k2']} (and the "
+          f"{len(FLASH_BWD_FORMS)} forms above); K2 launches a step by shape, bf16 "
+          f"{runs['bf16']['k2_per_step']}, fp32 {runs['fp32']['k2_per_step']}", flush=True)
+    print(f"[flash] the whole phase in {phase_s:.1f} s; {smi}", flush=True)
+    return {"launches": {prec: r["launches"] for prec, r in runs.items()},
+            "derived_per_step": n_step, "derived_round_k1": round_k1,
+            "k2_forms": forms["rows"], "k1_max_abs_err": k1_err,
+            "k2_max_abs_err": max(k2_err, forms["max_abs_err"]), "gn_fp32_max_abs_err": gn_err,
+            "parity": parity, "runs": runs, "phase_s": phase_s}
+
+
 def group_norm_calls(model: str, unet_batch: int = 8, decode_batch: int = 4,
                      encode_batch: int = 8):
     """The GroupNorm calls of the port's main paths at `model`'s full width,
@@ -903,8 +1407,71 @@ def group_norm_calls(model: str, unet_batch: int = 8, decode_batch: int = 4,
     return calls
 
 
+def flash_key(mod, args, impl: str):
+    """The flash kernels' key (B, N, H, D, M) of an attention layer's call
+    (a forward pre-hook's module and args) under `impl` ("auto", in bf16, or
+    "flash", which serves every dtype), or None where the call takes the
+    math path."""
+    import torch
+
+    from textboost_torch.models.layers import VAEAttention
+    from textboost_torch.ops.attention import use_flash
+    from textboost_torch.ops.flash_attention import supports_flash
+
+    x = args[0]
+    if isinstance(mod, VAEAttention):
+        b, c, h, w = x.shape
+        n, heads, d, m = h * w, 1, c, h * w
+    else:  # CrossAttention: self-attention, or cross-attention over args[1]
+        b, n, _ = x.shape
+        heads, d = mod.heads, mod.to_q.out_features // mod.heads
+        m = args[1].shape[1] if len(args) > 1 and args[1] is not None else n
+    serves = (supports_flash(n, m, d) if impl == "flash"
+              else use_flash("cuda", n, m, d, torch.bfloat16, False, False))
+    return (b, n, heads, d, m) if serves else None
+
+
+def sampling_flash_calls(model: str, unet_batch: int, decode_batch: int) -> dict:
+    """The flash forward's calls of one UNet forward (a sampling step under
+    CFG) and one VAE decode at `model`'s full width under
+    `--attention_impl flash`, found on the meta device: {"unet", "decode"},
+    Counters of (B, N, H, D, M)."""
+    import torch
+
+    from textboost_torch.models.configs import get_spec
+    from textboost_torch.models.layers import CrossAttention, VAEAttention, set_impl
+    from textboost_torch.models.unet import UNet2DCondition
+    from textboost_torch.models.vae import AutoencoderKL
+
+    spec = get_spec(model)
+    with torch.device("meta"):
+        unet, vae = UNet2DCondition(spec.unet), AutoencoderKL(spec.vae)
+    calls = {"unet": collections.Counter(), "decode": collections.Counter()}
+    part = ["unet"]
+
+    def hook(mod, args):
+        key = flash_key(mod, args, "flash")
+        if key is not None:
+            calls[part[0]][key] += 1
+
+    for net in (unet, vae):
+        set_impl(net, "math")  # the kernels take no meta tensors
+        for m in net.modules():
+            if isinstance(m, (CrossAttention, VAEAttention)):
+                m.register_forward_pre_hook(hook)
+    s, meta = spec.unet.sample_size, torch.device("meta")
+    with torch.no_grad():
+        unet(torch.empty(unet_batch, spec.unet.in_channels, s, s, device=meta),
+             torch.zeros(unet_batch, dtype=torch.long, device=meta),
+             torch.empty(unet_batch, 77, spec.unet.cross_attention_dim, device=meta))
+        part[0] = "decode"
+        vae.decode(torch.empty(decode_batch, spec.vae.latent_channels, s, s, device=meta))
+    return calls
+
+
 def train_step_calls(model: str, unet_batch: int, encode_batch: int, *,
-                     checkpointing: bool, cross_lora_rank: int, tp: int = 1) -> dict:
+                     checkpointing: bool, cross_lora_rank: int, tp: int = 1,
+                     impl: str = "auto") -> dict:
     """The kernel calls of one train step at `model`'s full width, found by
     running its UNet forward and backward (the text and the UNet's LoRA
     trainable, `gradient_checkpointing` as given) and its VAE encoder on the
@@ -915,14 +1482,15 @@ def train_step_calls(model: str, unet_batch: int, encode_batch: int, *,
     those the checkpointed blocks' recompute makes in the backward (torch
     runs it for the blocks that saved something: not for one whose inputs
     and parameters need no gradient); the backward kernels count the
-    forward calls whose input needs a gradient."""
+    forward calls whose input needs a gradient.  `impl` is the attention
+    layers' ("auto", counted in bf16, or "flash": `--attention_impl flash`,
+    the cross-attention over the text included)."""
     import torch
 
     from textboost_torch.models.configs import get_spec
     from textboost_torch.models.layers import CrossAttention, GroupNorm, VAEAttention, set_impl
     from textboost_torch.models.unet import UNet2DCondition
     from textboost_torch.models.vae import AutoencoderKL
-    from textboost_torch.ops.attention import use_flash
     from textboost_torch.parallel.tensor import TensorParallel, shard_
 
     spec = get_spec(model)
@@ -943,17 +1511,13 @@ def train_step_calls(model: str, unet_batch: int, encode_batch: int, *,
         record("gn", (tuple(args[0].shape), mod.num_groups, mod.eps, mod.silu), args[0])
 
     def attn_hook(mod, args):
-        x = args[0]
-        if isinstance(mod, VAEAttention):
-            b, c, h, w = x.shape
-            n, heads, d = h * w, 1, c
-        elif len(args) == 1:  # self-attention; cross-attention's 77 keys take the math path
-            b, n, _ = x.shape
-            heads, d = mod.heads, mod.to_q.out_features // mod.heads
-        else:
-            return
-        if use_flash("cuda", n, n, d, torch.bfloat16, False, False):
-            record("flash", (b, n, heads, d, n), x)
+        key = flash_key(mod, args, impl)
+        if key is not None:
+            # A call needs a gradient where its queries do, or (cross-attention)
+            # its keys from the trainable text do.
+            grad = args[0] if len(args) == 1 or args[1] is None else (
+                args[0] if args[0].requires_grad else args[1])
+            record("flash", key, grad)
 
     for net in (unet, vae):
         net.requires_grad_(False)
@@ -1248,12 +1812,13 @@ def group_norm_control(gen, key, backward: bool) -> None:
 
 
 @contextlib.contextmanager
-def kernel_calls(what: str):
+def kernel_calls(what: str, variants=WGMMA_VARIANTS):
     """Record the shape of every call of the four kernel wrappers, with the
     launch counts set to 0 on entry.  Yields a dict that holds, on exit,
     "shapes" (flash (B, N, H, D, M); GroupNorm (shape, groups, eps, silu),
-    the keys of the checks), "launches" and "variants" (the flash forward's,
-    all of which must be wgmma ones); calls must equal launches."""
+    the keys of the checks), "launches", "variants" (the flash forward's,
+    all of which must be in `variants`: by default the wgmma ones) and
+    "bwd_variants" (the flash backward's); calls must equal launches."""
     import torch
 
     from textboost_torch.ops import flash_attention as fa
@@ -1282,6 +1847,7 @@ def kernel_calls(what: str):
         setattr(mod, attr, recording(name))
     fa.launches = fa.bwd_launches = gn.launches = gn.bwd_launches = 0
     fa.variant_counts.clear()
+    fa.bwd_variant_counts.clear()
     out = {"shapes": shapes}
     try:
         yield out
@@ -1292,18 +1858,21 @@ def kernel_calls(what: str):
     out["launches"] = {"flash": fa.launches, "flash_bwd": fa.bwd_launches, "gn": gn.launches,
                        "gn_bwd": gn.bwd_launches}
     out["variants"] = dict(fa.variant_counts)
-    if set(out["variants"]) - WGMMA_VARIANTS or sum(out["variants"].values()) != fa.launches:
+    out["bwd_variants"] = dict(fa.bwd_variant_counts)
+    if set(out["variants"]) - set(variants) or sum(out["variants"].values()) != fa.launches:
         raise AssertionError(f"{what}'s flash forward launches went through {out['variants']}, "
-                             f"not all through {sorted(WGMMA_VARIANTS)}")
+                             f"not all through {sorted(variants)}")
     if {name: sum(c.values()) for name, c in shapes.items()} != out["launches"]:
         raise AssertionError(f"{what} called the kernel wrappers other than it launched: "
                              f"{out['launches']}")
 
 
-def instrumented_train(argv, trace_call=None, capture_call=None, on_step=None, run=None):
+def instrumented_train(argv, trace_call=None, capture_call=None, on_step=None, run=None,
+                       variants=WGMMA_VARIANTS):
     """`run(argv)` (default `textboost_torch.train.main`) with the launch
     counts set to 0 just before and read just after, every kernel call's
-    shape recorded (`kernel_calls`).  A CUDA event is recorded after each
+    shape recorded (`kernel_calls`, the flash forward's variants in
+    `variants`).  A CUDA event is recorded after each
     step call; call `trace_call` (0-based) is traced with torch.profiler
     after the queue has drained; call `capture_call` has its batch and draws
     copied to the host; `on_step(call, state, batch, metrics)` runs after
@@ -1346,7 +1915,7 @@ def instrumented_train(argv, trace_call=None, capture_call=None, on_step=None, r
 
     trainer_mod.make_train_step = timed_make
     try:
-        with kernel_calls("training") as rec:
+        with kernel_calls("training", variants) as rec:
             torch.cuda.synchronize()
             t0 = time.time()
             metrics = (run or train_pkg.main)(argv)
@@ -1360,6 +1929,7 @@ def instrumented_train(argv, trace_call=None, capture_call=None, on_step=None, r
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 kernel_ms[e.key] += e.self_device_time_total / 1e3
     return {"metrics": metrics, "launches": rec["launches"], "variants": rec["variants"],
+            "bwd_variants": rec["bwd_variants"],
             "run_s": run_s, "events": events, "traced_wall_ms": traced.get("wall_ms"),
             "kernel_ms": kernel_ms, "captured": captured, "shapes": rec["shapes"]}
 
@@ -2768,22 +3338,36 @@ def unet_calls(sampler: str, steps: int) -> int:
     return steps
 
 
-def cuda_kernel_counts(fn, repeat: int = 3) -> list:
-    """Device operations (kernels and copies) of one call of `fn` by name,
-    counted by torch.profiler in each of `repeat` calls after a warm one."""
+def cuda_kernel_counts(fns: dict, repeat: int = 6) -> dict:
+    """{key: [Counter of device operations (kernels and copies) by name]}:
+    one call of each of `fns` ({key: fn}) counted by torch.profiler in
+    `repeat` sessions, the keys taken in turn, after a warm call of each.
+    Late in this script a session may read other than a call's usual
+    count (an H100 saw 488 in most sessions of a call, at times 517 or
+    504, once 15), so `usual_count` takes the count most sessions read."""
     import torch
     import torch.profiler
 
-    fn()
-    counts = []
+    for fn in fns.values():
+        fn()
+    counts = {key: [] for key in fns}
     for _ in range(repeat):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
+        for key, fn in fns.items():
             torch.cuda.synchronize()
-        counts.append(collections.Counter({e.key: e.count for e in prof.key_averages()
-                                           if e.device_type == torch.autograd.DeviceType.CUDA}))
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            counts[key].append(collections.Counter(
+                {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}))
     return counts
+
+
+def usual_count(totals) -> int:
+    """The count that most profiler sessions of one call read (the first
+    such on a tie)."""
+    return collections.Counter(totals).most_common(1)[0][0]
 
 
 def aug_cases(size: int):
@@ -2850,14 +3434,15 @@ def device_augment_checks(bank_np, size: int, square_path: str) -> dict:
     plans8 = [da.encode_plan(steps, size, img, top, left)
               for steps, img, top, left in cases["plans"][:8]]
     batches = {b: da.stack_aug_params(plans8 * (b // 8)) for b in (8, 16)}
-    counted = {b: cuda_kernel_counts(lambda: da.augment_batch(bank, p, size))
-               for b, p in batches.items()}
+    counted = cuda_kernel_counts({b: (lambda p=p: da.augment_batch(bank, p, size))
+                                  for b, p in batches.items()})
     each = {b: [sum(c.values()) for c in counts] for b, counts in counted.items()}
-    launches = {b: min(n) for b, n in each.items()}
+    launches = {b: usual_count(n) for b, n in each.items()}
     if launches[8] != launches[16]:
-        print(f"[sd21 augment] device operations by call {each}; by name at 16 but not at 8 "
-              f"{dict(counted[16][-1] - counted[8][-1])}, at 8 but not at 16 "
-              f"{dict(counted[8][-1] - counted[16][-1])}", flush=True)
+        usual = {b: counted[b][each[b].index(n)] for b, n in launches.items()}
+        print(f"[sd21 augment] device operations by session {each}; by name at 16 but not at 8 "
+              f"{dict(usual[16] - usual[8])}, at 8 but not at 16 {dict(usual[8] - usual[16])}",
+              flush=True)
     card_ms = {b: cuda_ms(lambda: da.augment_batch(bank, p, size), 10)
                for b, p in batches.items()}
     ops = sorted({k for steps, *_ in cases["plans"][:8] for k in (s["op"] for s in steps)})
@@ -2865,7 +3450,7 @@ def device_augment_checks(bank_np, size: int, square_path: str) -> dict:
           f"on the CPU, max |diff| by case {vs_cpu} (limits {AUG_CPU_LIMITS}); against the host "
           f"PIL path on the square image {vs_host} (limits {AUG_HOST_LIMITS}), {exact} of "
           f"{AUG_SWEEP} full plans pixel-identical (at least {AUG_EXACT_MIN}); device operations "
-          f"per batch {launches[8]} at batch 8, {launches[16]} at 16 (each call {each}; ops "
+          f"per batch {launches[8]} at batch 8, {launches[16]} at 16 (each session {each}; ops "
           f"{ops}); device time "
           f"per batch {card_ms[8]:.3f} ms at 8, {card_ms[16]:.3f} ms at 16", flush=True)
     if bad or exact < AUG_EXACT_MIN:
@@ -2874,7 +3459,7 @@ def device_augment_checks(bank_np, size: int, square_path: str) -> dict:
         raise AssertionError(f"the device augmentation's launches grew with the batch: {launches}")
     del bank
     return {"plans": len(rows), "max_diff_vs_cpu": vs_cpu, "max_diff_vs_host": vs_host,
-            "exact_plans": exact, "launches_per_batch": launches, "launches_by_call": each,
+            "exact_plans": exact, "launches_per_batch": launches, "launches_by_session": each,
             "card_ms_per_batch": card_ms}
 
 
@@ -3200,12 +3785,16 @@ def sd21_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
 
 
 # Data parallel at sd21base (`dp_phase`): the paper run's flags at global
-# batch 8, DP_STEPS steps with a checkpoint and a validation round every
-# DP_CADENCE, each run a process of its own (or two) launched as a user would.
-DP_STEPS = 6
-DP_CADENCE = 3
+# batch 8, DP_STEPS steps with a checkpoint every DP_CADENCE and a
+# validation round every DP_VALIDATION, each run a process of its own (or
+# two) launched as a user would.  Few steps, so that the script keeps its
+# time limit: a resume from checkpoint-2 still crosses a checkpoint and a
+# round.
+DP_STEPS = 4
+DP_CADENCE = 2
+DP_VALIDATION = 4
 DP_RANKS = 2  # sharing the one card: gloo (NCCL refuses two ranks on one device)
-DP_WARM_STEPS = (3, 5, 6)  # step 4 carries step 3's checkpoint and validation round
+DP_WARM_STEPS = (2, 4)  # step 3 carries step 2's checkpoint
 DP_LAUNCH_TIMEOUT_S = 300
 # The 2-rank run against the one-process run at batch 8, bf16: the same
 # samples and draws, but each rank's UNet runs at batch 4, where cuBLAS and
@@ -3215,7 +3804,7 @@ DP_LAUNCH_TIMEOUT_S = 300
 # exported LoRA and 3.4e-3 for the added rows (embedding lr 1e-3, near-sign
 # AdamW steps); the bounds are ~6-9x those, and below a bf16 ulp for the loss.
 DP_LOSS_REL = 2e-3  # each step's loss
-DP_REL_L2 = 2e-2  # the exported LoRA and added rows after 6 AdamW steps
+DP_REL_L2 = 2e-2  # the exported LoRA and added rows after DP_STEPS AdamW steps
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -3405,7 +3994,7 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     t_phase = time.perf_counter()
     spec = get_spec("sd21base")
     per_step, per_round = expected_train_launches(spec), expected_launches(spec, 25)
-    rounds = DP_STEPS // DP_CADENCE
+    rounds = DP_STEPS // DP_VALIDATION
     instance_dir = os.path.join(work, "instance")
     os.makedirs(instance_dir)
     write_instance_image(os.path.join(instance_dir, "teapot.png"), seed=1)
@@ -3414,7 +4003,7 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     def flags(name, *extra):
         return paper_flags(instance_dir, dirs[name], f"--max_train_steps={DP_STEPS}",
                            f"--checkpointing_steps={DP_CADENCE}",
-                           f"--validation_steps={DP_CADENCE}", *extra)
+                           f"--validation_steps={DP_VALIDATION}", *extra)
 
     def torchrun(nproc):
         return [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -3456,8 +4045,9 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     same_records = [[r.get(k) for k in keys] for r in records["one"]] == [
         [r.get(k) for k in keys] for r in records["nccl"]]
     print(f"[dp nccl] python -m torch.distributed.run --standalone --nproc_per_node 1 -m "
-          f"textboost_torch.train, {DP_STEPS} steps sd21base batch 8 bf16 (checkpoint and "
-          f"validation every {DP_CADENCE}), against the same run without a launcher: backend "
+          f"textboost_torch.train, {DP_STEPS} steps sd21base batch 8 bf16 (a checkpoint every "
+          f"{DP_CADENCE}, a validation round every {DP_VALIDATION}), against the same run "
+          f"without a launcher: backend "
           f"{backend_nccl}, all-reduce {nccl_reduce[0]} calls of {nccl_reduce[1]} bytes, "
           f"median {nccl_reduce[2]} ms (CUDA events); losses by step "
           f"{'the same bits' if nccl_losses == one['loss_by_step'] else 'DIFFER'} "
@@ -3471,8 +4061,8 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     # b. two ranks on the card over gloo; their resume ---------------------------
     two_out, two = ranks("two", DP_RANKS)
     backends = [(r["rank"], r["dp"].get("dp_backend"), r["dp"].get("dp_world")) for r in two]
-    # Each rank's all-reduce at the warm steps (rank 1's at step 4 waits for
-    # rank 0's checkpoint and validation round).
+    # Each rank's all-reduce at the warm steps (rank 1's at step 3 waits for
+    # rank 0's checkpoint).
     reduce_ms = [float(np.median([r["dp"]["all_reduce_ms_by_call"][s - 1]
                                   for s in DP_WARM_STEPS])) for r in two]
     shutil.copytree(os.path.join(dirs["two"], f"checkpoint-{DP_CADENCE}"),
@@ -3636,7 +4226,8 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
 
 
 # Tensor parallel at sd21base (`tp_phase`): the dp phase's run (DP_STEPS
-# steps, a checkpoint and a validation round every DP_CADENCE) plus the
+# steps, a checkpoint every DP_CADENCE, a validation round every
+# DP_VALIDATION) plus the
 # UNet's kv-LoRA, in one process and as TP_RANKS ranks of one tp group.
 TP_RANKS = 2  # sharing the one card over gloo, as the dp phase's ranks
 TP_LEVEL1 = (8, 1024, 5, 64)  # UNet level 1 at tp 2: 10 heads, 5 a rank
@@ -3692,7 +4283,7 @@ def tp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
 
     spec = get_spec("sd21base")
     per_step, per_round = expected_train_launches(spec), expected_launches(spec, 25)
-    rounds = DP_STEPS // DP_CADENCE
+    rounds = DP_STEPS // DP_VALIDATION
     instance_dir = os.path.join(work, "instance")
     os.makedirs(instance_dir)
     write_instance_image(os.path.join(instance_dir, "teapot.png"), seed=1)
@@ -3701,7 +4292,7 @@ def tp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     def ranks(name, nproc, *extra):
         flags = paper_flags(instance_dir, dirs[name], f"--max_train_steps={DP_STEPS}",
                             f"--checkpointing_steps={DP_CADENCE}",
-                            f"--validation_steps={DP_CADENCE}",
+                            f"--validation_steps={DP_VALIDATION}",
                             f"--num_validation_images={TP_VALIDATION_IMAGES}",
                             "--unet_params_to_train=crossattn_kv", *extra)
         return launch_rank_program(work, name, nproc, flags,
@@ -3929,6 +4520,16 @@ def gen_rank(json_dir: str, jobs_path: str) -> int:
     return 0
 
 
+def joined_ranks(out: str) -> list:
+    """[(rank, world, backend)] of each "torch.distributed: rank ..." message
+    in a launch's output.  The ranks share one pipe and, with Python's
+    stdout unbuffered, a message and its newline are two writes: another
+    rank's message may land between them, so each message is matched alone
+    and not up to its line's end."""
+    return re.findall(r"torch\.distributed: rank (\d+) of (\d+) \(local \d+ of \d+\), "
+                      r"backend (\w+)", out)
+
+
 def generation_calls(batches) -> dict:
     """The kernel launches and GroupNorm calls derived from the config at
     sd21base for sampling calls of `batches` prompts (25 steps, CFG)."""
@@ -4137,7 +4738,7 @@ def native_dp_phase(gen, card: dict, work: str, smi: str, held: dict, snap: str)
     for d in ("dp", "one"):
         with open(os.path.join(sweep_dir, f"metric_last_{d}.csv")) as f:
             csvs[d] = f.read()
-    backends = re.findall(r"torch\.distributed: rank (\d) of (\d) .*backend (\w+)", dp_out)
+    backends = joined_ranks(dp_out)
     want_batches = [[[half], [sub, sub]], [[half], [sub, 25 - 3 * sub]]]
     want_one = [[half], [half], [len(GEN_SEEDS)], [len(GEN_SEEDS)], [sub, sub, sub, 25 - 3 * sub]]
     got_batches = [[j["batches"] for j in r["jobs"]] for r in ranks]
@@ -4594,6 +5195,17 @@ def main() -> int:
     held["gn_rows"] = {**gn_rows, **held["gn_rows"]}
     held["gn_bwd_rows"] = {**gn_bwd_rows, **held["gn_bwd_rows"]}
 
+    # 11b. main path: --attention_impl flash at sd15, bf16 and fp32, with K2
+    # at its new forms --------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_work = tempfile.TemporaryDirectory()
+    sd15_held = {"flash": held["flash"] | {(8, 4096, 8, 40, 4096), (8, 1024, 8, 80, 1024),
+                                           (4, 4096, 1, 512, 4096), (8, 4096, 8, 40, 77)},
+                 "flash_bwd": held["flash_bwd"] | {(8, 4096, 8, 40, 4096), (8, 1024, 8, 80, 1024)}}
+    fl = flash_impl_phase(gen, card, flash_work.name, smi, sd15_held)
+    flash_work.cleanup()
+
     # 12. main path: training from a diffusers snapshot with the DB runner's
     # remaining flags, then serving its output over the snapshot ------------
     gc.collect()
@@ -4650,6 +5262,8 @@ def main() -> int:
     native_work.cleanup()
     snapshot_work.cleanup()
     by_path = {name: {"generate_sd15": launches.get(key, 0), "train_sd15": tr["launches"][key],
+                      "flash_sd15_bf16": fl["launches"]["bf16"][key],
+                      "flash_sd15_fp32": fl["launches"]["fp32"][key],
                       "paper_sd21base": paper["launches"][key],
                       "paper_sd21base_resumed": paper["resumed_launches"][key],
                       "snapshot_sd21base": snap["launches"][key],
@@ -4670,7 +5284,8 @@ def main() -> int:
               "source": "textboost_torch/csrc/flash_attention_fwd.cu",
               "replaces": "textboost_tpu/ops/flash_attention.py:42",
               "launches": sd21["launches"]["flash"],
-              "max_abs_err": max(flash_err, paper["k1_max_abs_err"], snap["k1_max_abs_err"],
+              "max_abs_err": max(flash_err, paper["k1_max_abs_err"], fl["k1_max_abs_err"],
+                                 snap["k1_max_abs_err"],
                                  bench["k1_max_abs_err"], sd21["k1_max_abs_err"],
                                  dp["k1_max_abs_err"], tp["k1_max_abs_err"],
                                  nd["k1_max_abs_err"])},
@@ -4691,7 +5306,8 @@ def main() -> int:
               "source": "textboost_torch/csrc/flash_attention_bwd.cu",
               "replaces": "textboost_tpu/ops/flash_attention.py:119",
               "launches": sd21["launches"]["flash_bwd"],
-              "max_abs_err": max(flash_bwd_err, paper["k2_max_abs_err"], snap["k2_max_abs_err"],
+              "max_abs_err": max(flash_bwd_err, paper["k2_max_abs_err"], fl["k2_max_abs_err"],
+                                 snap["k2_max_abs_err"],
                                  bench["k2_max_abs_err"], sd21["k2_max_abs_err"],
                                  dp["k2_max_abs_err"], tp["k2_max_abs_err"],
                                  nd["k2_max_abs_err"])},
@@ -4702,14 +5318,18 @@ def main() -> int:
                            **{f"snapshot_{k}": v for k, v in snap["k2"].items()},
                            **paper["k2"], **{f"sd15_{k}": v for k, v in fb_t.items()},
                            **{f"dp_{k}": v for k, v in dp["k2"].items()},
-                           **{f"tp_{k}": v for k, v in tp["k2"].items()}},
+                           **{f"tp_{k}": v for k, v in tp["k2"].items()},
+                           **{f"flash_impl_{k}": v for k, v in fl["k2_forms"].items()}},
              launches_by_path=by_path["flash_attention_bwd"],
+             variants={"flash_sd15_bf16": fl["runs"]["bf16"]["bwd_variants"],
+                       "flash_sd15_fp32": fl["runs"]["fp32"]["bwd_variants"]},
              launches_per_train_step=snap["launches"]["flash_bwd"] / SNAPSHOT_STEPS),
         {"name": "group_norm_fwd", "route": "cuda",
          "source": "textboost_torch/csrc/group_norm_fwd.cu",
          "replaces": "textboost_tpu/ops/group_norm.py:58",
          "launches": sd21["launches"]["gn"],
-         "max_abs_err": max(gn_err, paper["gn_max_abs_err"], snap["gn_max_abs_err"],
+         "max_abs_err": max(gn_err, paper["gn_max_abs_err"], fl["gn_fp32_max_abs_err"],
+                            snap["gn_max_abs_err"],
                             bench["gn_max_abs_err"], sd21["gn_max_abs_err"],
                             dp["gn_max_abs_err"], nd["gn_max_abs_err"]),
          **{k: v for k, v in sd21["gn_main"]["fwd"].items() if k != "launches"},
@@ -4728,7 +5348,8 @@ def main() -> int:
          "source": "textboost_torch/csrc/group_norm_bwd.cu",
          "replaces": "textboost_tpu/ops/group_norm.py:93",
          "launches": sd21["launches"]["gn_bwd"],
-         "max_abs_err": max(gn_bwd_err, paper["gn_bwd_max_abs_err"], snap["gn_bwd_max_abs_err"],
+         "max_abs_err": max(gn_bwd_err, paper["gn_bwd_max_abs_err"], fl["gn_fp32_max_abs_err"],
+                            snap["gn_bwd_max_abs_err"],
                             bench["gn_bwd_max_abs_err"], sd21["gn_bwd_max_abs_err"],
                             dp["gn_bwd_max_abs_err"], nd["gn_bwd_max_abs_err"]),
          **{k: v for k, v in sd21["gn_main"]["bwd"].items() if k != "launches"},
@@ -4755,6 +5376,8 @@ def main() -> int:
                   "final_loss": m["loss"], "step_parity_batch2": parity},
         "paper_run_sd21base": {k: v for k, v in paper.items()
                                if not (k in ("k1", "k2") or k.endswith("max_abs_err"))},
+        "flash_impl_sd15": {k: v for k, v in fl.items()
+                            if not (k == "k2_forms" or k.endswith("max_abs_err"))},
         "snapshot_run_sd21base": {k: v for k, v in snap.items()
                                   if not (k in ("k1", "k2") or k.endswith("max_abs_err"))},
         "benchmark_sd21base": {k: v for k, v in bench.items()

@@ -103,6 +103,15 @@ def test_each_op_matches_the_jax_executor(executed, case):
         assert not np.array_equal(got[idx[0]], got[idx[1]])
 
 
+@pytest.mark.parametrize("totals, usual", [([488, 488, 15], 488), ([504, 517, 517], 517),
+                                           ([488, 488, 488, 517, 488, 488], 488),
+                                           ([492, 517, 517, 492], 492)])
+def test_a_call_s_operations_are_what_most_sessions_read(totals, usual):
+    import chip_smoke
+
+    assert chip_smoke.usual_count(totals) == usual
+
+
 def _img(size=HS, seed=0):
     return Image.fromarray(np.random.RandomState(seed).randint(0, 255, (size, size, 3),
                                                                dtype=np.uint8))

@@ -157,6 +157,18 @@ def test_seeds_follow_the_jax_condition():
     assert inference.seeds_of_rank([5, 6, 7], 1, 0) == ([5, 6, 7], False)
 
 
+def test_rank_messages_are_read_from_interleaved_output(runs):
+    import chip_smoke
+
+    line = "torch.distributed: rank {} of 2 (local {} of 2), backend gloo, device cuda:{}"
+    one, zero = line.format(1, 1, 1), line.format(0, 0, 0)
+    # a message and its newline are two writes: rank 0's may land between rank 1's
+    interleaved = f"x\n{one}{zero}\n\n[Gloo] Rank 0 is connected\n"
+    assert chip_smoke.joined_ranks(interleaved) == [("1", "2", "gloo"), ("0", "2", "gloo")]
+    assert sorted(chip_smoke.joined_ranks(runs["stdout"])) == [("0", "2", "gloo"),
+                                                               ("1", "2", "gloo")]
+
+
 def test_inference_ranks_equal_one_process_runs_of_their_seeds(runs):
     one = runs["one"]
     dp = _grid(runs["grids"][4], 4)

@@ -124,9 +124,22 @@ def test_backward_kernels_match_plain_versions_on_the_card():
     assert all(t.is_contiguous() and t.data_ptr() % 16 == 8 for t in off)
     got = fa.flash_attention_backward(*off[:4], li, off[4], scale=40**-0.5)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
-    with pytest.raises(NotImplementedError, match="queue B"):
-        fa.flash_attention(*(torch.randn(1, 256, 1, 512, device="cuda", dtype=torch.bfloat16,
-                                         requires_grad=True) for _ in range(3)), scale=0.1)
+    # A 512-wide head trains through the CUDA-core backward: its gradients
+    # against the plain version on the same o and lse, computed in fp32.
+    q, k, v = (torch.randn(1, 256, 1, 512, generator=g, device="cuda").bfloat16()
+               .requires_grad_() for _ in range(3))
+    do = torch.randn(1, 256, 1, 512, generator=g, device="cuda").bfloat16()
+    fa.bwd_variant_counts.clear()
+    fa.flash_attention(q, k, v, scale=512**-0.5).backward(do)
+    assert dict(fa.bwd_variant_counts) == {"cuda_cores": 1}
+    qf, kf, vf = (t.detach().float() for t in (q, k, v))
+    with torch.no_grad():
+        o, lse = fa.flash_attention_forward(q, k, v, scale=512**-0.5)
+    refs = fa.flash_attention_backward_reference(qf, kf, vf, o.float(), lse, do.float(),
+                                                 512**-0.5)
+    for t, ref in zip((q, k, v), refs):
+        diff = t.grad.float() - ref
+        assert (diff.norm() / ref.norm()).item() <= 5e-3
     # GroupNorm backward against its plain version (bf16: one ulp; fp32 tight).
     for shape, silu, dtype in (((2, 320, 32, 32), True, torch.bfloat16),
                                ((2, 640, 16, 16), False, torch.bfloat16),

@@ -137,14 +137,36 @@ def test_flash_dispatch_trains_through_the_function():
 
 
 def test_flash_backward_envelope():
-    q = torch.zeros(1, 256, 1, 512, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue B"):
-        fa.check_backward_envelope(q)
-    with pytest.raises(NotImplementedError, match="queue B"):
-        fa.check_backward_envelope(torch.zeros(1, 256, 1, 40))  # fp32
-    with pytest.raises(NotImplementedError, match="queue B"):
-        fa.check_backward_envelope(torch.zeros(1, 256, 1, 44, dtype=torch.float16))
+    # The backward serves the JAX kernel's envelope: wide heads, fp32, head
+    # dims that are no multiple of 8; only a head past 512 is refused.
+    fa.check_backward_envelope(torch.zeros(1, 256, 1, 512, dtype=torch.bfloat16))
+    fa.check_backward_envelope(torch.zeros(1, 256, 1, 40))  # fp32
+    fa.check_backward_envelope(torch.zeros(1, 256, 1, 44, dtype=torch.float16))
     fa.check_backward_envelope(torch.zeros(1, 256, 1, 80, dtype=torch.bfloat16))
+    with pytest.raises(NotImplementedError, match="D <= 512"):
+        fa.check_backward_envelope(torch.zeros(1, 256, 1, 513))
+
+
+@pytest.mark.parametrize("d,dtype,m", [(512, torch.bfloat16, 256), (40, torch.float32, 77),
+                                       (44, torch.float16, 256), (160, torch.float32, 77)])
+def test_flash_function_serves_the_widened_envelope(d, dtype, m):
+    """The forms the backward once refused (a 512-wide head, fp32, D % 8 !=
+    0, sd15's 160-wide heads over the 77 text keys) train through the
+    Function; on the CPU its plain versions match math autograd."""
+    rng = np.random.default_rng(15)
+    q = torch.from_numpy(_randn(rng, 1, 256, 1, d)).to(dtype).requires_grad_()
+    k, v = (torch.from_numpy(_randn(rng, 1, m, 1, d)).to(dtype).requires_grad_()
+            for _ in range(2))
+    do = torch.from_numpy(_randn(rng, 1, 256, 1, d)).to(dtype)
+    fa.flash_attention(q, k, v, scale=d**-0.5).backward(do)
+    got = [t.grad.float() for t in (q, k, v)]
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    math_attention(*ref, None, d**-0.5).backward(do.float())
+    # fp32 sums in another order; 16-bit: the plain version's gradients are
+    # rounded once to the input dtype (2**-8 relative for bf16).
+    tol = (2e-6, 1e-5) if dtype == torch.float32 else (1e-2, 1e-2)
+    for g, r, name in zip(got, ref, "qkv"):
+        torch.testing.assert_close(g, r.grad, atol=tol[0], rtol=tol[1], msg=f"d{name}")
 
 
 # ---------------------------------------------------------------------------

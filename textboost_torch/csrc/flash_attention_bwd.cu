@@ -12,8 +12,11 @@
 //   dK = scale * dS^T q,   dQ = scale * dS k
 //
 // Layout: q/o/dO [B, N, H, D] and k/v [B, M, H, D], read in place through
-// their strides (head dim contiguous); dq, dk, dv are written contiguous in
-// the input dtype, rows of dk/dv at or past kv_len as zeros.
+// their strides (head dim contiguous); dq, dk, dv are written through their
+// strides in the input dtype, rows of dk/dv at or past kv_len as zeros, and
+// no row at or past N (dq) or M (dk, dv).  K and V are never padded in
+// device memory: keys past kv_len read as zeros (TMA zero fill, or the
+// CUDA-core staging) and are masked.
 //
 // Design: the deterministic two-kernel split.  The TPU kernel runs its grid
 // in order on one core, so one fused program per KV block can add into a dq
@@ -53,11 +56,24 @@
 // score tiles exceed the registers (ptxas spills 320 bytes and serialises
 // the wgmma there); no shipped config trains at that head dim.
 //
-// Envelope: bf16/fp16, D <= 128, D and every stride a multiple of 8, 16-byte
-// aligned pointers (the wrapper makes contiguous copies of views that are
-// not).  That covers every self-attention the "auto" rule sends with a
-// gradient (sd15 d = 40, 80; sd21 d = 64).  fp32, D > 128 (the VAE's d = 512,
-// which trains no gradient) and D % 8 != 0 are refused: ROADMAP.md queue B.
+// Envelope: the JAX backward's (fp32/fp16/bf16, any D <= 512, any KV
+// length), in two variants the C entry point chooses between and reports:
+//   wgmma (above): bf16/fp16, D <= 128, D and every stride a multiple of 8,
+//   16-byte aligned pointers (the wrapper asks tb_flash_attention_bwd_wgmma_form
+//   and copies a view of such a tensor that is not).  It serves every self- and cross-attention of the shipped
+//   configs at D = 40, 64 and 80, the 77 text keys included.
+//   CUDA cores (cc:: below): fp32 at any D, 128 < D <= 512 (sd15's 160-wide
+//   heads at 16x16 latents, the VAE's 512), D % 8 != 0, and views whose
+//   strides or bases TMA cannot read, in place.  The same split: one CTA per
+//   (batch*head, 16-32 query rows) for delta + dQ with K/V streamed 32 keys
+//   at a time through shared memory, one CTA per (batch*head, 8-32 keys)
+//   for dK/dV with Q/dO streamed 32 rows at a time; scores with one key (or
+//   query row) per lane and the other operand as shared-memory broadcasts,
+//   the accumulating products with head columns l, l + 32, ... per lane;
+//   fp32 arithmetic and accumulators, exp2f; D in chunks of 32 columns up to
+//   512 (shared memory up to ~196 KB a CTA at D = 512, set with
+//   cudaFuncSetAttribute).  No atomics in either variant: the same bits from
+//   run to run.
 //
 // Bound on the card.  At sd15's shapes (N = M = 4096, D = 40 or 80) the least
 // work is 5 products of 2*N*M*D operations per (batch, head), i.e.
@@ -66,7 +82,14 @@
 // it: the five products at the tensor cores' rate and, at D = 40, almost as
 // much again the N*M exponentials per (batch, head) at 16 ex2 a clock on
 // each SM.  The split does 7 products and computes every exponential twice
-// (once in each kernel); that is the price of results without atomics.
+// (once in each kernel); that is the price of results without atomics.  In
+// fp32 the products run on the CUDA cores (67 TFLOP/s, not the tensor cores'
+// 989), which bound the CUDA-core variant; at M = 77 (cross-attention over
+// the text) in a 16-bit type the bytes of q, o, dO and dq bound it.  The
+// CUDA-core variant
+// reads every operand from shared memory once per multiply-add pair, so it
+// runs well below that bound (PERF.md); a wgmma form for wide heads is later
+// work.
 
 #include "hopper.cuh"
 
@@ -81,8 +104,11 @@ constexpr int kTileRows = 64;  // streamed keys per dQ tile, query rows per dK/d
 constexpr int kStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+// Element strides (batch, sequence, head) of the five inputs and the three
+// outputs; the head dim has stride 1.
+struct Strides {
+  long long q[3], k[3], v[3], o[3], g[3], dq[3], dk[3], dv[3];
+};
 
 // DN: the accumulators' width (the head dim rounded up to one of the
 // instantiated widths); the k extent of the score products is DN rounded up
@@ -137,16 +163,18 @@ __device__ __forceinline__ void acc_times_tile(float (&acc)[DN / 2],
         acc, xa[ks], desc_mn_major(tile_addr + ks * 16 * kRowBytes, kTileRows * kRowBytes), 1);
 }
 
-// Rows row0 + g and row0 + g + 8 of acc * mul as T into a contiguous
-// [rows][H][D] output.
+// Rows row0 + g and row0 + g + 8 of acc * mul as T into an output [B, rows,
+// H, D] with element strides `os` (batch, sequence, head); no row at or past
+// `rows` is written.
 template <typename T, int DN>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[DN / 2], float mul, int b,
-                                           int h, int H, int D, int rows, int row0, int lane) {
+__device__ __forceinline__ void store_rows(T* out, const long long (&os)[3],
+                                           const float (&acc)[DN / 2], float mul, int b, int h,
+                                           int D, int rows, int row0, int lane) {
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int n = row0 + (lane >> 2) + 8 * e;
     if (n >= rows) continue;
-    T* orow = out + (((long long)b * rows + n) * H + h) * D;
+    T* orow = out + b * os[0] + n * os[1] + h * os[2];
 #pragma unroll
     for (int jn = 0; jn < DN / 8; ++jn) {
       const int d = jn * 8 + (lane & 3) * 2;
@@ -168,8 +196,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_v, const T* __restrict__ o,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     float* __restrict__ delta, T* __restrict__ dq, int N, int kv_len, int H,
-                    int D, long long o_sb, long long o_sn, long long o_sh, long long g_sb,
-                    long long g_sn, long long g_sh, float scale) {
+                    int D, const Strides st, float scale) {
   using Tile = BwdTile<DN>;
   constexpr int NSUB = Tile::NSUB;
   constexpr int KSTEPS = Tile::KP / 16;
@@ -237,8 +264,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       const int n = q0 + r;
       float part = 0.f;
       if (n < N) {
-        const T* orow = o + b * o_sb + (long long)n * o_sn + h * o_sh;
-        const T* grow = dout + b * g_sb + (long long)n * g_sn + h * g_sh;
+        const T* orow = o + b * st.o[0] + n * st.o[1] + h * st.o[2];
+        const T* grow = dout + b * st.g[0] + n * st.g[1] + h * st.g[2];
         for (int c = t & 1; c < D / 8; c += 2) {
           const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
           const uint4 gv = *reinterpret_cast<const uint4*>(grow + c * 8);
@@ -326,7 +353,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       if (lane == 0) mbar_arrive(empty + stage);
     }
     pin(acc);
-    store_rows<T, DN>(dq, acc, scale, b, h, H, D, N, q0 + wg * 64 + warp * 16, lane);
+    store_rows<T, DN>(dq, st.dq, acc, scale, b, h, D, N, q0 + wg * 64 + warp * 16, lane);
   }
 }
 
@@ -347,7 +374,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_g, const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                      int N, int M, int kv_len, int H, int D, float scale) {
+                      int N, int M, int kv_len, int H, int D, const Strides st, float scale) {
   using Tile = BwdTile<DN>;
   constexpr int NSUB = Tile::NSUB;
   constexpr int KSTEPS = Tile::KP / 16;
@@ -520,18 +547,13 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_k,
     pin(dka);
     pin(dva);
     const int row0 = kb0 + wg * 64 + warp * 16;
-    store_rows<T, DN>(dk, dka, scale, b, h, H, D, M, row0, lane);
-    store_rows<T, DN>(dv, dva, 1.f, b, h, H, D, M, row0, lane);
+    store_rows<T, DN>(dk, st.dk, dka, scale, b, h, D, M, row0, lane);
+    store_rows<T, DN>(dv, st.dv, dva, 1.f, b, h, D, M, row0, lane);
   }
 }
 
-// Element strides (batch, sequence, head) of the five inputs.
-struct Strides {
-  long long q[3], k[3], v[3], o[3], g[3];
-};
-
 template <typename T, int DN>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int N,
                    int M, int kv_len, int H, int D, const Strides& st, float scale,
                    cudaStream_t stream) {
@@ -565,23 +587,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   if (err != cudaSuccess) return err;
   dq_kernel<<<dim3((N + kOwnRows - 1) / kOwnRows, B * H), kCtaThreads, dq_smem, stream>>>(
       q_own, g_own, k_str, v_str, static_cast<const T*>(o), static_cast<const T*>(dout), lse,
-      delta, static_cast<T*>(dq), N, kv_len, H, D, st.o[0], st.o[1], st.o[2], st.g[0], st.g[1],
-      st.g[2], scale);
+      delta, static_cast<T*>(dq), N, kv_len, H, D, st, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dkdv_kernel<<<dim3((M + kOwnRows - 1) / kOwnRows, B * H), kCtaThreads, dkdv_smem, stream>>>(
       k_own, v_own, q_str, g_str, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), N, M,
-      kv_len, H, D, scale);
+      kv_len, H, D, st, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_dn(const void* q, const void* k, const void* v, const void* o,
-                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                        void* dv, int B, int N, int M, int kv_len, int H, int D,
-                        const Strides& st, float scale, cudaStream_t s) {
+cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                           const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                           void* dv, int B, int N, int M, int kv_len, int H, int D,
+                           const Strides& st, float scale, cudaStream_t s) {
 #define TB_LAUNCH(DN) \
-  launch<T, DN>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, N, M, kv_len, H, D, st, scale, s)
+  launch_wgmma<T, DN>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, N, M, kv_len, H, D, st, scale, s)
   if (D <= 16) return TB_LAUNCH(16);
   if (D <= 32) return TB_LAUNCH(32);
   if (D <= 40) return TB_LAUNCH(40);
@@ -591,45 +612,431 @@ cudaError_t dispatch_dn(const void* q, const void* k, const void* v, const void*
 #undef TB_LAUNCH
 }
 
+// The variant rule, here alone (the wrapper asks tb_flash_attention_bwd_wgmma_form).
+// The wgmma variant's types and head dims: 16-bit, D <= 128 in whole 16-byte
+// chunks.
+bool wgmma_form(int dtype, int D) { return dtype != 0 && D <= 128 && D % 8 == 0; }
+
+// It reads through TMA and stores 32-bit pairs, so it also needs every base
+// 16-byte aligned and every stride a whole number of 16-byte chunks.
+bool wgmma_eligible(int dtype, int D, const void* const (&ptrs)[8], const Strides& st) {
+  if (!wgmma_form(dtype, D)) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) & 15) return false;
+  const long long* x = &st.q[0];
+  for (int i = 0; i < 24; ++i)
+    if (x[i] % 8) return false;
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// 3. The CUDA-core variant: fp32, 128 < D <= 512, D % 8 != 0, views TMA
+//    cannot read.  The same split (delta + dQ, then dK/dV), fp32 arithmetic.
+// ---------------------------------------------------------------------------
+namespace cc {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBT = 32;  // streamed keys (dQ) or query rows (dK/dV) per tile: one per lane
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// Query rows per warp in the dQ kernel and keys per warp in the dK/dV
+// kernel (NC: head columns per lane, in 32s): fewer where the accumulators
+// are wide, so that they stay in registers (dK/dV holds two).
+template <int NC> struct DqRows { static constexpr int value = NC <= 4 ? 8 : 4; };
+template <int NC> struct DkdvRows { static constexpr int value = NC <= 4 ? 8 : NC <= 8 ? 4 : 2; };
+
+template <int NC> inline size_t dq_smem(int ds) {
+  constexpr int BQ = kWarps * DqRows<NC>::value;
+  return sizeof(float) * (size_t)(2 * BQ * ds + 2 * kBT * ds + kWarps * kBT * DqRows<NC>::value);
+}
+
+template <int NC> inline size_t dkdv_smem(int ds) {
+  constexpr int RK = DkdvRows<NC>::value;
+  constexpr int BK = kWarps * RK;
+  return sizeof(float) * (size_t)(2 * BK * ds + 2 * kBT * ds + 2 * kBT + 2 * kWarps * kBT * RK);
+}
+
+// rows x DS floats from rows [r0, r0 + rows) of a [S, D] slice (row stride
+// `sn` elements), zero past `valid` rows and past D, times `mul`.
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, const T* src, long long sn, int r0, int rows,
+                                      int valid, int D, int DS, float mul) {
+  for (int idx = threadIdx.x; idx < rows * DS; idx += kThreads) {
+    const int r = idx / DS;
+    const int d = idx - r * DS;
+    const int n = r0 + r;
+    dst[idx] = (n < valid && d < D) ? to_float(src[n * sn + d]) * mul : 0.f;
+  }
+}
+
+// 1. delta and dQ, one CTA per (batch*head, BQ query rows), warp w owning
+// rows w*RW ..; K and V streamed 32 keys at a time.  Scores: lane j owns key
+// j and reads the warp's q and dO rows as shared-memory broadcasts.  dQ +=
+// dS K: lane l owns head columns l, l + 32, ...; dS goes through the warp's
+// slice of shared memory.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          const T* __restrict__ o, const T* __restrict__ g, const float* __restrict__ lse,
+          float* __restrict__ delta, T* __restrict__ dq, int N, int kv_len, int H, int D, int DS,
+          const Strides st, float scale) {
+  constexpr int RW = DqRows<NC>::value;
+  constexpr int BQ = kWarps * RW;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);  // [BQ][DS], q * scale * log2(e)
+  float* sG = sQ + BQ * DS;                      // [BQ][DS], dO
+  float* sK = sG + BQ * DS;                      // [kBT][DS]
+  float* sV = sK + kBT * DS;                     // [kBT][DS]
+  float* sS = sV + kBT * DS;                     // [kWarps][kBT][RW], dS by key
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * BQ;
+  const float scale_log2 = scale * kLog2e;
+  const T* qb = q + b * st.q[0] + h * st.q[2];
+  const T* kb = k + b * st.k[0] + h * st.k[2];
+  const T* vb = v + b * st.v[0] + h * st.v[2];
+  const T* ob = o + b * st.o[0] + h * st.o[2];
+  const T* gb = g + b * st.g[0] + h * st.g[2];
+
+  stage(sQ, qb, st.q[1], q0, BQ, N, D, DS, scale_log2);
+  stage(sG, gb, st.g[1], q0, BQ, N, D, DS, 1.f);
+
+  // delta = rowsum(o * dO) and lse (log2 units) of the warp's rows, on every lane.
+  float dl[RW], l2[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int n = q0 + warp * RW + r;
+    float part = 0.f;
+    if (n < N)
+      for (int d = lane; d < D; d += 32)
+        part = fmaf(to_float(ob[n * st.o[1] + d]), to_float(gb[n * st.g[1] + d]), part);
+    dl[r] = warp_sum(part);
+    l2[r] = n < N ? lse[(long long)bh * N + n] * kLog2e : 0.f;
+    if (lane == 0 && n < N) delta[(long long)bh * N + n] = dl[r];
+  }
+
+  float acc[RW][NC];
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+
+  const int ds4 = DS / 4;
+  const int d4n = (D + 3) / 4;  // float4s that hold the head dim
+  const float4* qrow = reinterpret_cast<const float4*>(sQ + warp * RW * DS);
+  const float4* grow = reinterpret_cast<const float4*>(sG + warp * RW * DS);
+  const float4* krow = reinterpret_cast<const float4*>(sK + lane * DS);
+  const float4* vrow = reinterpret_cast<const float4*>(sV + lane * DS);
+  float* sw = sS + warp * kBT * RW;
+
+  for (int k0 = 0; k0 < kv_len; k0 += kBT) {
+    __syncthreads();  // the previous tile is consumed (and sQ, sG are written)
+    stage(sK, kb, st.k[1], k0, kBT, kv_len, D, DS, 1.f);
+    stage(sV, vb, st.v[1], k0, kBT, kv_len, D, DS, 1.f);
+    __syncthreads();
+
+    float s[RW], dp[RW];
+#pragma unroll
+    for (int r = 0; r < RW; ++r) s[r] = dp[r] = 0.f;
+    for (int d4 = 0; d4 < d4n; ++d4) {
+      const float4 kk = krow[d4];
+      const float4 vv = vrow[d4];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        s[r] = dot4(qrow[r * ds4 + d4], kk, s[r]);
+        dp[r] = dot4(grow[r * ds4 + d4], vv, dp[r]);
+      }
+    }
+    const bool valid = k0 + lane < kv_len;
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const float p = valid ? exp2f(s[r] - l2[r]) : 0.f;
+      s[r] = p * (dp[r] - dl[r]);  // dS
+    }
+#pragma unroll
+    for (int r4 = 0; r4 < RW / 4; ++r4)
+      reinterpret_cast<float4*>(sw + lane * RW)[r4] =
+          make_float4(s[4 * r4], s[4 * r4 + 1], s[4 * r4 + 2], s[4 * r4 + 3]);
+    __syncwarp();
+
+    const int jn = min(kBT, kv_len - k0);
+    for (int j = 0; j < jn; ++j) {
+      float dsj[RW];
+#pragma unroll
+      for (int r4 = 0; r4 < RW / 4; ++r4) {
+        const float4 t = reinterpret_cast<const float4*>(sw + j * RW)[r4];
+        dsj[4 * r4] = t.x;
+        dsj[4 * r4 + 1] = t.y;
+        dsj[4 * r4 + 2] = t.z;
+        dsj[4 * r4 + 3] = t.w;
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int d = c * 32 + lane;
+        const float kk = d < D ? sK[j * DS + d] : 0.f;
+#pragma unroll
+        for (int r = 0; r < RW; ++r) acc[r][c] = fmaf(dsj[r], kk, acc[r][c]);
+      }
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int n = q0 + warp * RW + r;
+    if (n >= N) continue;
+    T* out = dq + b * st.dq[0] + n * st.dq[1] + h * st.dq[2];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = c * 32 + lane;
+      if (d < D) out[d] = from_float<T>(acc[r][c] * scale);
+    }
+  }
+}
+
+// 2. dK and dV, one CTA per (batch*head, BK keys), warp w owning keys
+// w*RK ..; Q and dO streamed 32 rows at a time with their lse and delta.
+// Transposed scores: lane i owns query row i and reads the warp's K and V
+// rows as broadcasts.  dV += P^T dO and dK += dS^T Q: lane l owns head
+// columns l, l + 32, ....  Keys at or past kv_len get P = 0, so their rows
+// are written as zeros; no row at or past M is written.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads)
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+            const T* __restrict__ g, const float* __restrict__ lse,
+            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int N, int M,
+            int kv_len, int H, int D, int DS, const Strides st, float scale) {
+  constexpr int RK = DkdvRows<NC>::value;
+  constexpr int BK = kWarps * RK;
+  extern __shared__ float4 smem4[];
+  float* sK = reinterpret_cast<float*>(smem4);  // [BK][DS], k * scale * log2(e)
+  float* sV = sK + BK * DS;                      // [BK][DS]
+  float* sQ = sV + BK * DS;                      // [kBT][DS]
+  float* sG = sQ + kBT * DS;                     // [kBT][DS], dO
+  float* sL = sG + kBT * DS;                     // [kBT], lse in log2 units
+  float* sD = sL + kBT;                          // [kBT], delta
+  float* sP = sD + kBT;                          // [kWarps][kBT][RK], P^T by query row
+  float* sS = sP + kWarps * kBT * RK;            // [kWarps][kBT][RK], dS^T by query row
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kb0 = blockIdx.x * BK;
+  const float scale_log2 = scale * kLog2e;
+  const T* qb = q + b * st.q[0] + h * st.q[2];
+  const T* kb = k + b * st.k[0] + h * st.k[2];
+  const T* vb = v + b * st.v[0] + h * st.v[2];
+  const T* gb = g + b * st.g[0] + h * st.g[2];
+
+  stage(sK, kb, st.k[1], kb0, BK, kv_len, D, DS, scale_log2);
+  stage(sV, vb, st.v[1], kb0, BK, kv_len, D, DS, 1.f);
+
+  float dka[RK][NC], dva[RK][NC];
+#pragma unroll
+  for (int r = 0; r < RK; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dka[r][c] = dva[r][c] = 0.f;
+
+  bool kvalid[RK];
+#pragma unroll
+  for (int r = 0; r < RK; ++r) kvalid[r] = kb0 + warp * RK + r < kv_len;
+  const int ds4 = DS / 4;
+  const int d4n = (D + 3) / 4;
+  const float4* krow = reinterpret_cast<const float4*>(sK + warp * RK * DS);
+  const float4* vrow = reinterpret_cast<const float4*>(sV + warp * RK * DS);
+  const float4* qrow = reinterpret_cast<const float4*>(sQ + lane * DS);
+  const float4* grow = reinterpret_cast<const float4*>(sG + lane * DS);
+  float* pw = sP + warp * kBT * RK;
+  float* sw = sS + warp * kBT * RK;
+
+  const int n_end = kb0 < kv_len ? N : 0;  // a CTA of masked keys only writes zeros
+  for (int n0 = 0; n0 < n_end; n0 += kBT) {
+    __syncthreads();  // the previous tile is consumed (and sK, sV are written)
+    stage(sQ, qb, st.q[1], n0, kBT, N, D, DS, 1.f);
+    stage(sG, gb, st.g[1], n0, kBT, N, D, DS, 1.f);
+    if (threadIdx.x < kBT) {
+      const int n = n0 + threadIdx.x;
+      sL[threadIdx.x] = n < N ? lse[(long long)bh * N + n] * kLog2e : 0.f;
+      sD[threadIdx.x] = n < N ? delta[(long long)bh * N + n] : 0.f;
+    }
+    __syncthreads();
+
+    float s[RK], dp[RK];
+#pragma unroll
+    for (int r = 0; r < RK; ++r) s[r] = dp[r] = 0.f;
+    for (int d4 = 0; d4 < d4n; ++d4) {
+      const float4 qq = qrow[d4];
+      const float4 gg = grow[d4];
+#pragma unroll
+      for (int r = 0; r < RK; ++r) {
+        s[r] = dot4(krow[r * ds4 + d4], qq, s[r]);
+        dp[r] = dot4(vrow[r * ds4 + d4], gg, dp[r]);
+      }
+    }
+    const bool rvalid = n0 + lane < N;
+    const float l2 = sL[lane];
+    const float dl = sD[lane];
+#pragma unroll
+    for (int r = 0; r < RK; ++r) {
+      const float p = rvalid && kvalid[r] ? exp2f(s[r] - l2) : 0.f;
+      pw[lane * RK + r] = p;
+      sw[lane * RK + r] = p * (dp[r] - dl);
+    }
+    __syncwarp();
+
+    const int in = min(kBT, N - n0);
+    for (int i = 0; i < in; ++i) {
+      float pi[RK], dsi[RK];
+#pragma unroll
+      for (int r = 0; r < RK; ++r) {
+        pi[r] = pw[i * RK + r];
+        dsi[r] = sw[i * RK + r];
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int d = c * 32 + lane;
+        const float gg = d < D ? sG[i * DS + d] : 0.f;
+        const float qq = d < D ? sQ[i * DS + d] : 0.f;
+#pragma unroll
+        for (int r = 0; r < RK; ++r) {
+          dva[r][c] = fmaf(pi[r], gg, dva[r][c]);
+          dka[r][c] = fmaf(dsi[r], qq, dka[r][c]);
+        }
+      }
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int r = 0; r < RK; ++r) {
+    const int m = kb0 + warp * RK + r;
+    if (m >= M) continue;
+    T* ko = dk + b * st.dk[0] + m * st.dk[1] + h * st.dk[2];
+    T* vo = dv + b * st.dv[0] + m * st.dv[1] + h * st.dv[2];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = c * 32 + lane;
+      if (d < D) {
+        ko[d] = from_float<T>(dka[r][c] * scale);
+        vo[d] = from_float<T>(dva[r][c]);
+      }
+    }
+  }
+}
+
+template <typename T, int NC>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int N,
+                   int M, int kv_len, int H, int D, const Strides& st, float scale,
+                   cudaStream_t stream) {
+  const int ds = smem_row_stride(D);
+  const size_t smem_dq = dq_smem<NC>(ds);
+  const size_t smem_dkdv = dkdv_smem<NC>(ds);
+  auto kdq = dq_kernel<T, NC>;
+  auto kdkdv = dkdv_kernel<T, NC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkdv);
+  if (err != cudaSuccess) return err;
+  constexpr int BQ = kWarps * DqRows<NC>::value;
+  constexpr int BK = kWarps * DkdvRows<NC>::value;
+  kdq<<<dim3((N + BQ - 1) / BQ, B * H), kThreads, smem_dq, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), N,
+      kv_len, H, D, ds, st, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kdkdv<<<dim3((M + BK - 1) / BK, B * H), kThreads, smem_dkdv, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), N, M,
+      kv_len, H, D, ds, st, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
+                     const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                     void* dv, int B, int N, int M, int kv_len, int H, int D, const Strides& st,
+                     float scale, cudaStream_t s) {
+#define TB_LAUNCH(NC) \
+  launch<T, NC>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, N, M, kv_len, H, D, st, scale, s)
+  const int nc = (D + 31) / 32;
+  if (nc <= 1) return TB_LAUNCH(1);
+  if (nc <= 2) return TB_LAUNCH(2);
+  if (nc <= 3) return TB_LAUNCH(3);
+  if (nc <= 4) return TB_LAUNCH(4);
+  if (nc <= 5) return TB_LAUNCH(5);
+  if (nc <= 8) return TB_LAUNCH(8);
+  if (nc <= 16) return TB_LAUNCH(16);
+  return cudaErrorInvalidValue;
+#undef TB_LAUNCH
+}
+
+}  // namespace cc
+
+enum Variant { kCudaCores = 0, kWgmma = 1 };
+
 }  // namespace
 
-// dtype: 1 float16, 2 bfloat16.  q, o, dout [B, N, H, D] and k, v [B, M, H, D]
-// with element strides (batch, sequence, head) and a contiguous head dim;
-// lse fp32 [B, H, N] from the forward; delta an fp32 [B, H, N] scratch the
-// call fills; dq [B, N, H, D] and dk, dv [B, M, H, D] contiguous outputs.
-// Keys at or past kv_len (<= M) are masked and get zero gradients.
-// Returns the first launch error (0 on success).
-extern "C" int tb_flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
-                                      const void* o, const void* dout, const void* lse,
-                                      void* delta, void* dq, void* dk, void* dv, int B, int N,
-                                      int M, int kv_len, int H, int D, long long q_sb,
-                                      long long q_sn, long long q_sh, long long k_sb,
-                                      long long k_sm, long long k_sh, long long v_sb,
-                                      long long v_sm, long long v_sh, long long o_sb,
-                                      long long o_sn, long long o_sh, long long g_sb,
-                                      long long g_sn, long long g_sh, float scale, void* stream) {
-  if (B <= 0 || N <= 0 || M <= 0 || H <= 0 || D <= 0 || D > 128 || D % 8 != 0 ||
-      kv_len <= 0 || kv_len > M || B * H > 65535)
+// 1 where the wgmma variant serves `dtype` (0 float32, 1 float16, 2
+// bfloat16) at head dim D once every view is 16-byte aligned in whole
+// 16-byte chunks, else 0.  The wrapper copies such a view that is not,
+// rather than let the call fall to the CUDA cores.
+extern "C" int tb_flash_attention_bwd_wgmma_form(int dtype, int D) {
+  return wgmma_form(dtype, D) ? 1 : 0;
+}
+
+// dtype: 0 float32, 1 float16, 2 bfloat16.  q, o, dout [B, N, H, D] and k, v
+// [B, M, H, D] with element strides (batch, sequence, head) and a contiguous
+// head dim; lse fp32 [B, H, N] from the forward; delta an fp32 [B, H, N]
+// scratch the call fills; dq [B, N, H, D] and dk, dv [B, M, H, D] outputs
+// written through their strides (head dim contiguous).  Keys at or past
+// kv_len (<= M) are masked and their rows of dk and dv written as zeros; no
+// row at or past N (dq) or M (dk, dv) is written.  Writes to *variant which
+// kernels serve the call: 0 CUDA cores, 1 wgmma.  Returns the first launch
+// error (0 on success).
+extern "C" int tb_flash_attention_bwd(
+    int dtype, const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int N, int M, int kv_len,
+    int H, int D, long long q_sb, long long q_sn, long long q_sh, long long k_sb, long long k_sm,
+    long long k_sh, long long v_sb, long long v_sm, long long v_sh, long long o_sb,
+    long long o_sn, long long o_sh, long long g_sb, long long g_sn, long long g_sh,
+    long long dq_sb, long long dq_sn, long long dq_sh, long long dk_sb, long long dk_sm,
+    long long dk_sh, long long dv_sb, long long dv_sm, long long dv_sh, float scale,
+    void* stream, int* variant) {
+  if (B <= 0 || N <= 0 || M <= 0 || H <= 0 || D <= 0 || D > 512 || kv_len <= 0 ||
+      kv_len > M || B * H > 65535 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
-  const Strides st = {{q_sb, q_sn, q_sh}, {k_sb, k_sm, k_sh}, {v_sb, v_sm, v_sh},
-                      {o_sb, o_sn, o_sh}, {g_sb, g_sn, g_sh}};
-  const void* ptrs[5] = {q, k, v, o, dout};
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) & 15) return (int)cudaErrorInvalidValue;
-  const long long strides[15] = {q_sb, q_sn, q_sh, k_sb, k_sm, k_sh, v_sb, v_sm,
-                                 v_sh, o_sb, o_sn, o_sh, g_sb, g_sn, g_sh};
-  for (long long x : strides)
-    if (x % 8) return (int)cudaErrorInvalidValue;
+  const Strides st = {{q_sb, q_sn, q_sh},    {k_sb, k_sm, k_sh},    {v_sb, v_sm, v_sh},
+                      {o_sb, o_sn, o_sh},    {g_sb, g_sn, g_sh},    {dq_sb, dq_sn, dq_sh},
+                      {dk_sb, dk_sm, dk_sh}, {dv_sb, dv_sm, dv_sh}};
+  const void* const ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wgmma = wgmma_eligible(dtype, D, ptrs, st);
+  *variant = wgmma ? kWgmma : kCudaCores;
+#define TB_ARGS q, k, v, o, dout, l, dl, dq, dk, dv, B, N, M, kv_len, H, D, st, scale, s
   switch (dtype) {
-    case 1:
-      return (int)dispatch_dn<__half>(q, k, v, o, dout, l, dl, dq, dk, dv, B, N, M, kv_len, H, D,
-                                      st, scale, s);
-    case 2:
-      return (int)dispatch_dn<__nv_bfloat16>(q, k, v, o, dout, l, dl, dq, dk, dv, B, N, M,
-                                             kv_len, H, D, st, scale, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 0: return (int)cc::dispatch<float>(TB_ARGS);
+    case 1: return (int)(wgmma ? dispatch_wgmma<__half>(TB_ARGS) : cc::dispatch<__half>(TB_ARGS));
+    default:
+      return (int)(wgmma ? dispatch_wgmma<__nv_bfloat16>(TB_ARGS)
+                         : cc::dispatch<__nv_bfloat16>(TB_ARGS));
   }
+#undef TB_ARGS
 }

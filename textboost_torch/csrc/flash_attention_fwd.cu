@@ -57,10 +57,10 @@
 // flash_attention_forward directly) on fp32 tensors, on a head dim that is
 // not a multiple of 8, or on views whose strides are not; that is the JAX
 // kernel's envelope (fp32/fp16/bf16, any D <= 512), which the wrapper keeps.
-// Neither main path reaches it: the "auto" rule admits bf16/fp16 only, and
-// every head dim of the shipped configs is a multiple of 8.  The backward
-// kernel (flash_attention_bwd.cu) does not cover this envelope: with a
-// gradient, fp32 and D % 8 != 0 raise (ROADMAP.md queue B).
+// The "auto" rule admits bf16/fp16 only, and every head dim of the shipped
+// configs is a multiple of 8, so only `--attention_impl flash` in fp32
+// reaches it on a main path.  The backward kernel (flash_attention_bwd.cu)
+// covers the same envelope.
 
 #include "hopper.cuh"
 
@@ -74,19 +74,10 @@ constexpr int kBK = 32;  // keys per tile: one per lane in the score pass
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <typename T> __device__ __forceinline__ float to_float(T x);
-template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_float<__half>(__half x) { return __half2float(x); }
-template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+using hopper::from_float;
+using hopper::smem_row_stride;
+using hopper::to_float;
+using hopper::warp_sum;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -94,23 +85,8 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // Rows per warp: fewer where the accumulator is wide, to stay in registers.
 template <int NC> struct RowsPerWarp { static constexpr int value = NC <= 4 ? 8 : 4; };
-
-// Shared-memory row stride (floats) for q/k tiles: D rounded up to a multiple
-// of 4, then to an odd number of float4s so that 8 lanes reading 8 different
-// key rows with 16-byte loads hit 8 different bank groups.
-__host__ __device__ inline int qk_stride(int d) {
-  int d4 = (d + 3) / 4;
-  if ((d4 & 1) == 0) d4 += 1;
-  return d4 * 4;
-}
 
 template <int NC>
 __host__ __device__ inline size_t smem_bytes(int ds) {
@@ -268,7 +244,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
                    const long long* vs, float scale, cudaStream_t stream) {
   constexpr int RW = RowsPerWarp<NC>::value;
   constexpr int BQ = kWarps * RW;
-  const int ds = qk_stride(D);
+  const int ds = smem_row_stride(D);
   const size_t smem = smem_bytes<NC>(ds);
   auto kernel = flash_fwd_kernel<T, NC>;
   if (smem > 48 * 1024) {

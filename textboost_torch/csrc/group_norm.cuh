@@ -60,21 +60,8 @@ constexpr int kSmemBytes = 231424;    // dynamic shared memory a CTA may ask for
 constexpr int kMaxPieces = (kSmemBytes + kPieceBytes - 1) / kPieceBytes;
 constexpr int kRegs[] = {1, 2, 4};  // the register-resident variants (Plan::regs)
 
-template <typename T> __device__ __forceinline__ float to_float(T x);
-template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_float<__half>(__half x) { return __half2float(x); }
-template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+using hopper::from_float;
+using hopper::to_float;
 
 // 16 bytes of T, loaded and stored as one vector.
 template <typename T> struct alignas(16) Vec {

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels:
 // mbarriers, TMA tensor maps and loads, wgmma shared-memory descriptors and
-// the wgmma instructions themselves.
+// the wgmma instructions themselves; and, at the end, the scalar helpers of
+// the CUDA-core kernels (the flash variants' and GroupNorm's).
 //
 // Shared-memory tiles.  Every operand tile is a stack of "sub-tiles" of
 // [rows][64] 16-bit elements: 128 bytes a row, rows in groups of 8 (1024
@@ -944,5 +945,41 @@ template <> struct WgmmaRS<128> {
     }
   }
 };
+
+// ---------------------------------------------------------------------------
+// Scalar helpers of the CUDA-core kernels.
+// ---------------------------------------------------------------------------
+
+template <typename T> __device__ __forceinline__ float to_float(T x);
+template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_float<__half>(__half x) { return __half2float(x); }
+template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Row stride (floats) of an fp32 tile in shared memory whose rows are read
+// with 16-byte loads: D rounded up to a multiple of 4, then to an odd number
+// of float4s, so that 8 lanes reading 8 different rows hit 8 different bank
+// groups.
+__host__ __device__ inline int smem_row_stride(int d) {
+  int d4 = (d + 3) / 4;
+  if ((d4 & 1) == 0) d4 += 1;
+  return d4 * 4;
+}
 
 }  // namespace hopper

@@ -8,7 +8,11 @@ package: UNet downsampling pads symmetrically and the VAE's asymmetrically
 Each GroupNorm and attention layer carries an `impl`: "auto" takes the CUDA
 kernels (forward, and backward under autograd) where the dispatch rule
 sends the call (the plain versions on the CPU), "math" forces plain torch
-and its autograd.  `set_impl(model, impl)` sets it for a whole model.
+and its autograd, and an attention layer's "flash" sends every call in the
+flash kernels' envelope to them (ops/attention.py).  `set_attention_impl`
+sets the attention layers of a whole model (the training CLI's
+`--attention_impl`, which, as in the JAX package, leaves the GroupNorms
+alone), `set_group_norm_impl` its GroupNorms, `set_impl` both.
 
 `CrossAttention` and `FeedForward` carry a `tp` (parallel/tensor.py): None
 computes the whole block; a `TensorParallel` group, set by `shard_`, runs
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention import IMPLS as ATTENTION_IMPLS
 from ..ops.attention import multi_head_attention
 from ..ops.group_norm import group_norm, group_norm_reference
 from ..parallel.tensor import copy_to_tp, row_parallel_linear
@@ -97,14 +102,30 @@ class LoRALinear(nn.Linear):
         return y
 
 
+def set_attention_impl(model: nn.Module, impl: str) -> None:
+    """impl "auto", "math" or "flash" for every attention layer of `model`."""
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"attention impl {impl!r} not in {ATTENTION_IMPLS}")
+    for mod in model.modules():
+        if isinstance(mod, (CrossAttention, VAEAttention)):
+            mod.impl = impl
+
+
+def set_group_norm_impl(model: nn.Module, impl: str) -> None:
+    """impl "auto" (the kernels) or "math" (plain torch) for every GroupNorm
+    of `model`."""
+    if impl not in ("auto", "math"):
+        raise ValueError(f"GroupNorm impl {impl!r} not in ('auto', 'math')")
+    for mod in model.modules():
+        if isinstance(mod, GroupNorm):
+            mod.impl = impl
+
+
 def set_impl(model: nn.Module, impl: str) -> None:
     """impl "auto" (kernels where the rule sends a call) or "math" (plain
     torch) for every GroupNorm and attention layer of `model`."""
-    if impl not in ("auto", "math"):
-        raise ValueError(f"impl {impl!r} not in ('auto', 'math')")
-    for mod in model.modules():
-        if hasattr(mod, "impl"):
-            mod.impl = impl
+    set_group_norm_impl(model, impl)
+    set_attention_impl(model, impl)
 
 
 class ResnetBlock(nn.Module):

@@ -42,7 +42,8 @@ SIGNATURES = {
     },
     "flash_attention_bwd.cu": {
         "tb_flash_attention_bwd": [_c_int] + [_c_ptr] * 10 + [_c_int] * 6
-        + [_c_ll] * 15 + [_c_float, _c_ptr],
+        + [_c_ll] * 24 + [_c_float, _c_ptr, ctypes.POINTER(_c_int)],
+        "tb_flash_attention_bwd_wgmma_form": [_c_int] * 2,
     },
     "group_norm_fwd.cu": {
         "tb_group_norm_fwd": [_c_int] + [_c_ptr] * 6 + [_c_int] * 4

@@ -7,9 +7,13 @@ is the JAX package's (attention.py:80-99, cross-attention off): the flash
 kernel serves large unmasked self-attention in half precision on the GPU;
 everything else takes the math path, which mirrors `_xla_attention`
 (fp32 logits and softmax, probabilities cast to v's dtype) and trains by
-plain autograd.  A flash call with a gradient goes through the forward and
-backward kernels (`flash_attention`), which refuse, rather than leave to
-math, what the backward kernel does not serve.
+plain autograd.  "flash" (the training CLI's `--attention_impl flash`) sends
+the kernels exactly the calls the JAX wrapper sends its Pallas kernels,
+`supports_flash(n, m, d)` in any of fp32/fp16/bf16, cross-attention over
+77 text keys included; a call outside that envelope takes the math path
+with its mask and causal flag kept.  (The JAX package's "flash" drops them:
+ROADMAP.md C11.)  A flash call with a gradient goes through the forward and
+backward kernels (`flash_attention`).
 """
 from __future__ import annotations
 
@@ -72,9 +76,8 @@ def multi_head_attention(
         mask = tri if mask is None else torch.logical_and(mask, tri)
     if impl == "auto":
         flash = use_flash(q.device.type, n, m, d, q.dtype, mask is not None, causal)
-        impl = "flash" if flash else "math"
-    if impl == "flash":
-        if mask is not None:
-            raise ValueError("the flash kernel takes no mask")
+    else:  # the mask holds the causal triangle by now
+        flash = impl == "flash" and mask is None and supports_flash(n, m, d)
+    if flash:
         return flash_attention(q, k, v, scale=scale)
     return math_attention(q, k, v, mask, scale).to(q.dtype)

@@ -9,7 +9,8 @@ input dtype, lse fp32 [B, H, N] (natural log).  Backward:
 q, k, v, o, lse and dO it returns (dq, dk, dv) in the input dtype, with P
 rebuilt from lse, in two kernels without atomics, so two calls on the same
 inputs give the same bits.  Keys at or past `kv_len` are masked inside both
-kernels (and get zero gradients).
+kernels (and get zero gradients); K and V are never padded in memory, so a
+cross-attention over 77 text keys reads its 77 rows as they are.
 
 The kernels are written for Hopper (`csrc/hopper.cuh` holds what they
 share): every product is a wgmma from a ring of K/V (or Q/dO) tiles that a
@@ -20,10 +21,18 @@ whole 16-byte chunks this way ("wgmma" for D <= 128, "wgmma_wide" up to
 ("cuda_cores").  The C entry point owns that rule and reports its choice;
 `variant_counts` records which variant served each launch.
 
+The backward has the same two kinds of variant: "wgmma" for bf16/fp16 whose
+D <= 128 is a whole number of 16-byte chunks, "cuda_cores" for the rest of
+the JAX kernel's envelope (fp32, 128 < D <= 512, D % 8 != 0, views TMA
+cannot read).  The C entry point owns this rule too: the wrapper asks it
+(`tb_flash_attention_bwd_wgmma_form`) whether the wgmma variant serves the
+dtype and head dim, and then copies only a view that variant cannot read.
+`bwd_variant_counts` records which served each launch.
+
 `flash_attention` is the differentiable entry: with a gradient it runs the
-kernels through `FlashAttentionFunction`.  The backward's envelope is
-bf16/fp16 with D <= 128 and D % 8 == 0; outside it the call raises (it never
-switches to plain math).
+kernels through `FlashAttentionFunction`.  Both kernels take what the JAX
+kernels take (any dtype of the three, D <= 512); a wider head raises (it
+never switches to plain math).
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernel or
 raises.  `launches` and `bwd_launches` count kernel launches.
@@ -42,15 +51,16 @@ SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 MAX_HEAD_DIM = 512
-BWD_MAX_HEAD_DIM = 128
 
-# The forward's variants, by the code the C entry point reports.
+# The variants, by the code the C entry points report.
 VARIANTS = ("cuda_cores", "wgmma", "wgmma_wide")
+BWD_VARIANTS = ("cuda_cores", "wgmma")
 
 launches = 0
 bwd_launches = 0
-# Forward launches by the variant that served them.
+# Launches by the variant that served them.
 variant_counts: "collections.Counter[str]" = collections.Counter()
+bwd_variant_counts: "collections.Counter[str]" = collections.Counter()
 
 
 def _chunk_aligned(t: torch.Tensor) -> bool:
@@ -74,12 +84,14 @@ def flash_attention_reference(
     kv_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: fp32 softmax(q k^T * scale) v over the first `kv_len`
-    keys, cast to q's dtype; lse fp32 [B, H, N]."""
+    keys, cast to q's dtype; lse fp32 [B, H, N].  fp64 inputs are computed
+    in fp64 (a reference for the kernels' fp32 form)."""
     m = k.shape[1] if kv_len is None else kv_len
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k[:, :m].float()) * scale
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bnhd,bmhd->bhnm", q.to(acc), k[:, :m].to(acc)) * scale
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
-    o = torch.einsum("bhnm,bmhd->bnhd", p, v[:, :m].float())
+    o = torch.einsum("bhnm,bmhd->bnhd", p, v[:, :m].to(acc))
     return o.to(q.dtype), lse
 
 
@@ -161,13 +173,15 @@ def flash_attention_backward_reference(
     """Plain version in fp32, P rebuilt from lse: P = exp(q k^T * scale -
     lse), dV = P^T dO, dS = P * (dO V^T - rowsum(o * dO)), dK = scale *
     dS^T q, dQ = scale * dS k.  Rows of dk/dv at or past kv_len are zero.
-    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    Returns (dq, dk, dv) in the dtypes of q, k, v.  fp64 inputs are
+    computed in fp64 (a reference for the kernel's fp32 form)."""
     m = k.shape[1] if kv_len is None else kv_len
-    qf, kf, vf = q.float(), k[:, :m].float(), v[:, :m].float()
-    dof = do.float()
-    p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale - lse[..., None])
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf = q.to(acc), k[:, :m].to(acc), v[:, :m].to(acc)
+    dof = do.to(acc)
+    p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale - lse.to(acc)[..., None])
     dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
-    delta = (o.float() * dof).sum(-1).transpose(1, 2)  # [B, H, N]
+    delta = (o.to(acc) * dof).sum(-1).transpose(1, 2)  # [B, H, N]
     ds = p * (torch.einsum("bnhd,bmhd->bhnm", dof, vf) - delta[..., None])
     dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf) * scale
     dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
@@ -178,22 +192,24 @@ def flash_attention_backward_reference(
 
 def check_backward_envelope(q: torch.Tensor) -> None:
     """Raise NotImplementedError for a gradient the backward kernel does not
-    serve: fp32, D > 128, or D not a multiple of 8."""
+    serve: what the JAX kernel refuses too, a head dim past 512."""
     d = q.shape[-1]
-    if q.dtype not in (torch.float16, torch.bfloat16) or d > BWD_MAX_HEAD_DIM or d % 8:
+    if d > MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"flash attention backward on CUDA takes bf16/fp16 with D <= "
-            f"{BWD_MAX_HEAD_DIM} and D % 8 == 0, got {q.dtype} D={d} (fp32 and wider "
-            "heads: ROADMAP.md queue B)"
+            f"flash attention backward takes D <= {MAX_HEAD_DIM} (the JAX kernel's "
+            f"envelope), got D={d}"
         )
 
 
-def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
-    """t itself when the backward kernel can read it in place (contiguous
-    head dim, strides in whole 16-byte chunks, 16-byte aligned), else a
-    contiguous copy (a clone: `contiguous()` would hand back a dense view
-    whose base is off a 16-byte boundary as it is)."""
-    return t if _chunk_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+def _kernel_ready(t: torch.Tensor, wgmma: bool = True) -> torch.Tensor:
+    """t itself when the backward kernel can read it in place, else a
+    contiguous copy.  The CUDA-core variant reads any strides over a
+    contiguous head dim; where the wgmma variant serves the dtype and head
+    dim (`wgmma`, as the C entry point reports it), a view whose strides are not whole 16-byte chunks or whose base is off a
+    16-byte boundary is copied (a clone: `contiguous()` would hand back a
+    dense view whose base is off a boundary as it is)."""
+    ok = _chunk_aligned(t) if wgmma else t.stride(-1) == 1
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_backward(
@@ -206,11 +222,17 @@ def flash_attention_backward(
     *,
     scale: float,
     kv_len: Optional[int] = None,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of attention over q [B, N, H, D], k/v
-    [B, M, H, D] from the forward's o and lse and the output gradient do."""
+    [B, M, H, D] from the forward's o and lse and the output gradient do.
+    `out` (CUDA only), if given, holds (dq, dk, dv) tensors of those shapes
+    and q's dtype (any strides over a contiguous head dim) that the kernels
+    write into and that are returned."""
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     if q.device.type == "cpu":
+        if out is not None:
+            raise ValueError("out= is for the CUDA kernels; the plain version returns new tensors")
         return flash_attention_backward_reference(q, k, v, o, lse, do, scale, kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
@@ -224,25 +246,36 @@ def flash_attention_backward(
                              f"{t.dtype} {tuple(t.shape)}")
     if lse.dtype != torch.float32 or lse.shape != (b, h, n):
         raise ValueError(f"lse must be fp32 [{b}, {h}, {n}], got {lse.dtype} {tuple(lse.shape)}")
-    q, k, v, o, do = (_kernel_ready(t) for t in (q, k, v, o, do))
-    lse = lse.contiguous()
-    dq = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     lib = _build.load(BWD_SOURCE)
+    wgmma = bool(lib.tb_flash_attention_bwd_wgmma_form(DTYPE_CODES[q.dtype], d))
+    q, k, v, o, do = (_kernel_ready(t, wgmma) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    if out is None:
+        dq = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+        dk = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
+        dv = torch.empty_like(dk)
+    else:
+        dq, dk, dv = out
+        for name, t, shape in (("dq", dq, q.shape), ("dk", dk, k.shape), ("dv", dv, k.shape)):
+            if (t.shape != shape or t.dtype != q.dtype or t.device != q.device
+                    or t.stride(-1) != 1):
+                raise ValueError(f"out {name} must be {q.dtype} {tuple(shape)} with a "
+                                 f"contiguous head dim, got {t.dtype} {tuple(t.shape)}")
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    variant = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tb_flash_attention_bwd(
             DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, n, m, kv_len, h, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            *do.stride()[:3], float(scale), stream,
+            *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]),
+            float(scale), stream, ctypes.byref(variant),
         )
     _build.check(rc, "flash_attention_bwd")
     global bwd_launches
     bwd_launches += 1
+    bwd_variant_counts[BWD_VARIANTS[variant.value]] += 1
     return dq, dk, dv
 
 

@@ -71,7 +71,7 @@ from ..lora.partition import (
     set_trainable,
 )
 from ..lora.peft_io import export_lora_adapter, export_token_embeddings, export_unet_lora_adapter
-from ..models.layers import set_impl
+from ..models.layers import set_attention_impl
 from ..models.pretrained import load_models
 from ..models.textboost import load_null_embedding_asset
 from ..ops.schedule import NoiseSchedule
@@ -89,7 +89,7 @@ from .step import StepConfig, TrainState, make_train_step, sample_draws
 
 logger = logging.getLogger("textboost_torch")
 
-ATTENTION_IMPLS = {"auto": "auto", "xla": "math"}  # --attention_impl -> the port's impl
+ATTENTION_IMPLS = {"auto": "auto", "xla": "math", "flash": "flash"}  # --attention_impl -> impl
 WRITER_TIMEOUT_S = 600.0
 
 
@@ -170,8 +170,8 @@ class Trainer:
                    if self.mesh.tp > 1 else None)
         problems = unsupported_flags(config)
         if config.attention_impl not in ATTENTION_IMPLS:
-            problems.append(f"--attention_impl {config.attention_impl}: the port takes "
-                            f"{sorted(ATTENTION_IMPLS)} (flash is chosen per call by 'auto')")
+            raise ValueError(f"--attention_impl {config.attention_impl!r} not in "
+                             f"{sorted(ATTENTION_IMPLS)}")
         if problems:
             raise NotImplementedError("not served by textboost_torch yet: " + "; ".join(problems))
         get_sampler(config.validation_scheduler)  # an unknown name raises here, not at step 1
@@ -266,7 +266,7 @@ class Trainer:
         te, unet, vae = self.bundle.text_encoder, self.bundle.unet, self.bundle.vae
         for mod in (te, unet, vae):
             mod.requires_grad_(False)
-            set_impl(mod, ATTENTION_IMPLS[cfg.attention_impl])
+            set_attention_impl(mod, ATTENTION_IMPLS[cfg.attention_impl])
         unet.gradient_checkpointing = cfg.gradient_checkpointing
         mark("models loaded")
 
