@@ -35,12 +35,17 @@ with the launch counts set to 0 just before and read just after:
     derived on the meta device (also with --gradient_checkpointing and at a
     tp rank's local heads); K2 at every form it serves since that flag came
     (the 77 text keys at sd15's three levels and sd21base's level 0, sd15's
-    160-wide heads, D = 100, the VAE's 512-wide head, bf16 and fp32, a
-    kv_len inside the last tile, a packed fp32 view) against its plain
+    160-wide heads, D = 100, the VAE's 512-wide head, bf16 (wgmma, or mma
+    outside its form) and fp32 (register tiles on the CUDA cores), a kv_len
+    inside the last tile, packed fp32 and bf16 views) against its plain
     version on the same inputs (fp32 limits against fp64 for fp32 inputs),
     with the variant that served it, a dropped-tile control, bit-identical
     repeats and an untouched canary past N and M, timed beside its bound,
-    its plain version and SDPA; one sd15 step (batch 2) under flash against
+    its plain version and SDPA; K1 likewise at every shape of the fp32 run
+    (`FLASH_FWD_FORMS`: the UNet's three levels, self and cross, and the VAE
+    encoder's 512-wide head), a head dim of 33, a 16-bit one of 100 and
+    packed views, timed beside its bound, plain version and SDPA's forward;
+    one sd15 step (batch 2) under flash against
     the same step under auto at bf16 and fp32, with a control; then
     `textboost_torch.train.main --attention_impl flash` at sd15, 512 px,
     batch 8: 4 steps at bf16 with a validation round of one image, and 2
@@ -287,9 +292,13 @@ def card_clock_hz() -> float:
 
 
 SPIN_CYCLES = 400_000_000  # ~0.2 s of GPU clock: longer than the host takes to enqueue a timed loop
+# The flash forms' timed loops (a few calls of one kernel, or of the plain
+# version's ~100 launches) enqueue in a few ms: ~20 ms of spin covers them
+# ten times over, and saves the phase ~0.7 s a form.
+FORM_SPIN_CYCLES = 40_000_000
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 2, spin_cycles: int = SPIN_CYCLES) -> float:
     """Device time of one call of `fn`.  The stream is first held by a spin
     kernel while the host enqueues the whole timed loop, so the host's launch
     cost (ctypes, allocation) is not counted as the kernel's time."""
@@ -299,7 +308,7 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda._sleep(spin_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -763,27 +772,38 @@ def check_flash_edges() -> None:
 # sd15 cross-attentions over the 77 text keys at the three levels, sd15's
 # 160-wide heads at 16x16 latents (self and cross), sd21base's level-0
 # cross-attention, D = 100 (no whole 16-byte chunks), the VAE's single
-# 512-wide head, each in bf16 and the main ones in fp32; then untimed edge
-# cases: a kv_len inside the last tile, a query length off the 128-row
-# tile, a head dim that is no multiple of 4.
+# 512-wide head, each in bf16 (wgmma, or mma outside its form) and every
+# shape of the fp32 run (register tiles on the CUDA cores); then untimed
+# edge cases: a kv_len inside the last tile, a query length off the
+# 64-row tile, a head dim that is no multiple of 4 (or of 8 in bf16).
 FLASH_BWD_FORMS = (
     ("sd15_cross0_8x4096x8x40_m77", 8, 4096, 8, 40, 77, 77, "bfloat16", "wgmma", True),
     ("sd15_cross1_8x1024x8x80_m77", 8, 1024, 8, 80, 77, 77, "bfloat16", "wgmma", True),
-    ("sd15_cross2_8x256x8x160_m77", 8, 256, 8, 160, 77, 77, "bfloat16", "cuda_cores", True),
-    ("sd15_self2_8x256x8x160", 8, 256, 8, 160, 256, 256, "bfloat16", "cuda_cores", True),
+    ("sd15_cross2_8x256x8x160_m77", 8, 256, 8, 160, 77, 77, "bfloat16", "mma", True),
+    ("sd15_self2_8x256x8x160", 8, 256, 8, 160, 256, 256, "bfloat16", "mma", True),
     ("sd21base_cross0_8x4096x5x64_m77", 8, 4096, 5, 64, 77, 77, "bfloat16", "wgmma", True),
-    ("d100_2x1024x4x100", 2, 1024, 4, 100, 1024, 1024, "bfloat16", "cuda_cores", True),
-    ("vae_2x4096x1x512", 2, 4096, 1, 512, 4096, 4096, "bfloat16", "cuda_cores", True),
+    ("d100_2x1024x4x100", 2, 1024, 4, 100, 1024, 1024, "bfloat16", "mma", True),
+    ("vae_2x4096x1x512", 2, 4096, 1, 512, 4096, 4096, "bfloat16", "mma", True),
     ("fp32_sd15_self0_8x4096x8x40", 8, 4096, 8, 40, 4096, 4096, "float32", "cuda_cores", True),
     ("fp32_sd15_cross0_8x4096x8x40_m77", 8, 4096, 8, 40, 77, 77, "float32", "cuda_cores", True),
+    ("fp32_sd15_self1_8x1024x8x80", 8, 1024, 8, 80, 1024, 1024, "float32", "cuda_cores", True),
+    ("fp32_sd15_cross1_8x1024x8x80_m77", 8, 1024, 8, 80, 77, 77, "float32", "cuda_cores", True),
     ("fp32_sd15_self2_8x256x8x160", 8, 256, 8, 160, 256, 256, "float32", "cuda_cores", True),
+    ("fp32_sd15_cross2_8x256x8x160_m77", 8, 256, 8, 160, 77, 77, "float32", "cuda_cores", True),
     ("fp32_d100_2x1024x4x100", 2, 1024, 4, 100, 1024, 1024, "float32", "cuda_cores", True),
     ("fp32_vae_2x4096x1x512", 2, 4096, 1, 512, 4096, 4096, "float32", "cuda_cores", True),
     ("fp32_kv_tail_1x256x2x100_m256_kv200", 1, 256, 2, 100, 256, 200, "float32", "cuda_cores",
      False),
+    ("kv_tail_1x256x2x160_m256_kv200", 1, 256, 2, 160, 256, 200, "bfloat16", "mma", False),
     ("ragged_2x300x3x80_m77_kv70", 2, 300, 3, 80, 77, 70, "bfloat16", "wgmma", False),
     ("fp32_odd_1x300x2x33_m130", 1, 300, 2, 33, 130, 130, "float32", "cuda_cores", False),
+    ("odd_1x300x2x33_m130", 1, 300, 2, 33, 130, 130, "bfloat16", "mma", False),
 )
+# The keys a variant's first tile holds, for the dropped-tile controls: K2
+# streams 64 keys (wgmma; cuda_cores' dQ kernel) or 32 (mma); K1 128
+# (wgmma) or 64 (wgmma_wide, cuda_cores).
+K2_TILE_KEYS = {"wgmma": 64, "mma": 32, "cuda_cores": 64}
+K1_TILE_KEYS = {"wgmma": 128, "wgmma_wide": 64, "cuda_cores": 64}
 CANARY_ROWS = 8  # rows past N (dq) or M (dk, dv) in each output buffer, which no launch may write
 CANARY = 7.0
 
@@ -791,16 +811,26 @@ CANARY = 7.0
 def k2_variant(dtype_name: str, d: int) -> str:
     """The K2 variant that must serve an aligned call in `dtype_name` at head
     dim `d`: wgmma for a 16-bit type at D <= 128 in whole 16-byte chunks,
-    else the CUDA cores."""
-    sixteen_bit = dtype_name in ("bfloat16", "float16")
-    return "wgmma" if sixteen_bit and d <= 128 and d % 8 == 0 else "cuda_cores"
+    mma for the other 16-bit calls, the CUDA cores for fp32."""
+    if dtype_name == "float32":
+        return "cuda_cores"
+    return "wgmma" if d <= 128 and d % 8 == 0 else "mma"
+
+
+def k1_variant(dtype_name: str, d: int) -> str:
+    """The K1 variant that must serve an aligned call in `dtype_name` at head
+    dim `d`: wgmma (D <= 128) or wgmma_wide for a 16-bit type whose head dim
+    is whole 16-byte chunks, else the CUDA cores."""
+    if dtype_name == "float32" or d % 8:
+        return "cuda_cores"
+    return "wgmma" if d <= 128 else "wgmma_wide"
 
 
 def check_flash_backward_form(gen, b, n, h, d, m, kv, dtype, variant, q=None, k=None, v=None):
     """K2 at one form against its plain version on the same q, k, v, o, lse
     and dO (computed in fp32 for a 16-bit type, in fp64 for fp32), with the
     variant that served it, a dropped-tile control (the plain version over
-    keys past the variant's first key tile: 64 keys wgmma, 32 CUDA cores),
+    keys past the variant's first key tile, K2_TILE_KEYS),
     two calls bit-identical, zero rows past kv_len and an untouched canary
     past N and M in the output buffers.  q, k, v may be given (views).
     Returns (report, the largest |error|)."""
@@ -838,7 +868,7 @@ def check_flash_backward_form(gen, b, n, h, d, m, kv, dtype, variant, q=None, k=
         raise AssertionError(f"dk or dv past kv_len is not zero at {where}")
     rdt = torch.float64 if fp32 else torch.float32
     ins = [t.to(rdt) for t in (q, k[:, :kv], v[:, :kv], o, lse, do)]
-    tile = 64 if variant == "wgmma" else 32
+    tile = K2_TILE_KEYS[variant]
     pad = (0, 0, 0, 0, 0, m - kv)
     ref = plain_attention(*ins[:3], scale, backward_of=ins[3:])
     ref = (ref[0], *(torch.nn.functional.pad(r, pad) for r in ref[1:]))
@@ -865,8 +895,8 @@ def check_flash_backward_form(gen, b, n, h, d, m, kv, dtype, variant, q=None, k=
 
 def check_flash_backward_forms(gen, card: dict) -> dict:
     """K2 at every form of FLASH_BWD_FORMS (`check_flash_backward_form`),
-    plus a packed fp32 qkv view read in place; the timed forms' ms, plain
-    version's ms, SDPA's forward+backward minus forward, and bound."""
+    plus packed fp32 and bf16 qkv views read in place; the timed forms' ms,
+    plain version's ms, SDPA's forward+backward minus forward, and bound."""
     import torch
     import torch.nn.functional as F
 
@@ -875,6 +905,7 @@ def check_flash_backward_forms(gen, card: dict) -> dict:
     dev = gen.device
     rows, worst = {}, 0.0
     for name, b, n, h, d, m, kv, dt, variant, timed in FLASH_BWD_FORMS:
+        t0 = time.perf_counter()
         dtype = getattr(torch, dt)
         text, err = check_flash_backward_form(gen, b, n, h, d, m, kv, dtype, variant)
         worst = max(worst, err)
@@ -893,12 +924,15 @@ def check_flash_backward_forms(gen, card: dict) -> dict:
             def sdpa_fwd_bwd():
                 torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
 
+            spin = FORM_SPIN_CYCLES
             row = {
                 "dtype": dt, "variant": variant, "shape": [b, n, h, d, m],
                 "ms": cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, lse, do,
-                                                                  scale=scale), 5, 1),
-                "plain_ms": cuda_ms(lambda: plain_attention(q, k, v, scale, (o, lse, do)), 2, 1),
-                "library_ms": cuda_ms(sdpa_fwd_bwd, 5, 1) - cuda_ms(sdpa_fwd, 5, 1),
+                                                                  scale=scale), 5, 1, spin),
+                "plain_ms": cuda_ms(lambda: plain_attention(q, k, v, scale, (o, lse, do)), 2, 1,
+                                    spin),
+                "library_ms": (cuda_ms(sdpa_fwd_bwd, 5, 1, spin)
+                               - cuda_ms(sdpa_fwd, 5, 1, spin)),
                 **bound_of(flash_floors_ms(b, n, m, h, d, backward=True,
                                            fp32=dtype == torch.float32, **card)),
             }
@@ -906,17 +940,144 @@ def check_flash_backward_forms(gen, card: dict) -> dict:
             line += (f"; {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, {row['bound_floor']}; "
                      f"SDPA fwd+bwd minus fwd {row['library_ms']:.4f}; plain {row['plain_ms']:.3f})")
             del q, k, v, do, o, lse, qt, kt, vt, dot
-        print(line, flush=True)
+        print(f"{line} [{time.perf_counter() - t0:.1f} s]", flush=True)
         torch.cuda.empty_cache()
-    # q, k, v as slices of one packed fp32 [1, 1024, 2, 3 * 40 + 1] tensor:
-    # strides of 121 elements, read in place by the CUDA-core variant.
-    packed = torch.randn(1, 1024, 2, 121, generator=gen, device=dev)
-    q, k, v = (packed[..., 1 + 40 * i:1 + 40 * (i + 1)] for i in range(3))
-    text, err = check_flash_backward_form(gen, 1, 1024, 2, 40, 1024, 1024, torch.float32,
-                                          "cuda_cores", q, k, v)
-    worst = max(worst, err)
-    print(f"[flash_bwd forms] packed fp32 q/k/v views (strides 121 elements) "
-          f"B,N,H,D=1,1024,2,40: {text}", flush=True)
+    # q, k, v as slices of one packed tensor, read in place: fp32 [1, 1024,
+    # 2, 3 * 40 + 1] (strides of 121 elements) by the CUDA cores, bf16 [1,
+    # 1024, 2, 3 * 100 + 4] (bases 8 bytes off a 16-byte boundary) by mma.
+    for dtype, d, extra, variant in ((torch.float32, 40, 1, "cuda_cores"),
+                                     (torch.bfloat16, 100, 4, "mma")):
+        width = 3 * d + extra
+        packed = torch.randn(1, 1024, 2, width, generator=gen, device=dev).to(dtype)
+        q, k, v = (packed[..., extra + d * i:extra + d * (i + 1)] for i in range(3))
+        text, err = check_flash_backward_form(gen, 1, 1024, 2, d, 1024, 1024, dtype, variant,
+                                              q, k, v)
+        worst = max(worst, err)
+        print(f"[flash_bwd forms] packed {str(dtype)[6:]} q/k/v views (strides {width} "
+              f"elements, base offset {extra}) B,N,H,D=1,1024,2,{d}: {text}", flush=True)
+    return {"rows": rows, "max_abs_err": worst}
+
+
+# K1's forms of the fp32 flash run (every K1 shape `train_step_calls` derives
+# for it: sd15's self- and cross-attentions at the three levels and the VAE
+# encoder's 512-wide head at batch 8), a head dim that is no multiple of 4
+# and a 16-bit one off whole 16-byte chunks, all on the CUDA cores: (name, B,
+# N, H, D, M, dtype name, variant, timed).  Then strided views
+# (`check_flash_forward_forms`).
+FLASH_FWD_FORMS = (
+    ("fp32_sd15_self0_8x4096x8x40", 8, 4096, 8, 40, 4096, "float32", "cuda_cores", True),
+    ("fp32_sd15_cross0_8x4096x8x40_m77", 8, 4096, 8, 40, 77, "float32", "cuda_cores", True),
+    ("fp32_sd15_self1_8x1024x8x80", 8, 1024, 8, 80, 1024, "float32", "cuda_cores", True),
+    ("fp32_sd15_cross1_8x1024x8x80_m77", 8, 1024, 8, 80, 77, "float32", "cuda_cores", True),
+    ("fp32_sd15_self2_8x256x8x160", 8, 256, 8, 160, 256, "float32", "cuda_cores", True),
+    ("fp32_sd15_cross2_8x256x8x160_m77", 8, 256, 8, 160, 77, "float32", "cuda_cores", True),
+    ("fp32_vae_8x4096x1x512", 8, 4096, 1, 512, 4096, "float32", "cuda_cores", True),
+    ("fp32_odd_1x300x2x33_m130", 1, 300, 2, 33, 130, "float32", "cuda_cores", False),
+    ("d100_2x1024x4x100", 2, 1024, 4, 100, 1024, "bfloat16", "cuda_cores", True),
+)
+
+
+def check_flash_forward_form(gen, b, n, h, d, m, dtype, variant, q=None, k=None, v=None):
+    """K1 at one form against its plain version on the same q, k, v
+    (computed in fp32 for a 16-bit type, in fp64 for fp32), with the variant
+    that served it, a dropped-tile control (the plain version over keys past
+    the variant's first key tile, K1_TILE_KEYS) that must fail the limits,
+    and two calls bit-identical.  q, k, v may be given (views).  Returns
+    (report, the largest |o error|)."""
+    import torch
+
+    from textboost_torch.ops import flash_attention as fa
+
+    dev = gen.device
+    fp32 = dtype == torch.float32
+    rel_lim, row_lim, lse_lim = ((FLASH_FP32_REL_L2, FLASH_FP32_ROW_REL_L2, FLASH_FP32_LSE_ATOL)
+                                 if fp32 else (FLASH_REL_L2, FLASH_ROW_REL_L2, FLASH_LSE_ATOL))
+    if q is None:
+        q = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, m, h, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, m, h, d, generator=gen, device=dev).to(dtype)
+    scale = d**-0.5
+    fa.variant_counts.clear()
+    o, lse = fa.flash_attention_forward(q, k, v, scale=scale)
+    again = fa.flash_attention_forward(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    where = f"{b, n, h, d, m} {dtype}"
+    if dict(fa.variant_counts) != {variant: 2}:
+        raise AssertionError(f"the flash forward at {where} went through "
+                             f"{dict(fa.variant_counts)}, not {variant}")
+    if not (torch.equal(o, again[0]) and torch.equal(lse, again[1])):
+        raise AssertionError(f"two calls of the flash forward differ at {where}")
+    rdt = torch.float64 if fp32 else torch.float32
+    qr, kr, vr = (t.to(rdt) for t in (q, k, v))
+    ro, rl = plain_attention(qr, kr, vr, scale)
+    tile = K1_TILE_KEYS[variant]
+    dropped = flash_errors(plain_attention(qr, kr[:, tile:], vr[:, tile:], scale)[0].to(dtype)
+                           .to(rdt), ro)
+    rel, row = flash_errors(o.to(rdt), ro)
+    el = (lse.to(rdt) - rl).abs().max().item()
+    if not (dropped[0] > rel_lim and dropped[1] > row_lim):
+        raise AssertionError(f"the flash limits would pass a kernel that drops a key tile at "
+                             f"{where}")
+    if not (rel <= rel_lim and row <= row_lim and el <= lse_lim):
+        raise AssertionError(f"flash forward disagrees with its plain version at {where}: "
+                             f"{rel:.3g} / {row:.3g} / lse {el:.3g}")
+    text = (f"{variant}, o rel L2 {rel:.3g} / worst row {row:.3g} (limits {rel_lim} / "
+            f"{row_lim}; control: the first {tile} keys dropped {dropped[0]:.3g} / "
+            f"{dropped[1]:.3g}), max|lse err| {el:.3g} (limit {lse_lim}); two calls "
+            f"bit-identical")
+    return text, (o.to(rdt) - ro).abs().max().item()
+
+
+def check_flash_forward_forms(gen, card: dict) -> dict:
+    """K1 at every form of FLASH_FWD_FORMS (`check_flash_forward_form`) and
+    at packed views read in place (fp32 strides of 121 elements, bf16 bases
+    off a 16-byte boundary); the timed forms' ms, plain version's ms, SDPA's
+    (forward, same dtype) and bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from textboost_torch.ops import flash_attention as fa
+
+    dev = gen.device
+    rows, worst = {}, 0.0
+    for name, b, n, h, d, m, dt, variant, timed in FLASH_FWD_FORMS:
+        t0 = time.perf_counter()
+        dtype = getattr(torch, dt)
+        text, err = check_flash_forward_form(gen, b, n, h, d, m, dtype, variant)
+        worst = max(worst, err)
+        line = f"[flash forms] {name} B,N,H,D,M={b},{n},{h},{d},{m} {dt}: {text}"
+        if timed:
+            q = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn(b, m, h, d, generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+            scale = d**-0.5
+            spin = FORM_SPIN_CYCLES
+            row = {
+                "dtype": dt, "variant": variant, "shape": [b, n, h, d, m],
+                "ms": cuda_ms(lambda: fa.flash_attention_forward(q, k, v, scale=scale), 5, 1,
+                              spin),
+                "plain_ms": cuda_ms(lambda: plain_attention(q, k, v, scale), 2, 1, spin),
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 5, 1,
+                                      spin),
+                **bound_of(flash_floors_ms(b, n, m, h, d, backward=False,
+                                           fp32=dtype == torch.float32, **card)),
+            }
+            rows[name] = row
+            line += (f"; {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, {row['bound_floor']}; "
+                     f"SDPA {row['library_ms']:.4f}; plain {row['plain_ms']:.3f})")
+            del q, k, v, qt, kt, vt
+        print(f"{line} [{time.perf_counter() - t0:.1f} s]", flush=True)
+        torch.cuda.empty_cache()
+    for dtype, d, extra in ((torch.float32, 40, 1), (torch.bfloat16, 40, 4)):
+        width = 3 * d + extra
+        packed = torch.randn(1, 1024, 2, width, generator=gen, device=dev).to(dtype)
+        q, k, v = (packed[..., extra + d * i:extra + d * (i + 1)] for i in range(3))
+        text, err = check_flash_forward_form(gen, 1, 1024, 2, d, 1024, dtype, "cuda_cores",
+                                             q, k, v)
+        worst = max(worst, err)
+        print(f"[flash forms] packed {str(dtype)[6:]} q/k/v views (strides {width} elements, "
+              f"base offset {extra}) B,N,H,D=1,1024,2,{d}: {text}", flush=True)
     return {"rows": rows, "max_abs_err": worst}
 
 
@@ -1200,10 +1361,11 @@ def check_group_norm_fp32(gen, fwd_keys, bwd_keys) -> float:
 
 def flash_impl_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     """`--attention_impl flash` at sd15 (see the module docstring): the
-    launches derived on the meta device; K2 at its new forms; one step under
-    flash against the same step under auto at bf16 and fp32; the training
-    main path at bf16 with a validation round and at fp32; every kernel held
-    at every shape the runs gave it."""
+    launches derived on the meta device; K2 and K1 at their forms; one step
+    under flash against the same step under auto at bf16 and fp32; the
+    training main path at bf16 with a validation round and at fp32 (K1
+    all wgmma and K2 wgmma + mma in bf16, both all CUDA cores in fp32);
+    every kernel held at every shape the runs gave it."""
     import torch
 
     from textboost_torch.models.configs import get_spec
@@ -1235,23 +1397,29 @@ def flash_impl_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
           f"(one image of one prompt, CFG): K1 {round_k1} (30 a UNet call x 25, 1 decode), "
           f"K3 {round_gn}", flush=True)
 
-    # b. K2 at its new forms ---------------------------------------------------
+    # b. K2 and K1 at their forms ----------------------------------------------
+    t_part = time.perf_counter()
     forms = check_flash_backward_forms(gen, card)
+    fwd_forms = check_flash_forward_forms(gen, card)
     gc.collect()
     torch.cuda.empty_cache()
+    part_s = {"forms": time.perf_counter() - t_part}
 
     # c. one step under flash against the same step under auto ----------------
     instance_dir = os.path.join(work, "instance")
     os.makedirs(instance_dir)
     write_instance_image(os.path.join(instance_dir, "dog.png"), seed=0)
     parity = {}
+    t_part = time.perf_counter()
     for prec in ("bf16", "fp32"):
         parity[prec] = flash_step_parity(gen, instance_dir, os.path.join(work, f"parity_{prec}"),
                                          prec == "bf16")
         gc.collect()
         torch.cuda.empty_cache()
+    part_s["parity"] = time.perf_counter() - t_part
 
     # d. the main path: bf16 with a validation round, then fp32 ----------------
+    t_part = time.perf_counter()
     runs = {}
     for prec, steps in (("bf16", FLASH_BF16_STEPS), ("fp32", FLASH_FP32_STEPS)):
         out = os.path.join(work, f"run_{prec}")
@@ -1317,14 +1485,18 @@ def flash_impl_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
         torch.cuda.empty_cache()
 
     # e. every kernel at every shape the runs gave it ---------------------------
+    part_s["runs"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
     form_keys = {(b, n, h, d, mm, dt) for _, b, n, h, d, mm, kv, dt, _, _ in FLASH_BWD_FORMS
                  if kv == mm}
+    fwd_form_keys = {(b, n, h, d, mm, dt) for _, b, n, h, d, mm, dt, _, _ in FLASH_FWD_FORMS}
     k1_err = k2_err = 0.0
     held_now = {"k1": [], "k2": []}
     for prec, dt in (("bf16", "bfloat16"), ("fp32", "float32")):
         dtype = getattr(torch, dt)
         shapes = runs[prec].pop("shapes")
-        k1_new = sorted(set(shapes["flash"]) - (held["flash"] if prec == "bf16" else set()))
+        k1_new = sorted(k for k in set(shapes["flash"]) - (held["flash"] if prec == "bf16" else set())
+                        if (*k, dt) not in fwd_form_keys)
         k1_err = max(k1_err, check_flash_forward(gen, k1_new, dtype) if k1_new else 0.0)
         held_now["k1"] += [(*k, dt) for k in k1_new]
         bwd = sorted(k for k in set(shapes["flash_bwd"])
@@ -1346,16 +1518,21 @@ def flash_impl_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
                   f"{len(shapes['gn_bwd'])} GroupNorm keys against their plain versions "
                   f"(atol = rtol = {GN_FP32_TOL}): max|err| {gn_err:.3g}", flush=True)
         torch.cuda.empty_cache()
+    part_s["held"] = time.perf_counter() - t_part
     phase_s = time.perf_counter() - t_phase
     print(f"[flash kernels] held now: K1 at {held_now['k1']}, K2 at {held_now['k2']} (and the "
-          f"{len(FLASH_BWD_FORMS)} forms above); K2 launches a step by shape, bf16 "
+          f"{len(FLASH_FWD_FORMS)} K1 and {len(FLASH_BWD_FORMS)} K2 forms above); K2 launches a "
+          f"step by shape, bf16 "
           f"{runs['bf16']['k2_per_step']}, fp32 {runs['fp32']['k2_per_step']}", flush=True)
-    print(f"[flash] the whole phase in {phase_s:.1f} s; {smi}", flush=True)
+    print(f"[flash] the whole phase in {phase_s:.1f} s (forms {part_s['forms']:.1f}, parity "
+          f"{part_s['parity']:.1f}, runs {part_s['runs']:.1f}, the runs' shapes "
+          f"{part_s['held']:.1f}); {smi}", flush=True)
     return {"launches": {prec: r["launches"] for prec, r in runs.items()},
             "derived_per_step": n_step, "derived_round_k1": round_k1,
-            "k2_forms": forms["rows"], "k1_max_abs_err": k1_err,
+            "k2_forms": forms["rows"], "k1_forms": fwd_forms["rows"],
+            "k1_max_abs_err": max(k1_err, fwd_forms["max_abs_err"]),
             "k2_max_abs_err": max(k2_err, forms["max_abs_err"]), "gn_fp32_max_abs_err": gn_err,
-            "parity": parity, "runs": runs, "phase_s": phase_s}
+            "parity": parity, "runs": runs, "phase_s": phase_s, "part_s": part_s}
 
 
 def group_norm_calls(model: str, unet_batch: int = 8, decode_batch: int = 4,
@@ -5298,10 +5475,13 @@ def main() -> int:
                            **{f"sd15_{k}": v for k, v in fa_t.items()},
                            **{f"dp_{k}": v for k, v in dp["k1"].items()},
                            **{f"tp_{k}": v for k, v in tp["k1"].items()},
-                           **{f"native_dp_{k}": v for k, v in nd["k1"].items()}},
+                           **{f"native_dp_{k}": v for k, v in nd["k1"].items()},
+                           **{f"flash_impl_{k}": v for k, v in fl["k1_forms"].items()}},
              per_generate_ms=flash_ms, launches_by_path=by_path["flash_attention_fwd"],
              variants={"generate": variants, "train": tr["variants"],
-                       "paper": paper["variants"]}),
+                       "paper": paper["variants"],
+                       "flash_sd15_bf16": fl["runs"]["bf16"]["variants"],
+                       "flash_sd15_fp32": fl["runs"]["fp32"]["variants"]}),
         dict({"name": "flash_attention_bwd", "route": "cuda",
               "source": "textboost_torch/csrc/flash_attention_bwd.cu",
               "replaces": "textboost_tpu/ops/flash_attention.py:119",
@@ -5377,7 +5557,7 @@ def main() -> int:
         "paper_run_sd21base": {k: v for k, v in paper.items()
                                if not (k in ("k1", "k2") or k.endswith("max_abs_err"))},
         "flash_impl_sd15": {k: v for k, v in fl.items()
-                            if not (k == "k2_forms" or k.endswith("max_abs_err"))},
+                            if not (k in ("k1_forms", "k2_forms") or k.endswith("max_abs_err"))},
         "snapshot_run_sd21base": {k: v for k, v in snap.items()
                                   if not (k in ("k1", "k2") or k.endswith("max_abs_err"))},
         "benchmark_sd21base": {k: v for k, v in bench.items()

@@ -64,10 +64,17 @@ def _randn(rng, *shape):
 # blocks of 128 keys with D zero-padded to 128); bf16: the inputs are bf16
 # on both sides, the JAX kernel keeps dq in fp32 but rounds dk, dv and o to
 # bf16, as the port's plain version does (one bf16 ulp, 2**-8 relative).
+# The shapes are those the kernels' CUDA-core and mma forms serve: fp32 at
+# D = 160, 100 and the VAE's 512, a head dim of 33 over 130 keys (N = 300
+# is outside the JAX kernel's envelope: there the JAX function's XLA path
+# answers), and bf16 heads of 40 and 160 over the 77 text keys.
 @pytest.mark.parametrize("b,n,h,d,m,dtype,atol,rtol", [
     (1, 256, 2, 160, 77, "float32", 2e-5, 1e-4),
     (1, 256, 2, 40, 77, "bfloat16", 2e-2, 2e-2),
     (1, 256, 1, 100, 256, "float32", 2e-5, 1e-4),
+    (1, 256, 1, 512, 256, "float32", 2e-5, 1e-4),
+    (1, 300, 2, 33, 130, "float32", 2e-5, 1e-4),
+    (1, 256, 2, 160, 77, "bfloat16", 2e-2, 2e-2),
 ])
 def test_flash_plain_versions_match_the_jax_kernels(b, n, h, d, m, dtype, atol, rtol):
     rng = np.random.default_rng(31)

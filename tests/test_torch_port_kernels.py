@@ -21,8 +21,9 @@ def test_kernels_match_plain_versions_on_the_card():
         pytest.skip("needs an NVIDIA GPU with nvcc (run on the card)")
     g = torch.Generator("cuda").manual_seed(0)
     # wgmma variants (bf16/fp16, D % 8 == 0: D <= 128, wide up to 512) and
-    # the CUDA-core variant (D = 100, fp32), with ragged N, masked KV tails
-    # and a kv_len inside the last 128-key tile at D = 40, 80 and 128.
+    # the CUDA-core variant (register tiles: D = 100, fp32 at D = 40 and at
+    # the VAE's 512), with ragged N, masked KV tails and a kv_len inside the
+    # last 128-key tile at D = 40, 80 and 128.
     for b, n, h, d, m, kv, dtype, variant in (
             (2, 1024, 2, 40, 1024, 1024, torch.bfloat16, "wgmma"),
             (1, 300, 3, 128, 77, 77, torch.bfloat16, "wgmma"),
@@ -35,7 +36,8 @@ def test_kernels_match_plain_versions_on_the_card():
             (1, 512, 1, 512, 300, 300, torch.bfloat16, "wgmma_wide"),
             (1, 100, 2, 200, 64, 64, torch.float16, "wgmma_wide"),
             (1, 256, 2, 100, 256, 256, torch.bfloat16, "cuda_cores"),
-            (1, 130, 2, 40, 99, 99, torch.float32, "cuda_cores")):
+            (1, 130, 2, 40, 99, 99, torch.float32, "cuda_cores"),
+            (1, 256, 1, 512, 256, 256, torch.float32, "cuda_cores")):
         q = torch.randn(b, n, h, d, generator=g, device="cuda").to(dtype)
         k = torch.randn(b, m, h, d, generator=g, device="cuda").to(dtype)
         v = torch.randn(b, m, h, d, generator=g, device="cuda").to(dtype)
@@ -124,22 +126,25 @@ def test_backward_kernels_match_plain_versions_on_the_card():
     assert all(t.is_contiguous() and t.data_ptr() % 16 == 8 for t in off)
     got = fa.flash_attention_backward(*off[:4], li, off[4], scale=40**-0.5)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
-    # A 512-wide head trains through the CUDA-core backward: its gradients
-    # against the plain version on the same o and lse, computed in fp32.
-    q, k, v = (torch.randn(1, 256, 1, 512, generator=g, device="cuda").bfloat16()
-               .requires_grad_() for _ in range(3))
-    do = torch.randn(1, 256, 1, 512, generator=g, device="cuda").bfloat16()
-    fa.bwd_variant_counts.clear()
-    fa.flash_attention(q, k, v, scale=512**-0.5).backward(do)
-    assert dict(fa.bwd_variant_counts) == {"cuda_cores": 1}
-    qf, kf, vf = (t.detach().float() for t in (q, k, v))
-    with torch.no_grad():
-        o, lse = fa.flash_attention_forward(q, k, v, scale=512**-0.5)
-    refs = fa.flash_attention_backward_reference(qf, kf, vf, o.float(), lse, do.float(),
-                                                 512**-0.5)
-    for t, ref in zip((q, k, v), refs):
-        diff = t.grad.float() - ref
-        assert (diff.norm() / ref.norm()).item() <= 5e-3
+    # 16-bit heads outside the wgmma form train through the mma backward: a
+    # 512-wide head and a 160-wide one over 77 keys, their gradients against
+    # the plain version on the same o and lse, computed in fp32.
+    for n, h, d, m in ((256, 1, 512, 256), (256, 2, 160, 77)):
+        q = torch.randn(1, n, h, d, generator=g, device="cuda").bfloat16().requires_grad_()
+        k, v = (torch.randn(1, m, h, d, generator=g, device="cuda").bfloat16().requires_grad_()
+                for _ in range(2))
+        do = torch.randn(1, n, h, d, generator=g, device="cuda").bfloat16()
+        fa.bwd_variant_counts.clear()
+        fa.flash_attention(q, k, v, scale=d**-0.5).backward(do)
+        assert dict(fa.bwd_variant_counts) == {"mma": 1}
+        qf, kf, vf = (t.detach().float() for t in (q, k, v))
+        with torch.no_grad():
+            o, lse = fa.flash_attention_forward(q, k, v, scale=d**-0.5)
+        refs = fa.flash_attention_backward_reference(qf, kf, vf, o.float(), lse, do.float(),
+                                                     d**-0.5)
+        for t, ref in zip((q, k, v), refs):
+            diff = t.grad.float() - ref
+            assert (diff.norm() / ref.norm()).item() <= 5e-3, (n, h, d, m)
     # GroupNorm backward against its plain version (bf16: one ulp; fp32 tight).
     for shape, silu, dtype in (((2, 320, 32, 32), True, torch.bfloat16),
                                ((2, 640, 16, 16), False, torch.bfloat16),

@@ -312,8 +312,10 @@ def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
 def test_the_flash_sources_hash_their_shared_header():
     from textboost_torch.ops import _build
 
+    # Both flash sources include the register tiles of their CUDA-core forms,
+    # which include hopper.cuh.
     for source in (fa.SOURCE, fa.BWD_SOURCE):
-        assert _build.included_headers(source) == ["hopper.cuh"]
+        assert _build.included_headers(source) == ["flash_tiles.cuh", "hopper.cuh"]
     # The GroupNorm kernels share their cluster body and reuse its mbarriers.
     for source in (gn.SOURCE, gn.BWD_SOURCE):
         assert _build.included_headers(source) == ["group_norm.cuh", "hopper.cuh"]
@@ -355,21 +357,58 @@ def test_kernel_ready_copies_only_what_the_backward_cannot_read_in_place(how, in
     ((8, 4096, 4096, 8, 40), True, "tensor_cores", 10 * 64 * 4096**2 * 40 / 989e12 * 1e3),
     ((8, 4096, 1, 8, 8), False, "bytes",
      (2 * 2 * (8 * 4096 * 8 * 8 + 8 * 1 * 8 * 8) + 4 * 8 * 8 * 4096) / 3.35e12 * 1e3),
+    # fp32 (the CUDA-core forms of K1 in the fp32 flash step): products at 67 TFLOP/s.
+    ((8, 4096, 4096, 8, 40), False, "cuda_cores", 4 * 64 * 4096**2 * 40 / 67e12 * 1e3),
+    ((8, 4096, 77, 8, 40), False, "cuda_cores", 4 * 64 * 4096 * 77 * 40 / 67e12 * 1e3),
+    ((8, 1024, 1024, 8, 80), False, "cuda_cores", 4 * 64 * 1024**2 * 80 / 67e12 * 1e3),
+    ((8, 256, 77, 8, 160), False, "cuda_cores", 4 * 64 * 256 * 77 * 160 / 67e12 * 1e3),
+    ((8, 4096, 4096, 1, 512), False, "cuda_cores", 4 * 8 * 4096**2 * 512 / 67e12 * 1e3),
 ])
 def test_chip_smoke_floors(shape, backward, floor, ms):
     import chip_smoke
 
+    fp32 = floor == "cuda_cores"
+    products = "cuda_cores" if fp32 else "tensor_cores"
     floors = chip_smoke.flash_floors_ms(*shape, backward=backward, sm_count=132,
-                                        sm_clock_hz=1.98e9)
-    assert set(floors) == {"bytes", "tensor_cores", "exponentials"}
+                                        sm_clock_hz=1.98e9, fp32=fp32)
+    assert set(floors) == {"bytes", products, "exponentials"}
     bound = chip_smoke.bound_of(floors)
     assert bound["bound_floor"] == floor
     assert bound["bound_by"] == ("bytes" if floor == "bytes" else "operations")
     assert bound["bound_ms"] == pytest.approx(ms, rel=1e-12)
     assert bound["bound_ms"] == max(floors.values())
     # The backward moves twice the bytes and does 2.5 times the products.
-    fwd = chip_smoke.flash_floors_ms(*shape, backward=False, sm_count=132, sm_clock_hz=1.98e9)
-    bwd = chip_smoke.flash_floors_ms(*shape, backward=True, sm_count=132, sm_clock_hz=1.98e9)
-    assert bwd["tensor_cores"] == pytest.approx(2.5 * fwd["tensor_cores"])
+    fwd = chip_smoke.flash_floors_ms(*shape, backward=False, sm_count=132, sm_clock_hz=1.98e9,
+                                     fp32=fp32)
+    bwd = chip_smoke.flash_floors_ms(*shape, backward=True, sm_count=132, sm_clock_hz=1.98e9,
+                                     fp32=fp32)
+    assert bwd[products] == pytest.approx(2.5 * fwd[products])
     assert bwd["exponentials"] == fwd["exponentials"]
     assert fwd["bytes"] < bwd["bytes"] < 2 * fwd["bytes"] + 1e-12
+
+
+def test_chip_smoke_flash_forms_name_the_variants_the_rules_give():
+    """Every row of chip_smoke's K1 and K2 form tables names the variant
+    that `k1_variant` / `k2_variant` (the C entry points' rules for an
+    aligned call) give its dtype and head dim, so that the tables and the
+    rules cannot drift apart; and the rules send no 16-bit K2 call and
+    every fp32 call to the CUDA cores."""
+    import chip_smoke
+
+    assert len(chip_smoke.FLASH_FWD_FORMS) >= 9 and len(chip_smoke.FLASH_BWD_FORMS) >= 20
+    for name, _, _, _, d, _, dt, variant, _ in chip_smoke.FLASH_FWD_FORMS:
+        assert chip_smoke.k1_variant(dt, d) == variant, name
+        assert variant in fa.VARIANTS
+    for name, _, _, _, d, _, _, dt, variant, _ in chip_smoke.FLASH_BWD_FORMS:
+        assert chip_smoke.k2_variant(dt, d) == variant, name
+        assert variant in fa.BWD_VARIANTS
+    for d in (8, 33, 40, 64, 80, 100, 128, 136, 160, 512):
+        assert chip_smoke.k2_variant("float32", d) == "cuda_cores"
+        assert chip_smoke.k1_variant("float32", d) == "cuda_cores"
+        for dt in ("bfloat16", "float16"):
+            assert chip_smoke.k2_variant(dt, d) == ("wgmma" if d <= 128 and d % 8 == 0
+                                                    else "mma")
+            assert chip_smoke.k1_variant(dt, d) == ("cuda_cores" if d % 8 else
+                                                    "wgmma" if d <= 128 else "wgmma_wide")
+    assert set(chip_smoke.K2_TILE_KEYS) == set(fa.BWD_VARIANTS)
+    assert set(chip_smoke.K1_TILE_KEYS) == set(fa.VARIANTS)

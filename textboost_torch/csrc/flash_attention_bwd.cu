@@ -1,6 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel textboost_tpu/ops/flash_attention.py::
+// Replaces the Pallas TPU kernel textboost_tpu/ops/flash_attention.py:119
 // _bwd_fused_kernel (launched through _bwd, flash_attention.py:175-218,
 // pallas_call at :190).  From q, k, v, the forward's o and lse (natural log,
 // fp32) and dO it computes, with P rebuilt from lse instead of stored:
@@ -57,23 +57,44 @@
 // the wgmma there); no shipped config trains at that head dim.
 //
 // Envelope: the JAX backward's (fp32/fp16/bf16, any D <= 512, any KV
-// length), in two variants the C entry point chooses between and reports:
+// length), in three variants the C entry point chooses between and reports:
 //   wgmma (above): bf16/fp16, D <= 128, D and every stride a multiple of 8,
-//   16-byte aligned pointers (the wrapper asks tb_flash_attention_bwd_wgmma_form
-//   and copies a view of such a tensor that is not).  It serves every self- and cross-attention of the shipped
+//   16-byte aligned pointers (the wrapper asks
+//   tb_flash_attention_bwd_wgmma_form and copies a view of such a tensor
+//   that is not).  It serves every self- and cross-attention of the shipped
 //   configs at D = 40, 64 and 80, the 77 text keys included.
-//   CUDA cores (cc:: below): fp32 at any D, 128 < D <= 512 (sd15's 160-wide
-//   heads at 16x16 latents, the VAE's 512), D % 8 != 0, and views whose
-//   strides or bases TMA cannot read, in place.  The same split: one CTA per
-//   (batch*head, 16-32 query rows) for delta + dQ with K/V streamed 32 keys
-//   at a time through shared memory, one CTA per (batch*head, 8-32 keys)
-//   for dK/dV with Q/dO streamed 32 rows at a time; scores with one key (or
-//   query row) per lane and the other operand as shared-memory broadcasts,
-//   the accumulating products with head columns l, l + 32, ... per lane;
-//   fp32 arithmetic and accumulators, exp2f; D in chunks of 32 columns up to
-//   512 (shared memory up to ~196 KB a CTA at D = 512, set with
-//   cudaFuncSetAttribute).  No atomics in either variant: the same bits from
-//   run to run.
+//   mma (mma:: below): the other bf16/fp16 calls: 128 < D <= 512 (sd15's
+//   160-wide heads at 16x16 latents under --attention_impl flash, the VAE's
+//   512), D % 8 != 0, and views whose strides or bases TMA cannot read, read
+//   in place.  It exists beside the wgmma form because that form's design
+//   does not stretch there: its tiles come by TMA (whole 16-byte chunks,
+//   aligned bases) and its dK/dV warpgroups hold two 64 x D fp32
+//   accumulators, which past D = 128 exceed the registers.  Here the same
+//   split runs on mma.sync.m16n8k16 with fp32 accumulators: CTAs of 4 warps,
+//   each warp owning 16 query rows (delta + dQ) or 16 keys (dK/dV); threads
+//   stage the resident tile (64 rows) and a two-stage ring of 32-row streamed
+//   tiles into shared memory by 16-byte cp.async where the view allows it,
+//   element loads otherwise, zero-padding D to a multiple of 16 and zeroing
+//   keys past kv_len (nothing is padded in device memory); ldmatrix loads
+//   the fragments; S and dP (or S^T, dP^T) over the whole head dim stay in
+//   registers and become, rounded to the input dtype, the A fragments of the
+//   accumulating products, as in the wgmma form.  The register budget sets
+//   the column split: one 16 x DN fp32 accumulator is DN / 2 registers a
+//   thread, so dQ's CTA holds up to 256 columns and dK/dV's (two of them) up
+//   to 128; a wider head dim is split over the grid's z, each CTA
+//   recomputing its scores over the whole head dim (dP needs all of it).
+//   At D = 160, dQ is one block of 160 and dK/dV two of 80; at D = 512, two
+//   of 256 and four of 128.
+//   CUDA cores (cc:: below): fp32 at any D.  The same split on register tiles
+//   (flash_tiles.cuh): CTAs of 256 threads, 64 query rows (delta + dQ) or 64
+//   keys (dK/dV) a CTA, the other side streamed 64 rows at a time (two
+//   stages of 16-byte cp.async where the head dim fits one tile and two
+//   CTAs still fit an SM; else D in chunks of 64, 32 or 16); each thread a
+//   4 x 4 block of the score tiles and 4 x 4 W4 of the accumulators, every
+//   shared-memory float4 feeding 4 to 16 FMAs; fp32 arithmetic and
+//   accumulators, no TF32, exp2f.  dK/dV hold two accumulators, so past
+//   D = 256 their columns are split over the grid's z as in mma.
+//   No atomics in any variant: the same bits from run to run.
 //
 // Bound on the card.  At sd15's shapes (N = M = 4096, D = 40 or 80) the least
 // work is 5 products of 2*N*M*D operations per (batch, head), i.e.
@@ -82,16 +103,16 @@
 // it: the five products at the tensor cores' rate and, at D = 40, almost as
 // much again the N*M exponentials per (batch, head) at 16 ex2 a clock on
 // each SM.  The split does 7 products and computes every exponential twice
-// (once in each kernel); that is the price of results without atomics.  In
-// fp32 the products run on the CUDA cores (67 TFLOP/s, not the tensor cores'
-// 989), which bound the CUDA-core variant; at M = 77 (cross-attention over
-// the text) in a 16-bit type the bytes of q, o, dO and dq bound it.  The
-// CUDA-core variant
-// reads every operand from shared memory once per multiply-add pair, so it
-// runs well below that bound (PERF.md); a wgmma form for wide heads is later
-// work.
+// (once in each kernel); that is the price of results without atomics.  The
+// mma variant's tensor-core work is bound the same way (its column split
+// adds score products at D > 128); at M = 77 in a 16-bit type the bytes of
+// q, o, dO and dq bound it.  In fp32 the products run on the CUDA cores at
+// 67 TFLOP/s, which bound the CUDA-core variant; the register tiles reach
+// about a third of that rate (PERF.md), held back by what a 64 x 64 tile
+// costs besides its FMAs (staging, exponentials, barriers) and by register
+// pressure (two CTAs an SM up to D = 64 in dK/dV).
 
-#include "hopper.cuh"
+#include "flash_tiles.cuh"
 
 #include <math.h>
 
@@ -629,366 +650,796 @@ bool wgmma_eligible(int dtype, int D, const void* const (&ptrs)[8], const Stride
   return true;
 }
 
+using tiles::kMaxSmem;
+
 // ---------------------------------------------------------------------------
-// 3. The CUDA-core variant: fp32, 128 < D <= 512, D % 8 != 0, views TMA
-//    cannot read.  The same split (delta + dQ, then dK/dV), fp32 arithmetic.
+// 3. The mma variant: bf16/fp16 calls the wgmma variant does not take
+//    (128 < D <= 512, D % 8 != 0, views TMA cannot read).  The same split,
+//    on the tensor cores through mma.sync.m16n8k16, fp32 accumulators.
 // ---------------------------------------------------------------------------
-namespace cc {
+namespace mma {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBT = 32;  // streamed keys (dQ) or query rows (dK/dV) per tile: one per lane
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kOwn = 64;       // query rows (dQ) or keys (dK/dV) per CTA: 16 per warp
+constexpr int kStream = 32;    // streamed keys (dQ) or query rows (dK/dV) per tile
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// Row stride (elements) of a [rows][W] 16-bit tile that ldmatrix reads: an
+// odd number of 16-byte chunks, so that 8 rows fall on 8 bank groups.
+inline int row_ld(int W) { return (W / 8) % 2 == 0 ? W + 8 : W + 16; }
+
+__device__ __forceinline__ bool aligned16(const void* p, long long sn) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && sn % 8 == 0;
 }
 
-// Query rows per warp in the dQ kernel and keys per warp in the dK/dV
-// kernel (NC: head columns per lane, in 32s): fewer where the accumulators
-// are wide, so that they stay in registers (dK/dV holds two).
-template <int NC> struct DqRows { static constexpr int value = NC <= 4 ? 8 : 4; };
-template <int NC> struct DkdvRows { static constexpr int value = NC <= 4 ? 8 : NC <= 8 ? 4 : 2; };
-
-template <int NC> inline size_t dq_smem(int ds) {
-  constexpr int BQ = kWarps * DqRows<NC>::value;
-  return sizeof(float) * (size_t)(2 * BQ * ds + 2 * kBT * ds + kWarps * kBT * DqRows<NC>::value);
-}
-
-template <int NC> inline size_t dkdv_smem(int ds) {
-  constexpr int RK = DkdvRows<NC>::value;
-  constexpr int BK = kWarps * RK;
-  return sizeof(float) * (size_t)(2 * BK * ds + 2 * kBT * ds + 2 * kBT + 2 * kWarps * kBT * RK);
-}
-
-// rows x DS floats from rows [r0, r0 + rows) of a [S, D] slice (row stride
-// `sn` elements), zero past `valid` rows and past D, times `mul`.
+// dst[r][c] (row stride ld) = src row r0 + r, column c, for r < rows and
+// c < W (a multiple of 8): zero past `valid` rows and past D.  16-byte
+// cp.async where `vec` (base and row stride in whole chunks) and the chunk
+// lies inside D; element loads otherwise.  The caller commits and waits.
 template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long sn, int r0, int rows,
-                                      int valid, int D, int DS, float mul) {
-  for (int idx = threadIdx.x; idx < rows * DS; idx += kThreads) {
-    const int r = idx / DS;
-    const int d = idx - r * DS;
+__device__ __forceinline__ void stage(T* dst, int ld, int W, const T* src, long long sn, int r0,
+                                      int rows, int valid, int D, bool vec) {
+  const int chunks = W / 8;
+  for (int idx = threadIdx.x; idx < rows * chunks; idx += kThreads) {
+    const int r = idx / chunks;
+    const int c = (idx - r * chunks) * 8;
     const int n = r0 + r;
-    dst[idx] = (n < valid && d < D) ? to_float(src[n * sn + d]) * mul : 0.f;
+    T* d = dst + r * ld + c;
+    if (vec && n < valid && c + 8 <= D) {
+      cp_async16(d, src + n * sn + c);
+    } else {
+      __align__(16) T e[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        e[i] = (n < valid && c + i < D) ? src[n * sn + c + i] : from_float<T>(0.f);
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(e);
+    }
   }
 }
 
-// 1. delta and dQ, one CTA per (batch*head, BQ query rows), warp w owning
-// rows w*RW ..; K and V streamed 32 keys at a time.  Scores: lane j owns key
-// j and reads the warp's q and dO rows as shared-memory broadcasts.  dQ +=
-// dS K: lane l owns head columns l, l + 32, ...; dS goes through the warp's
-// slice of shared memory.
-template <typename T, int NC>
+// The A fragments of the next product from a warp's 16 x 32 score
+// accumulator x[n-tile][4]: k step kk covers n-tiles 2 kk and 2 kk + 1.
+template <typename T>
+__device__ __forceinline__ void scores_to_a(uint32_t (&a)[2][4], const float (&x)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    a[kk][0] = pack2<T>(x[2 * kk][0], x[2 * kk][1]);
+    a[kk][1] = pack2<T>(x[2 * kk][2], x[2 * kk][3]);
+    a[kk][2] = pack2<T>(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[kk][3] = pack2<T>(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+  }
+}
+
+// s (+)= A B^T and t (+)= A2 B2^T for a warp's 16 rows against 32 streamed
+// rows, k over `kp` steps of 16 columns: A, A2 from the row-major tiles at
+// the shared addresses a, a2 (the warp's first row, lane's ldmatrix row),
+// B, B2 likewise at b, b2; row strides `ld` elements.
+template <typename T>
+__device__ __forceinline__ void score_pair(float (&s)[4][4], float (&t)[4][4], uint32_t a,
+                                           uint32_t a2, uint32_t b, uint32_t b2, int ld, int kp) {
+  for (int ks = 0; ks < kp; ++ks) {
+    uint32_t fa[4], fa2[4];
+    ldsm_x4(fa, a + ks * 32);
+    ldsm_x4(fa2, a2 + ks * 32);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t fb[4], fb2[4];
+      ldsm_x4(fb, b + (p * 16 * ld + ks * 16) * 2);
+      ldsm_x4(fb2, b2 + (p * 16 * ld + ks * 16) * 2);
+      mma16816<T>(s[2 * p], fa, fb[0], fb[1]);
+      mma16816<T>(s[2 * p + 1], fa, fb[2], fb[3]);
+      mma16816<T>(t[2 * p], fa2, fb2[0], fb2[1]);
+      mma16816<T>(t[2 * p + 1], fa2, fb2[2], fb2[3]);
+    }
+  }
+}
+
+// acc[16 x DN] += X[16 x 32] * tile[32 rows x DN columns from c0]: X from the
+// fragments `xa`, the tile read transposed by ldmatrix from address `b` (its
+// row 0, column c0, lane's ldmatrix row and column).
+template <typename T, int DN>
+__device__ __forceinline__ void acc_times_tile(float (&acc)[DN / 8][4], const uint32_t (&xa)[2][4],
+                                               uint32_t b, int ld) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int p = 0; p < DN / 16; ++p) {
+      uint32_t fb[4];
+      ldsm_x4_t(fb, b + (kk * 16 * ld + p * 16) * 2);
+      mma16816<T>(acc[2 * p], xa[kk], fb[0], fb[1]);
+      mma16816<T>(acc[2 * p + 1], xa[kk], fb[2], fb[3]);
+    }
+}
+
+// Rows row0 + g and row0 + g + 8 of acc * mul into `out` (rows `rs` elements
+// apart), columns c0 + 8 nt + 2 tq (+1) below D; no row at or past `rows`.
+template <typename T, int DN>
+__device__ __forceinline__ void store_rows16(T* out, long long rs, const float (&acc)[DN / 8][4],
+                                             float mul, int row0, int rows, int c0, int D) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int n = row0 + (lane >> 2) + 8 * e;
+    if (n >= rows) continue;
+#pragma unroll
+    for (int nt = 0; nt < DN / 8; ++nt)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int d = c0 + nt * 8 + (lane & 3) * 2 + x;
+        if (d < D) out[n * rs + d] = from_float<T>(acc[nt][2 * e + x] * mul);
+      }
+  }
+}
+
+// 1. delta and dQ, one CTA per (batch*head, 64 query rows, DN columns of
+// dQ): Q and dO resident, K and V streamed 32 keys at a time (two stages
+// where shared memory allows).  Each warp owns 16 query rows: S and dP
+// (16 x 32) by mma over the whole head dim, P and dS in registers, dS the
+// A fragments of dQ += dS K over the CTA's DN columns.
+template <typename T, int DN>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ o, const T* __restrict__ g, const float* __restrict__ lse,
-          float* __restrict__ delta, T* __restrict__ dq, int N, int kv_len, int H, int D, int DS,
-          const Strides st, float scale) {
-  constexpr int RW = DqRows<NC>::value;
-  constexpr int BQ = kWarps * RW;
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);  // [BQ][DS], q * scale * log2(e)
-  float* sG = sQ + BQ * DS;                      // [BQ][DS], dO
-  float* sK = sG + BQ * DS;                      // [kBT][DS]
-  float* sV = sK + kBT * DS;                     // [kBT][DS]
-  float* sS = sV + kBT * DS;                     // [kWarps][kBT][RW], dS by key
+          float* __restrict__ delta, T* __restrict__ dq, int N, int kv_len, int H, int D, int W,
+          int ld, int stages, const Strides st, float scale) {
+  extern __shared__ uint4 smem16[];
+  T* sQ = reinterpret_cast<T*>(smem16);  // [64][ld]
+  T* sG = sQ + kOwn * ld;                 // [64][ld], dO
+  T* sK = sG + kOwn * ld;                 // [stages][32][ld]
+  T* sV = sK + stages * kStream * ld;     // [stages][32][ld]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int tq = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.x * BQ;
-  const float scale_log2 = scale * kLog2e;
+  const int q0 = blockIdx.x * kOwn;
+  const int c0 = blockIdx.z * DN;
   const T* qb = q + b * st.q[0] + h * st.q[2];
   const T* kb = k + b * st.k[0] + h * st.k[2];
   const T* vb = v + b * st.v[0] + h * st.v[2];
   const T* ob = o + b * st.o[0] + h * st.o[2];
   const T* gb = g + b * st.g[0] + h * st.g[2];
+  const bool vk = aligned16(kb, st.k[1]);
+  const bool vv = aligned16(vb, st.v[1]);
+  const int ntiles = (kv_len + kStream - 1) / kStream;
+  const int kp = (D + 15) / 16;
 
-  stage(sQ, qb, st.q[1], q0, BQ, N, D, DS, scale_log2);
-  stage(sG, gb, st.g[1], q0, BQ, N, D, DS, 1.f);
+  stage(sQ, ld, W, qb, st.q[1], q0, kOwn, N, D, aligned16(qb, st.q[1]));
+  stage(sG, ld, W, gb, st.g[1], q0, kOwn, N, D, aligned16(gb, st.g[1]));
+  auto load = [&](int j, int buf) {
+    stage(sK + buf * kStream * ld, ld, W, kb, st.k[1], j * kStream, kStream, kv_len, D, vk);
+    stage(sV + buf * kStream * ld, ld, W, vb, st.v[1], j * kStream, kStream, kv_len, D, vv);
+  };
+  load(0, 0);
+  cp_async_commit();
 
-  // delta = rowsum(o * dO) and lse (log2 units) of the warp's rows, on every lane.
-  float dl[RW], l2[RW];
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int n = q0 + warp * RW + r;
+  // delta = rowsum(o * dO) in fp32, two lanes a row; lse in log2 units.
+  float dl[2], l2[2];
+  {
+    const int n = q0 + warp * 16 + (lane >> 1);
     float part = 0.f;
     if (n < N)
-      for (int d = lane; d < D; d += 32)
+      for (int d = lane & 1; d < D; d += 2)
         part = fmaf(to_float(ob[n * st.o[1] + d]), to_float(gb[n * st.g[1] + d]), part);
-    dl[r] = warp_sum(part);
-    l2[r] = n < N ? lse[(long long)bh * N + n] * kLog2e : 0.f;
-    if (lane == 0 && n < N) delta[(long long)bh * N + n] = dl[r];
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if (blockIdx.z == 0 && (lane & 1) == 0 && n < N) delta[(long long)bh * N + n] = part;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = (lane >> 2) + 8 * e;
+      dl[e] = __shfl_sync(0xffffffffu, part, 2 * r);
+      const int m = q0 + warp * 16 + r;
+      l2[e] = m < N ? lse[(long long)bh * N + m] * kLog2e : 0.f;
+    }
   }
+  const float scale_log2 = scale * kLog2e;
 
-  float acc[RW][NC];
+  float acc[DN / 8][4];
 #pragma unroll
-  for (int r = 0; r < RW; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-
-  const int ds4 = DS / 4;
-  const int d4n = (D + 3) / 4;  // float4s that hold the head dim
-  const float4* qrow = reinterpret_cast<const float4*>(sQ + warp * RW * DS);
-  const float4* grow = reinterpret_cast<const float4*>(sG + warp * RW * DS);
-  const float4* krow = reinterpret_cast<const float4*>(sK + lane * DS);
-  const float4* vrow = reinterpret_cast<const float4*>(sV + lane * DS);
-  float* sw = sS + warp * kBT * RW;
-
-  for (int k0 = 0; k0 < kv_len; k0 += kBT) {
-    __syncthreads();  // the previous tile is consumed (and sQ, sG are written)
-    stage(sK, kb, st.k[1], k0, kBT, kv_len, D, DS, 1.f);
-    stage(sV, vb, st.v[1], k0, kBT, kv_len, D, DS, 1.f);
+  for (int i = 0; i < DN / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int arow = (warp * 16 + (lane & 15)) * ld + (lane >> 4) * 8;
+  const int brow = ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8;
+  const int trow = ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + c0 + (lane >> 4) * 8;
+  for (int j = 0; j < ntiles; ++j) {
+    const int buf = stages == 2 ? (j & 1) : 0;
+    if (stages == 2 && j + 1 < ntiles) {
+      load(j + 1, (j + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-
-    float s[RW], dp[RW];
+    const T* tK = sK + buf * kStream * ld;
+    const T* tV = sV + buf * kStream * ld;
+    float s[4][4] = {}, dp[4][4] = {};
+    score_pair<T>(s, dp, smem_u32(sQ + arow), smem_u32(sG + arow), smem_u32(tK + brow),
+                  smem_u32(tV + brow), ld, kp);
+    const int left = kv_len - j * kStream;  // valid keys of this tile
 #pragma unroll
-    for (int r = 0; r < RW; ++r) s[r] = dp[r] = 0.f;
-    for (int d4 = 0; d4 < d4n; ++d4) {
-      const float4 kk = krow[d4];
-      const float4 vv = vrow[d4];
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        s[r] = dot4(qrow[r * ds4 + d4], kk, s[r]);
-        dp[r] = dot4(grow[r * ds4 + d4], vv, dp[r]);
+      for (int i = 0; i < 4; ++i) {
+        const int e = i >> 1;
+        const float p = nt * 8 + tq * 2 + (i & 1) < left
+                            ? fast_exp2(fmaf(s[nt][i], scale_log2, -l2[e])) : 0.f;
+        s[nt][i] = p * (dp[nt][i] - dl[e]);  // dS
       }
-    }
-    const bool valid = k0 + lane < kv_len;
-#pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const float p = valid ? exp2f(s[r] - l2[r]) : 0.f;
-      s[r] = p * (dp[r] - dl[r]);  // dS
-    }
-#pragma unroll
-    for (int r4 = 0; r4 < RW / 4; ++r4)
-      reinterpret_cast<float4*>(sw + lane * RW)[r4] =
-          make_float4(s[4 * r4], s[4 * r4 + 1], s[4 * r4 + 2], s[4 * r4 + 3]);
-    __syncwarp();
-
-    const int jn = min(kBT, kv_len - k0);
-    for (int j = 0; j < jn; ++j) {
-      float dsj[RW];
-#pragma unroll
-      for (int r4 = 0; r4 < RW / 4; ++r4) {
-        const float4 t = reinterpret_cast<const float4*>(sw + j * RW)[r4];
-        dsj[4 * r4] = t.x;
-        dsj[4 * r4 + 1] = t.y;
-        dsj[4 * r4 + 2] = t.z;
-        dsj[4 * r4 + 3] = t.w;
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = c * 32 + lane;
-        const float kk = d < D ? sK[j * DS + d] : 0.f;
-#pragma unroll
-        for (int r = 0; r < RW; ++r) acc[r][c] = fmaf(dsj[r], kk, acc[r][c]);
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int n = q0 + warp * RW + r;
-    if (n >= N) continue;
-    T* out = dq + b * st.dq[0] + n * st.dq[1] + h * st.dq[2];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = c * 32 + lane;
-      if (d < D) out[d] = from_float<T>(acc[r][c] * scale);
+    uint32_t dsa[2][4];
+    scores_to_a<T>(dsa, s);
+    acc_times_tile<T, DN>(acc, dsa, smem_u32(tK + trow), ld);  // dQ += dS K
+    __syncthreads();
+    if (stages == 1 && j + 1 < ntiles) {
+      load(j + 1, 0);
+      cp_async_commit();
     }
   }
+  store_rows16<T, DN>(dq + b * st.dq[0] + h * st.dq[2], st.dq[1], acc, scale,
+                      q0 + warp * 16, N, c0, D);
 }
 
-// 2. dK and dV, one CTA per (batch*head, BK keys), warp w owning keys
-// w*RK ..; Q and dO streamed 32 rows at a time with their lse and delta.
-// Transposed scores: lane i owns query row i and reads the warp's K and V
-// rows as broadcasts.  dV += P^T dO and dK += dS^T Q: lane l owns head
-// columns l, l + 32, ....  Keys at or past kv_len get P = 0, so their rows
-// are written as zeros; no row at or past M is written.
-template <typename T, int NC>
+// 2. dK and dV, one CTA per (batch*head, 64 keys, DN columns of dK and dV):
+// K and V resident, Q and dO streamed 32 rows at a time with their lse and
+// delta.  Each warp owns 16 keys: the transposed scores S^T, dP^T (16 x 32)
+// over the whole head dim, P^T and dS^T in registers as the A fragments of
+// dV += P^T dO and dK += dS^T Q over the CTA's DN columns.  Keys at or past
+// kv_len get P = 0, so their rows are written as zeros.
+template <typename T, int DN>
 __global__ void __launch_bounds__(kThreads)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ g, const float* __restrict__ lse,
             const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int N, int M,
-            int kv_len, int H, int D, int DS, const Strides st, float scale) {
-  constexpr int RK = DkdvRows<NC>::value;
-  constexpr int BK = kWarps * RK;
-  extern __shared__ float4 smem4[];
-  float* sK = reinterpret_cast<float*>(smem4);  // [BK][DS], k * scale * log2(e)
-  float* sV = sK + BK * DS;                      // [BK][DS]
-  float* sQ = sV + BK * DS;                      // [kBT][DS]
-  float* sG = sQ + kBT * DS;                     // [kBT][DS], dO
-  float* sL = sG + kBT * DS;                     // [kBT], lse in log2 units
-  float* sD = sL + kBT;                          // [kBT], delta
-  float* sP = sD + kBT;                          // [kWarps][kBT][RK], P^T by query row
-  float* sS = sP + kWarps * kBT * RK;            // [kWarps][kBT][RK], dS^T by query row
+            int kv_len, int H, int D, int W, int ld, int stages, const Strides st, float scale) {
+  extern __shared__ uint4 smem16[];
+  T* sK = reinterpret_cast<T*>(smem16);       // [64][ld]
+  T* sV = sK + kOwn * ld;                      // [64][ld]
+  T* sQ = sV + kOwn * ld;                      // [stages][32][ld]
+  T* sG = sQ + stages * kStream * ld;          // [stages][32][ld], dO
+  float* sL = reinterpret_cast<float*>(sG + stages * kStream * ld);  // [stages][32], log2 units
+  float* sD = sL + stages * kStream;                                  // [stages][32], delta
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int tq = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int kb0 = blockIdx.x * BK;
-  const float scale_log2 = scale * kLog2e;
+  const int kb0 = blockIdx.x * kOwn;
+  const int c0 = blockIdx.z * DN;
   const T* qb = q + b * st.q[0] + h * st.q[2];
   const T* kb = k + b * st.k[0] + h * st.k[2];
   const T* vb = v + b * st.v[0] + h * st.v[2];
   const T* gb = g + b * st.g[0] + h * st.g[2];
 
-  stage(sK, kb, st.k[1], kb0, BK, kv_len, D, DS, scale_log2);
-  stage(sV, vb, st.v[1], kb0, BK, kv_len, D, DS, 1.f);
+  float dka[DN / 8][4], dva[DN / 8][4];
+#pragma unroll
+  for (int i = 0; i < DN / 8; ++i)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dka[i][x] = dva[i][x] = 0.f;
 
-  float dka[RK][NC], dva[RK][NC];
-#pragma unroll
-  for (int r = 0; r < RK; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dka[r][c] = dva[r][c] = 0.f;
-
-  bool kvalid[RK];
-#pragma unroll
-  for (int r = 0; r < RK; ++r) kvalid[r] = kb0 + warp * RK + r < kv_len;
-  const int ds4 = DS / 4;
-  const int d4n = (D + 3) / 4;
-  const float4* krow = reinterpret_cast<const float4*>(sK + warp * RK * DS);
-  const float4* vrow = reinterpret_cast<const float4*>(sV + warp * RK * DS);
-  const float4* qrow = reinterpret_cast<const float4*>(sQ + lane * DS);
-  const float4* grow = reinterpret_cast<const float4*>(sG + lane * DS);
-  float* pw = sP + warp * kBT * RK;
-  float* sw = sS + warp * kBT * RK;
-
-  const int n_end = kb0 < kv_len ? N : 0;  // a CTA of masked keys only writes zeros
-  for (int n0 = 0; n0 < n_end; n0 += kBT) {
-    __syncthreads();  // the previous tile is consumed (and sK, sV are written)
-    stage(sQ, qb, st.q[1], n0, kBT, N, D, DS, 1.f);
-    stage(sG, gb, st.g[1], n0, kBT, N, D, DS, 1.f);
-    if (threadIdx.x < kBT) {
-      const int n = n0 + threadIdx.x;
-      sL[threadIdx.x] = n < N ? lse[(long long)bh * N + n] * kLog2e : 0.f;
-      sD[threadIdx.x] = n < N ? delta[(long long)bh * N + n] : 0.f;
-    }
-    __syncthreads();
-
-    float s[RK], dp[RK];
-#pragma unroll
-    for (int r = 0; r < RK; ++r) s[r] = dp[r] = 0.f;
-    for (int d4 = 0; d4 < d4n; ++d4) {
-      const float4 qq = qrow[d4];
-      const float4 gg = grow[d4];
-#pragma unroll
-      for (int r = 0; r < RK; ++r) {
-        s[r] = dot4(krow[r * ds4 + d4], qq, s[r]);
-        dp[r] = dot4(vrow[r * ds4 + d4], gg, dp[r]);
+  if (kb0 < kv_len) {  // uniform over the CTA: a CTA of masked keys only writes zeros
+    const bool vq = aligned16(qb, st.q[1]);
+    const bool vg = aligned16(gb, st.g[1]);
+    const int ntiles = (N + kStream - 1) / kStream;
+    const int kp = (D + 15) / 16;
+    stage(sK, ld, W, kb, st.k[1], kb0, kOwn, kv_len, D, aligned16(kb, st.k[1]));
+    stage(sV, ld, W, vb, st.v[1], kb0, kOwn, kv_len, D, aligned16(vb, st.v[1]));
+    auto load = [&](int j, int buf) {
+      stage(sQ + buf * kStream * ld, ld, W, qb, st.q[1], j * kStream, kStream, N, D, vq);
+      stage(sG + buf * kStream * ld, ld, W, gb, st.g[1], j * kStream, kStream, N, D, vg);
+      if (threadIdx.x < kStream) {
+        const int n = j * kStream + threadIdx.x;
+        sL[buf * kStream + threadIdx.x] = n < N ? lse[(long long)bh * N + n] * kLog2e : 0.f;
+        sD[buf * kStream + threadIdx.x] = n < N ? delta[(long long)bh * N + n] : 0.f;
       }
-    }
-    const bool rvalid = n0 + lane < N;
-    const float l2 = sL[lane];
-    const float dl = sD[lane];
+    };
+    load(0, 0);
+    cp_async_commit();
+    const float scale_log2 = scale * kLog2e;
+    bool kvalid[2];
 #pragma unroll
-    for (int r = 0; r < RK; ++r) {
-      const float p = rvalid && kvalid[r] ? exp2f(s[r] - l2) : 0.f;
-      pw[lane * RK + r] = p;
-      sw[lane * RK + r] = p * (dp[r] - dl);
-    }
-    __syncwarp();
-
-    const int in = min(kBT, N - n0);
-    for (int i = 0; i < in; ++i) {
-      float pi[RK], dsi[RK];
-#pragma unroll
-      for (int r = 0; r < RK; ++r) {
-        pi[r] = pw[i * RK + r];
-        dsi[r] = sw[i * RK + r];
+    for (int e = 0; e < 2; ++e) kvalid[e] = kb0 + warp * 16 + (lane >> 2) + 8 * e < kv_len;
+    const int arow = (warp * 16 + (lane & 15)) * ld + (lane >> 4) * 8;
+    const int brow = ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8;
+    const int trow = ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + c0 + (lane >> 4) * 8;
+    for (int j = 0; j < ntiles; ++j) {
+      const int buf = stages == 2 ? (j & 1) : 0;
+      if (stages == 2 && j + 1 < ntiles) {
+        load(j + 1, (j + 1) & 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
+      __syncthreads();
+      const T* tQ = sQ + buf * kStream * ld;
+      const T* tG = sG + buf * kStream * ld;
+      const float* tL = sL + buf * kStream;
+      const float* tD = sD + buf * kStream;
+      float pt[4][4] = {}, dpt[4][4] = {};
+      score_pair<T>(pt, dpt, smem_u32(sK + arow), smem_u32(sV + arow), smem_u32(tQ + brow),
+                    smem_u32(tG + brow), ld, kp);
+      const int left = N - j * kStream;  // valid query rows of this tile
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = c * 32 + lane;
-        const float gg = d < D ? sG[i * DS + d] : 0.f;
-        const float qq = d < D ? sQ[i * DS + d] : 0.f;
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int r = 0; r < RK; ++r) {
-          dva[r][c] = fmaf(pi[r], gg, dva[r][c]);
-          dka[r][c] = fmaf(dsi[r], qq, dka[r][c]);
+        for (int i = 0; i < 4; ++i) {
+          const int col = nt * 8 + tq * 2 + (i & 1);
+          const float p = kvalid[i >> 1] && col < left
+                              ? fast_exp2(fmaf(pt[nt][i], scale_log2, -tL[col])) : 0.f;
+          pt[nt][i] = p;                        // P^T
+          dpt[nt][i] = p * (dpt[nt][i] - tD[col]);  // dS^T
         }
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int r = 0; r < RK; ++r) {
-    const int m = kb0 + warp * RK + r;
-    if (m >= M) continue;
-    T* ko = dk + b * st.dk[0] + m * st.dk[1] + h * st.dk[2];
-    T* vo = dv + b * st.dv[0] + m * st.dv[1] + h * st.dv[2];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = c * 32 + lane;
-      if (d < D) {
-        ko[d] = from_float<T>(dka[r][c] * scale);
-        vo[d] = from_float<T>(dva[r][c]);
+      uint32_t pa[2][4], dsa[2][4];
+      scores_to_a<T>(pa, pt);
+      scores_to_a<T>(dsa, dpt);
+      acc_times_tile<T, DN>(dva, pa, smem_u32(tG + trow), ld);   // dV += P^T dO
+      acc_times_tile<T, DN>(dka, dsa, smem_u32(tQ + trow), ld);  // dK += dS^T Q
+      __syncthreads();
+      if (stages == 1 && j + 1 < ntiles) {
+        load(j + 1, 0);
+        cp_async_commit();
       }
     }
   }
+  const int row0 = kb0 + warp * 16;
+  store_rows16<T, DN>(dk + b * st.dk[0] + h * st.dk[2], st.dk[1], dka, scale, row0, M, c0, D);
+  store_rows16<T, DN>(dv + b * st.dv[0] + h * st.dv[2], st.dv[1], dva, 1.f, row0, M, c0, D);
 }
 
-template <typename T, int NC>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int N,
-                   int M, int kv_len, int H, int D, const Strides& st, float scale,
-                   cudaStream_t stream) {
-  const int ds = smem_row_stride(D);
-  const size_t smem_dq = dq_smem<NC>(ds);
-  const size_t smem_dkdv = dkdv_smem<NC>(ds);
-  auto kdq = dq_kernel<T, NC>;
-  auto kdkdv = dkdv_kernel<T, NC>;
+// The accumulators' width a CTA takes: the least of the instantiated widths
+// that holds `cols`.
+inline int pick_width(int cols) {
+  for (int w : {32, 64, 80, 96, 128, 160, 256})
+    if (w >= cols) return w;
+  return 0;
+}
+
+// Bytes of shared memory of the two kernels at row stride ld and `stages`.
+inline size_t dq_smem(int ld, int stages) {
+  return 2 * (size_t)ld * (2 * kOwn + 2 * stages * kStream);
+}
+inline size_t dkdv_smem(int ld, int stages) {
+  return dq_smem(ld, stages) + 4 * (size_t)stages * 2 * kStream;
+}
+
+template <typename T, int DN>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const float* lse, float* delta, void* dq, int B, int N,
+                      int kv_len, int H, int D, int W, int blocks, const Strides& st, float scale,
+                      cudaStream_t stream) {
+  const int ld = row_ld(W);
+  const int stages = dq_smem(ld, 2) <= (size_t)kMaxSmem ? 2 : 1;
+  const size_t smem = dq_smem(ld, stages);
+  auto kernel = dq_kernel<T, DN>;
   cudaError_t err =
-      cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkdv);
-  if (err != cudaSuccess) return err;
-  constexpr int BQ = kWarps * DqRows<NC>::value;
-  constexpr int BK = kWarps * DkdvRows<NC>::value;
-  kdq<<<dim3((N + BQ - 1) / BQ, B * H), kThreads, smem_dq, stream>>>(
+  kernel<<<dim3((N + kOwn - 1) / kOwn, B * H, blocks), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), N,
-      kv_len, H, D, ds, st, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  kdkdv<<<dim3((M + BK - 1) / BK, B * H), kThreads, smem_dkdv, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), N, M,
-      kv_len, H, D, ds, st, scale);
+      kv_len, H, D, W, ld, stages, st, scale);
   return cudaGetLastError();
 }
 
+template <typename T, int DN>
+cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
+                        const float* lse, const float* delta, void* dk, void* dv, int B, int N,
+                        int M, int kv_len, int H, int D, int W, int blocks, const Strides& st,
+                        float scale, cudaStream_t stream) {
+  const int ld = row_ld(W);
+  const int stages = dkdv_smem(ld, 2) <= (size_t)kMaxSmem ? 2 : 1;
+  const size_t smem = dkdv_smem(ld, stages);
+  auto kernel = dkdv_kernel<T, DN>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((M + kOwn - 1) / kOwn, B * H, blocks), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), N, M,
+      kv_len, H, D, W, ld, stages, st, scale);
+  return cudaGetLastError();
+}
+
+// Column blocks: dQ's accumulator holds up to 256 columns a CTA (one
+// accumulator), dK/dV's up to 128 (two of them, beside the score tiles);
+// a wider head dim is split over the grid's z, each CTA recomputing the
+// scores over the whole head dim (dP needs all of it).
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, float* delta, void* dq, void* dk,
                      void* dv, int B, int N, int M, int kv_len, int H, int D, const Strides& st,
                      float scale, cudaStream_t s) {
-#define TB_LAUNCH(NC) \
-  launch<T, NC>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, N, M, kv_len, H, D, st, scale, s)
-  const int nc = (D + 31) / 32;
-  if (nc <= 1) return TB_LAUNCH(1);
-  if (nc <= 2) return TB_LAUNCH(2);
-  if (nc <= 3) return TB_LAUNCH(3);
-  if (nc <= 4) return TB_LAUNCH(4);
-  if (nc <= 5) return TB_LAUNCH(5);
-  if (nc <= 8) return TB_LAUNCH(8);
-  if (nc <= 16) return TB_LAUNCH(16);
-  return cudaErrorInvalidValue;
-#undef TB_LAUNCH
+  const int dp = (D + 15) / 16 * 16;
+  int blocks_q = (dp + 255) / 256;
+  const int wq = pick_width((dp + blocks_q - 1) / blocks_q);
+  blocks_q = (dp + wq - 1) / wq;
+  int blocks_k = (dp + 127) / 128;
+  const int wk = pick_width((dp + blocks_k - 1) / blocks_k);
+  blocks_k = (dp + wk - 1) / wk;
+  const int Wq = blocks_q * wq > dp ? blocks_q * wq : dp;
+  const int Wk = blocks_k * wk > dp ? blocks_k * wk : dp;
+  cudaError_t err = cudaErrorInvalidValue;
+#define TB_DQ(DN)                                                                           \
+  case DN:                                                                                  \
+    err = launch_dq<T, DN>(q, k, v, o, dout, lse, delta, dq, B, N, kv_len, H, D, Wq,       \
+                           blocks_q, st, scale, s);                                         \
+    break;
+  switch (wq) { TB_DQ(32) TB_DQ(64) TB_DQ(80) TB_DQ(96) TB_DQ(128) TB_DQ(160) TB_DQ(256) }
+#undef TB_DQ
+  if (err != cudaSuccess) return err;
+  err = cudaErrorInvalidValue;
+#define TB_DKDV(DN)                                                                         \
+  case DN:                                                                                  \
+    err = launch_dkdv<T, DN>(q, k, v, dout, lse, delta, dk, dv, B, N, M, kv_len, H, D, Wk,  \
+                             blocks_k, st, scale, s);                                       \
+    break;
+  switch (wk) { TB_DKDV(32) TB_DKDV(64) TB_DKDV(80) TB_DKDV(96) TB_DKDV(128) }
+#undef TB_DKDV
+  return err;
+}
+
+}  // namespace mma
+
+// ---------------------------------------------------------------------------
+// 4. The CUDA-core variant: fp32 at any D <= 512.  The same split, on
+//    register tiles (flash_tiles.cuh), fp32 arithmetic and accumulators.
+// ---------------------------------------------------------------------------
+namespace cc {
+
+using namespace tiles;
+
+
+// 1. delta and dQ, one CTA of 256 threads per (batch*head, 64 query rows):
+// K and V streamed 64 keys at a time.  S and dP from the rows of Q, dO, K
+// and V (the whole head dim at once where it fits, Q and dO staged once and
+// the next K/V tile's cp.async under this tile's products where two stages
+// fit; else D in chunks), P and dS on the thread's 4 x 4 blocks, dS
+// transposed into shared memory, dQ += dS K with K's rows, each task's 4
+// rows x 4 W4 columns of dQ in registers (4 W4 G >= D).
+template <int W4>
+__global__ void __launch_bounds__(kThreads, W4 <= 2 ? 2 : 1)
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+          const float* __restrict__ o, const float* __restrict__ g, const float* __restrict__ lse,
+          float* __restrict__ delta, float* __restrict__ dq, int N, int kv_len, int H, int D,
+          int G, int dc, int ld, int stages, const Strides st, float scale) {
+  const int bw = 4 * W4 * G;  // dQ's columns, >= D
+  const bool one = dc >= D;
+  const int k_floats = kTile * ld + (one ? bw : 0);  // slack: dQ's reads past D
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);  // [64][ld], Q's rows (a chunk of them)
+  float* sG = sQ + kTile * ld;                   // [64][ld], dO's rows
+  float* sK = sG + kTile * ld;                   // [stages][k_floats]
+  float* sV = sK + stages * k_floats;            // [stages][64][ld]
+  float* sKr = sV + stages * kTile * ld;         // [64][bw], K's rows (chunked only)
+  float* sS = sKr + (one ? 0 : kTile * bw);      // [64][kLd], dS transposed
+  float* sL = sS + kTile * kLd;                  // [64], lse in log2 units
+  float* sD = sL + kTile;                        // [64], delta
+
+  const int tx = tile_tx();
+  const int ty = tile_ty();
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * kTile;
+  const float scale_log2 = scale * kLog2e;
+  const float* qb = q + b * st.q[0] + h * st.q[2];
+  const float* kb = k + b * st.k[0] + h * st.k[2];
+  const float* vb = v + b * st.v[0] + h * st.v[2];
+  const float* ob = o + b * st.o[0] + h * st.o[2];
+  const float* gb = g + b * st.g[0] + h * st.g[2];
+  const int ntiles = (kv_len + kTile - 1) / kTile;
+  const int cols = (dc + 3) / 4 * 4;
+
+  auto load = [&](int j, int buf) {  // K and V of tile j (one chunk)
+    stage(sK + buf * k_floats, ld, kb, st.k[1], j * kTile, kv_len, 0, cols, D);
+    stage(sV + buf * kTile * ld, ld, vb, st.v[1], j * kTile, kv_len, 0, cols, D);
+  };
+  if (one) {
+    stage(sQ, ld, qb, st.q[1], q0, N, 0, cols, D);
+    stage(sG, ld, gb, st.g[1], q0, N, 0, cols, D);
+    load(0, 0);
+    hopper::cp_async_commit();
+  }
+  // delta = rowsum(o * dO) and lse of the CTA's rows, four threads a row.
+  {
+    const int r = threadIdx.x >> 2;
+    const int n = q0 + r;
+    float part = 0.f;
+    if (n < N)
+      for (int d = threadIdx.x & 3; d < D; d += 4)
+        part = fmaf(ob[n * st.o[1] + d], gb[n * st.g[1] + d], part);
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    if ((threadIdx.x & 3) == 0) {
+      sD[r] = part;
+      sL[r] = n < N ? lse[(long long)bh * N + n] * kLog2e : 0.f;
+      if (n < N) delta[(long long)bh * N + n] = part;
+    }
+  }
+
+  float acc[4][4 * W4];
+  zero<W4>(acc);
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * kTile;
+    const int buf = stages == 2 ? (j & 1) : 0;
+    float s[4][4] = {}, dp[4][4] = {};
+    if (one) {
+      hopper::cp_async_wait<0>();
+      __syncthreads();  // tile j is in; every thread is done with tile j - 1
+      if (stages == 2 && j + 1 < ntiles) {
+        load(j + 1, (j + 1) & 1);
+        hopper::cp_async_commit();
+      }
+      dot_rows(s, sQ, ld, sK + buf * k_floats, ld, cols / 4);     // S = Q K^T
+      dot_rows(dp, sG, ld, sV + buf * kTile * ld, ld, cols / 4);  // dP = dO V^T
+    } else {
+      for (int d0 = 0; d0 < D; d0 += dc) {
+        const int c = min(dc, (D - d0 + 3) / 4 * 4);
+        __syncthreads();  // the chunk tiles (and the last tile's sKr, sS) are consumed
+        stage(sQ, ld, qb, st.q[1], q0, N, d0, c, D);
+        stage(sG, ld, gb, st.g[1], q0, N, d0, c, D);
+        stage(sK, ld, kb, st.k[1], k0, kv_len, d0, c, D);
+        stage(sV, ld, vb, st.v[1], k0, kv_len, d0, c, D);
+        hopper::cp_async_commit();
+        hopper::cp_async_wait<0>();
+        __syncthreads();
+        dot_rows(s, sQ, ld, sK, ld, c / 4);
+        dot_rows(dp, sG, ld, sV, ld, c / 4);
+      }
+      stage(sKr, bw, kb, st.k[1], k0, kv_len, 0, bw, D);
+      hopper::cp_async_commit();
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = k0 + tx + 16 * c < kv_len
+                            ? exp2f(fmaf(s[r][c], scale_log2, -sL[4 * ty + r])) : 0.f;
+        s[r][c] = p * (dp[r][c] - sD[4 * ty + r]);  // dS
+      }
+    store_pt(sS, s);
+    if (!one) hopper::cp_async_wait<0>();
+    __syncthreads();
+    tile_acc<W4>(acc, sS, one ? sK + buf * k_floats : sKr, one ? ld : bw, G);  // dQ += dS K
+    if (one && stages == 1) {
+      __syncthreads();
+      if (j + 1 < ntiles) {
+        load(j + 1, 0);
+        hopper::cp_async_commit();
+      }
+    }
+  }
+  const float mul[4] = {scale, scale, scale, scale};
+  store_acc<float, W4>(dq + b * st.dq[0] + h * st.dq[2], st.dq[1], acc, mul, q0, N, 0, D, G);
+}
+
+// 2. dK and dV, one CTA of 256 threads per (batch*head, 64 keys, 4 W4 G
+// columns of dK and dV): Q and dO streamed 64 rows at a time with their lse
+// and delta.  The transposed scores S^T = K Q^T and dP^T = V dO^T from the
+// rows (as in the dQ kernel: K and V staged once and the next Q/dO tile
+// under this tile's products where the head dim fits), P^T and dS^T
+// transposed into shared memory, dV += P^T dO and dK += dS^T Q with Q's
+// and dO's rows.  Keys at or past kv_len get P = 0, so their rows are
+// written as zeros.
+template <int W4>
+__global__ void __launch_bounds__(kThreads, W4 <= 1 ? 2 : 1)
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+            const float* __restrict__ g, const float* __restrict__ lse,
+            const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int N,
+            int M, int kv_len, int H, int D, int G, int dc, int ld, int stages, const Strides st,
+            float scale) {
+  const int bw = 4 * W4 * G;  // columns of dK and dV a CTA holds
+  const bool one = dc >= D;
+  const int r_floats = kTile * ld + (one ? bw : 0);  // slack: reads past D
+  extern __shared__ float4 smem4[];
+  float* sK = reinterpret_cast<float*>(smem4);  // [64][ld], K's rows (a chunk of them)
+  float* sV = sK + kTile * ld;                   // [64][ld]
+  float* sQ = sV + kTile * ld;                   // [stages][r_floats]
+  float* sG = sQ + stages * r_floats;            // [stages][r_floats], dO
+  float* sQr = sG + stages * r_floats;           // [64][bw], Q's rows (chunked only)
+  float* sGr = sQr + (one ? 0 : kTile * bw);     // [64][bw], dO's rows (chunked only)
+  float* sP = sGr + (one ? 0 : kTile * bw);      // [64][kLd], P[query][key]
+  float* sS = sP + kTile * kLd;                  // [64][kLd], dS[query][key]
+  float* sL = sS + kTile * kLd;                  // [stages][64], lse in log2 units
+  float* sD = sL + stages * kTile;               // [stages][64], delta
+
+  const int tx = tile_tx();
+  const int ty = tile_ty();
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kb0 = blockIdx.x * kTile;
+  const int c0 = blockIdx.z * bw;
+  const float scale_log2 = scale * kLog2e;
+  const float* qb = q + b * st.q[0] + h * st.q[2];
+  const float* kb = k + b * st.k[0] + h * st.k[2];
+  const float* vb = v + b * st.v[0] + h * st.v[2];
+  const float* gb = g + b * st.g[0] + h * st.g[2];
+  const int ntiles = (N + kTile - 1) / kTile;
+  const int cols = (dc + 3) / 4 * 4;
+
+  float dka[4][4 * W4], dva[4][4 * W4];
+  zero<W4>(dka);
+  zero<W4>(dva);
+  if (kb0 < kv_len) {  // uniform over the CTA: a CTA of masked keys only writes zeros
+    auto stats = [&](int n0, int buf) {  // lse and delta of the rows from n0
+      if (threadIdx.x < kTile) {
+        const int n = n0 + threadIdx.x;
+        sL[buf * kTile + threadIdx.x] = n < N ? lse[(long long)bh * N + n] * kLog2e : 0.f;
+        sD[buf * kTile + threadIdx.x] = n < N ? delta[(long long)bh * N + n] : 0.f;
+      }
+    };
+    auto load = [&](int j, int buf) {  // Q, dO, lse and delta of tile j (one chunk)
+      stage(sQ + buf * r_floats, ld, qb, st.q[1], j * kTile, N, 0, cols, D);
+      stage(sG + buf * r_floats, ld, gb, st.g[1], j * kTile, N, 0, cols, D);
+      stats(j * kTile, buf);
+    };
+    if (one) {
+      stage(sK, ld, kb, st.k[1], kb0, kv_len, 0, cols, D);
+      stage(sV, ld, vb, st.v[1], kb0, kv_len, 0, cols, D);
+      load(0, 0);
+      hopper::cp_async_commit();
+    }
+    bool kvalid[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) kvalid[r] = kb0 + 4 * ty + r < kv_len;
+    for (int j = 0; j < ntiles; ++j) {
+      const int n0 = j * kTile;
+      const int buf = stages == 2 ? (j & 1) : 0;
+      float s[4][4] = {}, dp[4][4] = {};
+      if (one) {
+        hopper::cp_async_wait<0>();
+        __syncthreads();  // tile j is in; every thread is done with tile j - 1
+        if (stages == 2 && j + 1 < ntiles) {
+          load(j + 1, (j + 1) & 1);
+          hopper::cp_async_commit();
+        }
+        dot_rows(s, sK, ld, sQ + buf * r_floats, ld, cols / 4);   // S^T = K Q^T
+        dot_rows(dp, sV, ld, sG + buf * r_floats, ld, cols / 4);  // dP^T = V dO^T
+      } else {
+        for (int d0 = 0; d0 < D; d0 += dc) {
+          const int c = min(dc, (D - d0 + 3) / 4 * 4);
+          __syncthreads();  // the chunk tiles (and the last tile's row tiles) are consumed
+          stage(sK, ld, kb, st.k[1], kb0, kv_len, d0, c, D);
+          stage(sV, ld, vb, st.v[1], kb0, kv_len, d0, c, D);
+          stage(sQ, ld, qb, st.q[1], n0, N, d0, c, D);
+          stage(sG, ld, gb, st.g[1], n0, N, d0, c, D);
+          hopper::cp_async_commit();
+          hopper::cp_async_wait<0>();
+          __syncthreads();
+          dot_rows(s, sK, ld, sQ, ld, c / 4);
+          dot_rows(dp, sV, ld, sG, ld, c / 4);
+        }
+        stage(sQr, bw, qb, st.q[1], n0, N, c0, bw, D);
+        stage(sGr, bw, gb, st.g[1], n0, N, c0, bw, D);
+        stats(n0, 0);
+        hopper::cp_async_commit();
+        hopper::cp_async_wait<0>();
+        __syncthreads();
+      }
+      const float* tL = sL + buf * kTile;
+      const float* tD = sD + buf * kTile;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = tx + 16 * c;
+          const float p = kvalid[r] && n0 + i < N
+                              ? exp2f(fmaf(s[r][c], scale_log2, -tL[i])) : 0.f;
+          s[r][c] = p;                        // P^T
+          dp[r][c] = p * (dp[r][c] - tD[i]);  // dS^T
+        }
+      store_pt(sP, s);
+      store_pt(sS, dp);
+      __syncthreads();
+      const int ldr = one ? ld : bw;
+      tile_acc<W4>(dva, sP, one ? sG + buf * r_floats : sGr, ldr, G);  // dV += P^T dO
+      tile_acc<W4>(dka, sS, one ? sQ + buf * r_floats : sQr, ldr, G);  // dK += dS^T Q
+      if (one && stages == 1) {
+        __syncthreads();
+        if (j + 1 < ntiles) {
+          load(j + 1, 0);
+          hopper::cp_async_commit();
+        }
+      }
+    }
+  }
+  const float mul_k[4] = {scale, scale, scale, scale};
+  const float mul_v[4] = {1.f, 1.f, 1.f, 1.f};
+  store_acc<float, W4>(dk + b * st.dk[0] + h * st.dk[2], st.dk[1], dka, mul_k, kb0, M, c0, D, G);
+  store_acc<float, W4>(dv + b * st.dv[0] + h * st.dv[2], st.dv[1], dva, mul_v, kb0, M, c0, D, G);
+}
+
+template <int W4>
+cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* o,
+                      const float* dout, const float* lse, float* delta, float* dq, int B, int N,
+                      int kv_len, int H, int D, const Strides& st, float scale,
+                      cudaStream_t stream) {
+  const int G = acc_groups(D, W4);
+  const int bw = 4 * W4 * G;
+  const Plan plan = pick_plan(D, 256, [&](int dc, int ld, int stages) {
+    const bool one = dc >= D;
+    return (long long)kTile * ld * (2 + 2 * stages) + (one ? stages * bw : kTile * bw) +
+           kTile * kLd + 2 * kTile;
+  });
+  if (plan.dc == 0) return cudaErrorInvalidValue;
+  auto kernel = dq_kernel<W4>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)plan.bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((N + kTile - 1) / kTile, B * H), kThreads, plan.bytes, stream>>>(
+      q, k, v, o, dout, lse, delta, dq, N, kv_len, H, D, G, plan.dc, plan.ld, plan.stages, st,
+      scale);
+  return cudaGetLastError();
+}
+
+template <int W4>
+cudaError_t launch_dkdv(const float* q, const float* k, const float* v, const float* dout,
+                        const float* lse, const float* delta, float* dk, float* dv, int B, int N,
+                        int M, int kv_len, int H, int D, int cols, const Strides& st,
+                        float scale, cudaStream_t stream) {
+  const int G = acc_groups(cols, W4);
+  const int bw = 4 * W4 * G;
+  const int blocks = (D + bw - 1) / bw;
+  // One chunk only where one column block covers D (the tiles then feed the
+  // accumulating products from column 0).
+  const Plan plan = pick_plan(D, blocks == 1 ? 256 : 0, [&](int dc, int ld, int stages) {
+    const bool one = dc >= D;
+    return (long long)kTile * ld * (2 + 2 * stages) + (one ? 2 * stages * bw : 2 * kTile * bw) +
+           2 * kTile * kLd + 2 * stages * kTile;
+  });
+  if (plan.dc == 0) return cudaErrorInvalidValue;
+  auto kernel = dkdv_kernel<W4>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)plan.bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((M + kTile - 1) / kTile, B * H, blocks), kThreads, plan.bytes, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, N, M, kv_len, H, D, G, plan.dc, plan.ld, plan.stages,
+      st, scale);
+  return cudaGetLastError();
+}
+
+// The accumulators' tasks (flash_tiles.cuh): dQ's CTA holds the whole head
+// dim (W4 float4 columns a task, 16 row groups x G column groups <= 256
+// tasks); dK/dV's, with two accumulators, at most 256 columns, a wider head
+// dim split over the grid's z with the scores recomputed in each column
+// block.
+cudaError_t dispatch(const void* q_, const void* k_, const void* v_, const void* o_,
+                     const void* dout_, const float* lse, float* delta, void* dq_, void* dk_,
+                     void* dv_, int B, int N, int M, int kv_len, int H, int D, const Strides& st,
+                     float scale, cudaStream_t s) {
+  const float* q = static_cast<const float*>(q_);
+  const float* k = static_cast<const float*>(k_);
+  const float* v = static_cast<const float*>(v_);
+  const float* o = static_cast<const float*>(o_);
+  const float* dout = static_cast<const float*>(dout_);
+  float* dq = static_cast<float*>(dq_);
+  float* dk = static_cast<float*>(dk_);
+  float* dv = static_cast<float*>(dv_);
+#define TB_DQ(W4) launch_dq<W4>(q, k, v, o, dout, lse, delta, dq, B, N, kv_len, H, D, st, scale, s)
+  const int wq = ((D + 3) / 4 + 15) / 16;
+  cudaError_t err = wq <= 1   ? TB_DQ(1)
+                    : wq <= 2 ? TB_DQ(2)
+                    : wq <= 3 ? TB_DQ(3)
+                    : wq <= 4 ? TB_DQ(4)
+                    : wq <= 6 ? TB_DQ(6)
+                    : wq <= 8 ? TB_DQ(8)
+                              : cudaErrorInvalidValue;
+#undef TB_DQ
+  if (err != cudaSuccess) return err;
+  const int blocks = (D + 255) / 256;
+  const int cols = (D + blocks - 1) / blocks;  // a column block's share of D
+  const int wk = ((cols + 3) / 4 + 15) / 16;
+#define TB_DKDV(W4) \
+  launch_dkdv<W4>(q, k, v, dout, lse, delta, dk, dv, B, N, M, kv_len, H, D, cols, st, scale, s)
+  return wk <= 1 ? TB_DKDV(1) : wk <= 2 ? TB_DKDV(2) : wk <= 3 ? TB_DKDV(3) : TB_DKDV(4);
+#undef TB_DKDV
 }
 
 }  // namespace cc
 
-enum Variant { kCudaCores = 0, kWgmma = 1 };
+enum Variant { kCudaCores = 0, kWgmma = 1, kMma = 2 };
 
 }  // namespace
 
@@ -1007,7 +1458,7 @@ extern "C" int tb_flash_attention_bwd_wgmma_form(int dtype, int D) {
 // written through their strides (head dim contiguous).  Keys at or past
 // kv_len (<= M) are masked and their rows of dk and dv written as zeros; no
 // row at or past N (dq) or M (dk, dv) is written.  Writes to *variant which
-// kernels serve the call: 0 CUDA cores, 1 wgmma.  Returns the first launch
+// kernels serve the call: 0 CUDA cores, 1 wgmma, 2 mma.  Returns the first launch
 // error (0 on success).
 extern "C" int tb_flash_attention_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* o, const void* dout,
@@ -1029,14 +1480,14 @@ extern "C" int tb_flash_attention_bwd(
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wgmma = wgmma_eligible(dtype, D, ptrs, st);
-  *variant = wgmma ? kWgmma : kCudaCores;
+  *variant = dtype == 0 ? kCudaCores : wgmma ? kWgmma : kMma;
 #define TB_ARGS q, k, v, o, dout, l, dl, dq, dk, dv, B, N, M, kv_len, H, D, st, scale, s
   switch (dtype) {
-    case 0: return (int)cc::dispatch<float>(TB_ARGS);
-    case 1: return (int)(wgmma ? dispatch_wgmma<__half>(TB_ARGS) : cc::dispatch<__half>(TB_ARGS));
+    case 0: return (int)cc::dispatch(TB_ARGS);
+    case 1: return (int)(wgmma ? dispatch_wgmma<__half>(TB_ARGS) : mma::dispatch<__half>(TB_ARGS));
     default:
       return (int)(wgmma ? dispatch_wgmma<__nv_bfloat16>(TB_ARGS)
-                         : cc::dispatch<__nv_bfloat16>(TB_ARGS));
+                         : mma::dispatch<__nv_bfloat16>(TB_ARGS));
   }
 #undef TB_ARGS
 }

@@ -1,7 +1,7 @@
 // Flash-attention forward for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel textboost_tpu/ops/flash_attention.py::_fwd_kernel
-// (launched through _fwd, pallas_call at flash_attention.py:85): non-causal
+// Replaces the Pallas TPU kernel textboost_tpu/ops/flash_attention.py:42
+// _fwd_kernel (launched through _fwd, pallas_call at flash_attention.py:85): non-causal
 // softmax(q k^T * scale) v with an online softmax streamed over K/V tiles,
 // fp32 accumulation, output in the input dtype, and the per-row logsumexp
 // (natural log) kept for the backward pass.
@@ -47,232 +47,232 @@
 // wgmma wide, 128 < D <= 512: see flash_fwd_wgmma_wide_kernel.
 //
 // CUDA cores (fp32, D not a multiple of 8, unaligned views; none at sd15's
-// bf16 shapes): 4 warps per (batch*head, BQ query rows), each warp owning
-// RW rows.  K and V are staged 32 keys at a time (the TPU kernel holds the
-// whole [M, D] K/V in VMEM, which at D = 512 no CTA can): lane j owns key j
-// in the score pass and reads q rows as shared-memory broadcasts; in the P.V
-// pass lane l owns head columns l, l+32, ... .  At D = 512 the tiles need
-// ~167 KB of shared memory, set with cudaFuncSetAttribute.  Its only callers
-// are explicit ones: impl="flash" (multi_head_attention, or
-// flash_attention_forward directly) on fp32 tensors, on a head dim that is
-// not a multiple of 8, or on views whose strides are not; that is the JAX
-// kernel's envelope (fp32/fp16/bf16, any D <= 512), which the wrapper keeps.
-// The "auto" rule admits bf16/fp16 only, and every head dim of the shipped
-// configs is a multiple of 8, so only `--attention_impl flash` in fp32
-// reaches it on a main path.  The backward kernel (flash_attention_bwd.cu)
-// covers the same envelope.
+// bf16 shapes): register tiles (flash_tiles.cuh), see flash_fwd_cc_kernel.
+// One CTA of 256 threads per (batch*head, 64 query rows); K and V streamed
+// 64 keys at a time by cp.async (the TPU kernel holds the whole [M, D] K/V in
+// VMEM, which at D = 512 no CTA can), two stages where the head dim fits one
+// tile and two CTAs still fit an SM, else D in chunks; each thread a 4 x 4
+// block of S and 4 x 4 W4 of O, every shared-memory float4 feeding 4 to 16
+// FMAs.  fp32 arithmetic throughout (no TF32), exp2f, the online softmax in
+// log2 units with row maxima and sums reduced across the 16 threads sharing
+// a row, the fp32 lse kept for the backward.  Bound: the two products on the
+// CUDA cores at 67 TFLOP/s (fp32 inputs); the kernel reaches about a third
+// of that (PERF.md), the rest going to what a 64 x 64 tile costs besides
+// its FMAs.  Its only callers are explicit ones: impl="flash"
+// (multi_head_attention, or flash_attention_forward directly) on fp32
+// tensors, on a head dim that is not a multiple of 8, or on views whose
+// strides are not; that is the JAX kernel's envelope (fp32/fp16/bf16, any
+// D <= 512), which the wrapper keeps.  The "auto" rule admits bf16/fp16
+// only, and every head dim of the shipped configs is a multiple of 8, so only
+// `--attention_impl flash` in fp32 reaches it on a main path.  The backward
+// kernel (flash_attention_bwd.cu) covers the same envelope.
 
-#include "hopper.cuh"
+#include "flash_tiles.cuh"
 
 #include <math.h>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBK = 32;  // keys per tile: one per lane in the score pass
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-using hopper::from_float;
-using hopper::smem_row_stride;
-using hopper::to_float;
-using hopper::warp_sum;
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// Rows per warp: fewer where the accumulator is wide, to stay in registers.
-template <int NC> struct RowsPerWarp { static constexpr int value = NC <= 4 ? 8 : 4; };
-
-template <int NC>
-__host__ __device__ inline size_t smem_bytes(int ds) {
-  constexpr int RW = RowsPerWarp<NC>::value;
-  constexpr int BQ = kWarps * RW;
-  return sizeof(float) *
-         (size_t)(BQ * ds + kBK * ds + kBK * NC * 32 + kWarps * kBK * RW);
-}
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int N, int M, int H, int D,
-                 int DS, long long q_sb, long long q_sn, long long q_sh, long long k_sb,
-                 long long k_sm, long long k_sh, long long v_sb, long long v_sm,
-                 long long v_sh, float scale_log2) {
-  constexpr int RW = RowsPerWarp<NC>::value;
-  constexpr int BQ = kWarps * RW;
-  constexpr int DV = NC * 32;
-
+// ---------------------------------------------------------------------------
+// The CUDA-core variant: register tiles (flash_tiles.cuh).
+// ---------------------------------------------------------------------------
+// One CTA of 256 threads per (batch*head, 64 query rows), K and V streamed
+// 64 keys at a time.  S = Q K^T from Q's and K's rows (the whole head dim
+// at once where it fits, with the next K/V tile's cp.async under this
+// tile's products where two stages fit; else D in chunks); the online
+// softmax on the thread's 4 x 4 block of S in log2 units, each row's maximum
+// and sum reduced over the 16 threads of its thread-grid row (shuffles in a
+// half warp), the rows' rescale factors through shared memory to the
+// accumulator's tasks; P transposed into shared memory; O += P V with V's
+// rows, each task's 4 rows x 4 W4 columns of O in registers.  Registers
+// are capped so that three CTAs share an SM at W4 = 1 (D <= 64; 8% faster
+// at sd15's level 0 than two) and two at W4 = 2.
+template <typename T, int W4>
+__global__ void __launch_bounds__(tiles::kThreads, W4 == 1 ? 3 : W4 == 2 ? 2 : 1)
+flash_fwd_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    T* __restrict__ o, float* __restrict__ lse, int N, int M, int H, int D,
+                    int G, int dc, int ld, int stages, long long q_sb, long long q_sn,
+                    long long q_sh, long long k_sb, long long k_sm, long long k_sh,
+                    long long v_sb, long long v_sm, long long v_sh, float scale_log2) {
+  using namespace tiles;
+  const int bw = 4 * W4 * G;                      // O's columns, >= D
+  const bool one = dc >= D;                       // the whole head dim in one chunk
+  const int ldv = one ? ld : bw;                  // V's rows
+  const int v_floats = kTile * ldv + (one ? bw : 0);  // slack: reads past D
   extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);  // [BQ][DS], pre-scaled by scale*log2(e)
-  float* sK = sQ + BQ * DS;                      // [kBK][DS]
-  float* sV = sK + kBK * DS;                     // [kBK][DV]
-  float* sP = sV + kBK * DV;                     // [kWarps][kBK][RW]
+  float* sQ = reinterpret_cast<float*>(smem4);  // [64][ld], Q's rows (a chunk of them)
+  float* sK = sQ + kTile * ld;                   // [stages][64][ld]
+  float* sV = sK + stages * kTile * ld;          // [stages][v_floats]
+  float* sP = sV + stages * v_floats;            // [64][kLd], P transposed
+  float* sA = sP + kTile * kLd;                  // [64], the rows' rescale factors, then 1 / l
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int tx = tile_tx();
+  const int ty = tile_ty();
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.x * BQ;
-
+  const int q0 = blockIdx.x * kTile;
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
+  const int ntiles = (M + kTile - 1) / kTile;
+  const int cols = (dc + 3) / 4 * 4;  // staged columns of a chunk: zero to a whole float4
+  const int rg = threadIdx.x / G;     // the accumulator task's row group (if < 16)
 
-  for (int idx = tid; idx < BQ * DS; idx += kThreads) {
-    const int r = idx / DS;
-    const int d = idx - r * DS;
-    const int n = q0 + r;
-    float x = 0.f;
-    if (n < N && d < D) x = to_float<T>(qb[(long long)n * q_sn + d]) * scale_log2;
-    sQ[idx] = x;
+  auto load = [&](int j, int buf) {  // K and V of tile j (one chunk)
+    stage(sK + buf * kTile * ld, ld, kb, k_sm, j * kTile, M, 0, cols, D);
+    stage(sV + buf * v_floats, ld, vb, v_sm, j * kTile, M, 0, cols, D);
+  };
+  if (one) {
+    stage(sQ, ld, qb, q_sn, q0, N, 0, cols, D);
+    load(0, 0);
+    hopper::cp_async_commit();
   }
-
-  float m_run[RW], l_run[RW], acc[RW][NC];
+  float m_run[4], l_run[4], acc[4][4 * W4];
 #pragma unroll
-  for (int r = 0; r < RW; ++r) {
+  for (int r = 0; r < 4; ++r) {
     m_run[r] = -INFINITY;
     l_run[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
   }
+  zero<W4>(acc);
 
-  const float4* qrow = reinterpret_cast<const float4*>(sQ + warp * RW * DS);
-  const float4* krow = reinterpret_cast<const float4*>(sK + lane * DS);
-  const int ds4 = DS / 4;
-  float* pw = sP + warp * kBK * RW;
-
-  for (int k0 = 0; k0 < M; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed (and sQ is written)
-    for (int idx = tid; idx < kBK * DS; idx += kThreads) {
-      const int j = idx / DS;
-      const int d = idx - j * DS;
-      const int m = k0 + j;
-      sK[idx] = (m < M && d < D) ? to_float<T>(kb[(long long)m * k_sm + d]) : 0.f;
-    }
-    for (int idx = tid; idx < kBK * DV; idx += kThreads) {
-      const int j = idx / DV;
-      const int d = idx - j * DV;
-      const int m = k0 + j;
-      sV[idx] = (m < M && d < D) ? to_float<T>(vb[(long long)m * v_sm + d]) : 0.f;
-    }
-    __syncthreads();
-
-    // Scores, in log2 units: lane owns key k0 + lane.
-    float s[RW];
-#pragma unroll
-    for (int r = 0; r < RW; ++r) s[r] = 0.f;
-    for (int d4 = 0; d4 < ds4; ++d4) {
-      const float4 kk = krow[d4];
-#pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        const float4 qq = qrow[r * ds4 + d4];
-        s[r] = fmaf(qq.x, kk.x, s[r]);
-        s[r] = fmaf(qq.y, kk.y, s[r]);
-        s[r] = fmaf(qq.z, kk.z, s[r]);
-        s[r] = fmaf(qq.w, kk.w, s[r]);
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * kTile;
+    const int buf = stages == 2 ? (j & 1) : 0;
+    float s[4][4] = {};
+    if (one) {
+      hopper::cp_async_wait<0>();
+      __syncthreads();  // tile j is in; every thread is done with tile j - 1
+      if (stages == 2 && j + 1 < ntiles) {
+        load(j + 1, (j + 1) & 1);
+        hopper::cp_async_commit();
       }
+      dot_rows(s, sQ, ld, sK + buf * kTile * ld, ld, cols / 4);
+    } else {
+      for (int d0 = 0; d0 < D; d0 += dc) {
+        const int c = min(dc, (D - d0 + 3) / 4 * 4);
+        __syncthreads();  // the chunk tiles (and the last tile's sV, sP, sA) are consumed
+        stage(sQ, ld, qb, q_sn, q0, N, d0, c, D);
+        stage(sK, ld, kb, k_sm, k0, M, d0, c, D);
+        hopper::cp_async_commit();
+        hopper::cp_async_wait<0>();
+        __syncthreads();
+        dot_rows(s, sQ, ld, sK, ld, c / 4);
+      }
+      stage(sV, bw, vb, v_sm, k0, M, 0, bw, D);
+      hopper::cp_async_commit();
     }
 
-    // Online softmax.  Key k0 (lane 0) is always valid, so m_new is finite.
-    const bool valid = k0 + lane < M;
-    float p[RW];
+    // Online softmax.  Key k0 (tx 0, q 0) is valid, so every row's maximum is finite.
 #pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const float sr = valid ? s[r] : -INFINITY;
-      const float m_new = fmaxf(m_run[r], warp_max(sr));
-      p[r] = exp2f(sr - m_new);
+    for (int r = 0; r < 4; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[r][c] = k0 + tx + 16 * c < M ? s[r][c] * scale_log2 : -INFINITY;
+        mx = fmaxf(mx, s[r][c]);
+      }
+#pragma unroll
+      for (int w = 1; w < 16; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float m_new = fmaxf(m_run[r], mx);
       const float alpha = exp2f(m_run[r] - m_new);
-      l_run[r] = l_run[r] * alpha + warp_sum(p[r]);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[r][c] = exp2f(s[r][c] - m_new);
+        sum += s[r][c];
+      }
+#pragma unroll
+      for (int w = 1; w < 16; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+      l_run[r] = l_run[r] * alpha + sum;
       m_run[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
+      if (tx == 0) sA[4 * ty + r] = alpha;
     }
+    store_pt(sP, s);
+    if (!one) hopper::cp_async_wait<0>();
+    __syncthreads();
+    if (rg < 16) {
+      const float4 alpha = reinterpret_cast<const float4*>(sA)[rg];
+      const float al[4] = {alpha.x, alpha.y, alpha.z, alpha.w};
 #pragma unroll
-    for (int r4 = 0; r4 < RW / 4; ++r4) {
-      reinterpret_cast<float4*>(pw + lane * RW)[r4] =
-          make_float4(p[4 * r4], p[4 * r4 + 1], p[4 * r4 + 2], p[4 * r4 + 3]);
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4 * W4; ++c) acc[r][c] *= al[r];
     }
-    __syncwarp();
-
-    // acc += P . V: lane owns head columns lane + 32*c.
-    const int jn = min(kBK, M - k0);
-    for (int j = 0; j < jn; ++j) {
-      float pj[RW];
-#pragma unroll
-      for (int r4 = 0; r4 < RW / 4; ++r4) {
-        const float4 t = reinterpret_cast<const float4*>(pw + j * RW)[r4];
-        pj[4 * r4] = t.x;
-        pj[4 * r4 + 1] = t.y;
-        pj[4 * r4 + 2] = t.z;
-        pj[4 * r4 + 3] = t.w;
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = sV[j * DV + c * 32 + lane];
-#pragma unroll
-        for (int r = 0; r < RW; ++r) acc[r][c] = fmaf(pj[r], vv, acc[r][c]);
+    tile_acc<W4>(acc, sP, sV + buf * v_floats, ldv, G);
+    if (one && stages == 1) {
+      __syncthreads();
+      if (j + 1 < ntiles) {
+        load(j + 1, 0);
+        hopper::cp_async_commit();
       }
     }
-    __syncwarp();
   }
 
+  __syncthreads();  // every task has read the last rescale factors
 #pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int n = q0 + warp * RW + r;
-    if (n >= N) continue;
-    const float inv = 1.f / l_run[r];
-    T* orow = o + (((long long)b * N + n) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = c * 32 + lane;
-      if (d < D) orow[d] = from_float<T>(acc[r][c] * inv);
+  for (int r = 0; r < 4; ++r) {
+    const int n = q0 + 4 * ty + r;
+    if (tx == 0) {
+      sA[4 * ty + r] = 1.f / l_run[r];
+      if (n < N) lse[(long long)bh * N + n] = (m_run[r] + log2f(l_run[r])) * kLn2;
     }
-    if (lane == 0) lse[(long long)bh * N + n] = (m_run[r] + log2f(l_run[r])) * kLn2;
+  }
+  __syncthreads();
+  if (rg < 16) {
+    const float4 inv = reinterpret_cast<const float4*>(sA)[rg];
+    const float mul[4] = {inv.x, inv.y, inv.z, inv.w};
+    store_acc<T, W4>(o + ((long long)b * N * H + h) * D, (long long)H * D, acc, mul, q0, N, 0,
+                     D, G);
   }
 }
 
-template <typename T, int NC>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                   int N, int M, int H, int D, const long long* qs, const long long* ks,
-                   const long long* vs, float scale, cudaStream_t stream) {
-  constexpr int RW = RowsPerWarp<NC>::value;
-  constexpr int BQ = kWarps * RW;
-  const int ds = smem_row_stride(D);
-  const size_t smem = smem_bytes<NC>(ds);
-  auto kernel = flash_fwd_kernel<T, NC>;
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid((N + BQ - 1) / BQ, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
+template <typename T, int W4>
+cudaError_t launch_cc(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                      int N, int M, int H, int D, const long long* qs, const long long* ks,
+                      const long long* vs, float scale, cudaStream_t stream) {
+  using namespace tiles;
+  const int G = acc_groups(D, W4);
+  const int bw = 4 * W4 * G;
+  const Plan plan = pick_plan(D, 256, [&](int dc, int ld, int stages) {
+    const bool one = dc >= D;
+    return (long long)kTile * ld * (1 + stages) +
+           (one ? (long long)stages * (kTile * ld + bw) : (long long)kTile * bw) +
+           kTile * kLd + kTile;
+  });
+  if (plan.dc == 0) return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_cc_kernel<T, W4>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)plan.bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + kTile - 1) / kTile, B * H);
+  kernel<<<grid, kThreads, plan.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, N, M, H, D, ds, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0],
-      vs[1], vs[2], scale * kLog2e);
+      static_cast<T*>(o), lse, N, M, H, D, G, plan.dc, plan.ld, plan.stages, qs[0], qs[1], qs[2],
+      ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale * kLog2e);
   return cudaGetLastError();
 }
 
+// Float4 columns an accumulator task holds: the least of the instantiated
+// counts with which 16 row groups x G column groups cover D in 256 tasks.
 template <typename T>
-cudaError_t dispatch_nc(const void* q, const void* k, const void* v, void* o, float* lse,
+cudaError_t dispatch_cc(const void* q, const void* k, const void* v, void* o, float* lse,
                         int B, int N, int M, int H, int D, const long long* qs,
                         const long long* ks, const long long* vs, float scale,
                         cudaStream_t stream) {
-  const int nc = (D + 31) / 32;
-  if (nc <= 1) return launch<T, 1>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream);
-  if (nc <= 2) return launch<T, 2>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream);
-  if (nc <= 3) return launch<T, 3>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream);
-  if (nc <= 4) return launch<T, 4>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream);
-  if (nc <= 8) return launch<T, 8>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream);
-  if (nc <= 16) return launch<T, 16>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream);
+#define TB_LAUNCH(W4) launch_cc<T, W4>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, scale, stream)
+  const int w4 = ((D + 3) / 4 + 15) / 16;
+  if (w4 <= 1) return TB_LAUNCH(1);
+  if (w4 <= 2) return TB_LAUNCH(2);
+  if (w4 <= 3) return TB_LAUNCH(3);
+  if (w4 <= 4) return TB_LAUNCH(4);
+  if (w4 <= 6) return TB_LAUNCH(6);
+  if (w4 <= 8) return TB_LAUNCH(8);
   return cudaErrorInvalidValue;
+#undef TB_LAUNCH
 }
 
 // ---------------------------------------------------------------------------
@@ -812,14 +812,14 @@ extern "C" int tb_flash_attention_fwd(int dtype, const void* q, const void* k, c
   const bool wgmma = dtype != 0 && wgmma_eligible(q, k, v, D, qs, ks, vs);
   *variant = !wgmma ? kCudaCores : D > 128 ? kWgmmaWide : kWgmma;
   switch (dtype) {
-    case 0: return (int)dispatch_nc<float>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
+    case 0: return (int)dispatch_cc<float>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
     case 1:
       if (wgmma) return (int)dispatch_wgmma<__half>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
-      return (int)dispatch_nc<__half>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
+      return (int)dispatch_cc<__half>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
     case 2:
       if (wgmma)
         return (int)dispatch_wgmma<__nv_bfloat16>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
-      return (int)dispatch_nc<__nv_bfloat16>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
+      return (int)dispatch_cc<__nv_bfloat16>(q, k, v, o, l, B, N, M, H, D, qs, ks, vs, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

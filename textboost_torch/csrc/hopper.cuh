@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels:
 // mbarriers, TMA tensor maps and loads, wgmma shared-memory descriptors and
-// the wgmma instructions themselves; and, at the end, the scalar helpers of
+// the wgmma instructions themselves; cp.async, ldmatrix and mma.sync (the
+// flash backward's "mma" variant); and, at the end, the scalar helpers of
 // the CUDA-core kernels (the flash variants' and GroupNorm's).
 //
 // Shared-memory tiles.  Every operand tile is a stack of "sub-tiles" of
@@ -946,6 +947,56 @@ template <> struct WgmmaRS<128> {
   }
 };
 
+// ---- mma.sync and its operands (the flash backward's "mma" variant) -------
+// cp.async of 16 bytes, global to shared, bypassing L1.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Four 8 x 8 16-bit matrices from shared memory, lane l giving the address
+// of row l % 8 of matrix l / 8; r[m] is matrix m's fragment (lane l holds
+// row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1).  The .trans form gives
+// each matrix transposed.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c[16 x 8] += A[16 x 16] B[16 x 8], fp32 accumulators: a the A fragment
+// (row g = lane / 4, tq = lane % 4: a[0] row g, k 2 tq; a[1] row g + 8;
+// a[2], a[3] the same at k + 8), b0 / b1 the B fragment (k 2 tq and 2 tq + 8,
+// column g), c[0..1] row g, columns 2 tq, 2 tq + 1, c[2..3] row g + 8.
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Scalar helpers of the CUDA-core kernels.
 // ---------------------------------------------------------------------------
@@ -964,22 +1015,6 @@ template <> __device__ __forceinline__ __half from_float<__half>(float x) {
 }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Row stride (floats) of an fp32 tile in shared memory whose rows are read
-// with 16-byte loads: D rounded up to a multiple of 4, then to an odd number
-// of float4s, so that 8 lanes reading 8 different rows hit 8 different bank
-// groups.
-__host__ __device__ inline int smem_row_stride(int d) {
-  int d4 = (d + 3) / 4;
-  if ((d4 & 1) == 0) d4 += 1;
-  return d4 * 4;
 }
 
 }  // namespace hopper

@@ -13,21 +13,23 @@ kernels (and get zero gradients); K and V are never padded in memory, so a
 cross-attention over 77 text keys reads its 77 rows as they are.
 
 The kernels are written for Hopper (`csrc/hopper.cuh` holds what they
-share): every product is a wgmma from a ring of K/V (or Q/dO) tiles that a
-producer warpgroup fills by TMA, with two consumer warpgroups per CTA.  The
-forward serves bf16/fp16 whose head dim, strides and base addresses are
-whole 16-byte chunks this way ("wgmma" for D <= 128, "wgmma_wide" up to
-512); fp32, other head dims and unaligned views take its CUDA-core variant
-("cuda_cores").  The C entry point owns that rule and reports its choice;
-`variant_counts` records which variant served each launch.
+share).  The forward serves bf16/fp16 whose head dim, strides and base
+addresses are whole 16-byte chunks with wgmma from a ring of K/V tiles that
+a producer warpgroup fills by TMA ("wgmma" for D <= 128, "wgmma_wide" up to
+512); fp32, other head dims and unaligned views take its register-tile
+variant on the CUDA cores ("cuda_cores", `csrc/flash_tiles.cuh`).  The C
+entry point owns that rule and reports its choice; `variant_counts`
+records which variant served each launch.
 
-The backward has the same two kinds of variant: "wgmma" for bf16/fp16 whose
-D <= 128 is a whole number of 16-byte chunks, "cuda_cores" for the rest of
-the JAX kernel's envelope (fp32, 128 < D <= 512, D % 8 != 0, views TMA
-cannot read).  The C entry point owns this rule too: the wrapper asks it
-(`tb_flash_attention_bwd_wgmma_form`) whether the wgmma variant serves the
-dtype and head dim, and then copies only a view that variant cannot read.
-`bwd_variant_counts` records which served each launch.
+The backward has three variants: "wgmma" for bf16/fp16 whose D <= 128 is a
+whole number of 16-byte chunks, "mma" (mma.sync on the tensor cores) for
+the other bf16/fp16 calls of the JAX kernel's envelope (128 < D <= 512,
+D % 8 != 0, views TMA cannot read, all read in place), and "cuda_cores"
+(register tiles) for fp32.  The C entry point owns this rule too: the
+wrapper asks it (`tb_flash_attention_bwd_wgmma_form`) whether the wgmma
+variant serves the dtype and head dim, and then copies only a view that
+variant cannot read.  `bwd_variant_counts` records which served each
+launch.
 
 `flash_attention` is the differentiable entry: with a gradient it runs the
 kernels through `FlashAttentionFunction`.  Both kernels take what the JAX
@@ -54,7 +56,7 @@ MAX_HEAD_DIM = 512
 
 # The variants, by the code the C entry points report.
 VARIANTS = ("cuda_cores", "wgmma", "wgmma_wide")
-BWD_VARIANTS = ("cuda_cores", "wgmma")
+BWD_VARIANTS = ("cuda_cores", "wgmma", "mma")
 
 launches = 0
 bwd_launches = 0
@@ -203,10 +205,11 @@ def check_backward_envelope(q: torch.Tensor) -> None:
 
 def _kernel_ready(t: torch.Tensor, wgmma: bool = True) -> torch.Tensor:
     """t itself when the backward kernel can read it in place, else a
-    contiguous copy.  The CUDA-core variant reads any strides over a
-    contiguous head dim; where the wgmma variant serves the dtype and head
-    dim (`wgmma`, as the C entry point reports it), a view whose strides are not whole 16-byte chunks or whose base is off a
-    16-byte boundary is copied (a clone: `contiguous()` would hand back a
+    contiguous copy.  The mma and CUDA-core variants read any strides over
+    a contiguous head dim; where the wgmma variant serves the dtype and head
+    dim (`wgmma`, as the C entry point reports it), a view whose strides
+    are not whole 16-byte chunks or whose base is off a 16-byte boundary is
+    copied (a clone: `contiguous()` would hand back a
     dense view whose base is off a boundary as it is)."""
     ok = _chunk_aligned(t) if wgmma else t.stride(-1) == 1
     return t if ok else t.clone(memory_format=torch.contiguous_format)
