@@ -164,6 +164,27 @@ per-kernel numbers, and as its last line {"ok": true, "device": {...}}.
 Any failed phase raises and the script exits non-zero with no result line.
 Without CUDA, or without the repo beside it, it fails the same way.
 
+The train step runs as a CUDA graph (textboost_torch/train/graph.py,
+textboost_torch/graphs.py) wherever the JAX package compiles it, and the
+sampling trajectory where its caller knows the signature repeats: the
+sd15 pipeline here is given graphs and called three times on the same
+latents (eager, captured, replayed: the same bits, each call the derived
+launches, a traced replay showing each kernel the derived number of
+times); the sd15 run, the paper's run, the flash bf16 run, the
+benchmark's trainers, sd21 and the dp phase's one process capture their
+step after 3 eager steps (the sd15 run beside 5 eager steps at its flags:
+the same losses, the peaks side by side); the paper run's resume, eager
+at steps 6-8 where the straight run replayed, must land on it with every
+gap exactly 0.  The paper run's two validation rounds are too few to pay
+a sampler capture back, so the script lowers the trainer's threshold for
+the straight run: its second round replays the graph, and its grid must
+equal the resumed run's (whose one round is eager) bit for bit.  The
+snapshot run, the dp and tp ranks and the tp phase's one process run
+eagerly (outside the envelope), their validation rounds too.  A replay
+makes no Python call: the launch counts and the recorded kernel shapes
+add, at each replay, what the capture recorded.  Each run's peak is
+given as allocated and as reserved (the graphs' pools are reserved).
+
 fp32 matmuls and convolutions are held to full fp32 (TF32 off) so that the
 plain references are what they say.
 """
@@ -1994,12 +2015,17 @@ def kernel_calls(what: str, variants=WGMMA_VARIANTS):
     launch counts set to 0 on entry.  Yields a dict that holds, on exit,
     "shapes" (flash (B, N, H, D, M); GroupNorm (shape, groups, eps, silu),
     the keys of the checks), "launches", "variants" (the flash forward's,
-    all of which must be in `variants`: by default the wgmma ones) and
-    "bwd_variants" (the flash backward's); calls must equal launches."""
+    all of which must be in `variants`: by default the wgmma ones),
+    "bwd_variants" (the flash backward's) and "graphs" (the CUDA graphs
+    captured: kind, replays); calls must equal launches.  A CUDA graph's
+    replay makes no Python call: the calls its capture recorded are taken
+    back when it ends (it launched nothing) and added at each replay, as
+    the graph does with the launch counts (textboost_torch/graphs.py)."""
     import torch
 
     from textboost_torch.ops import flash_attention as fa
     from textboost_torch.ops import group_norm as gn
+    from textboost_torch import graphs as graph_mod
 
     shapes = {name: collections.Counter() for name in ("flash", "flash_bwd", "gn", "gn_bwd")}
     wrappers = {"flash": (fa, "flash_attention_forward"),
@@ -2020,8 +2046,29 @@ def kernel_calls(what: str, variants=WGMMA_VARIANTS):
             return real[name](*args, **kwargs)
         return call
 
+    real_capture, real_replay = graph_mod.Graph.capture, graph_mod.Graph.replay
+    graphs = []
+
+    def capture(self, fn):
+        before = {name: collections.Counter(c) for name, c in shapes.items()}
+        try:
+            return real_capture(self, fn)
+        finally:
+            self.calls = {name: shapes[name] - before[name] for name in shapes}
+            for name, c in shapes.items():
+                c.clear()
+                c.update(before[name])
+            graphs.append(self)
+
+    def replay(self):
+        out = real_replay(self)
+        for name, c in self.calls.items():
+            shapes[name].update(c)
+        return out
+
     for name, (mod, attr) in wrappers.items():
         setattr(mod, attr, recording(name))
+    graph_mod.Graph.capture, graph_mod.Graph.replay = capture, replay
     fa.launches = fa.bwd_launches = gn.launches = gn.bwd_launches = 0
     fa.variant_counts.clear()
     fa.bwd_variant_counts.clear()
@@ -2031,7 +2078,10 @@ def kernel_calls(what: str, variants=WGMMA_VARIANTS):
     finally:
         for name, (mod, attr) in wrappers.items():
             setattr(mod, attr, real[name])
+        graph_mod.Graph.capture, graph_mod.Graph.replay = real_capture, real_replay
     torch.cuda.synchronize()
+    out["graphs"] = [{"calls": {k: sum(c.values()) for k, c in g.calls.items()},
+                      **g.stats()} for g in graphs]
     out["launches"] = {"flash": fa.launches, "flash_bwd": fa.bwd_launches, "gn": gn.launches,
                        "gn_bwd": gn.bwd_launches}
     out["variants"] = dict(fa.variant_counts)
@@ -2044,16 +2094,54 @@ def kernel_calls(what: str, variants=WGMMA_VARIANTS):
                              f"{out['launches']}")
 
 
+# What `launches` and `launches_by_path` count in the kernels line.
+REPLAYS_COUNTED = ("each wrapper call that launched its kernel, and at each CUDA graph replay "
+                   "the launches its capture recorded (the step and the sampling run as graphs, "
+                   "textboost_torch/graphs.py)")
+
+# The kernels' names in a torch.profiler trace, by wrapper: K2 launches two
+# kernels a call (dQ, then dK and dV).
+TRACE_TAGS = {"flash": ("flash_fwd",), "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"),
+              "gn": ("group_norm_fwd_kernel",), "gn_bwd": ("group_norm_bwd_kernel",)}
+
+
+def traced_counts(prof) -> dict:
+    """{wrapper: {kernel name tag: launches}} in a torch.profiler trace."""
+    import torch
+
+    counts = {name: collections.Counter() for name in TRACE_TAGS}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name, tags in TRACE_TAGS.items():
+                for tag in tags:
+                    if tag in e.key:
+                        counts[name][tag] += e.count
+    return {name: dict(c) for name, c in counts.items()}
+
+
+def check_traced_counts(counts: dict, want: dict, what: str) -> None:
+    """Each kernel name `want[wrapper]` times in a trace (K2's two kernels
+    each as often as K2 is called)."""
+    for name, n in want.items():
+        got = {tag: counts[name].get(tag, 0) for tag in TRACE_TAGS[name]}
+        if any(v != n for v in got.values()):
+            raise AssertionError(f"{what}: the trace shows {name}'s kernels {got} times, "
+                                 f"derived {n}")
+
+
 def instrumented_train(argv, trace_call=None, capture_call=None, on_step=None, run=None,
                        variants=WGMMA_VARIANTS):
     """`run(argv)` (default `textboost_torch.train.main`) with the launch
     counts set to 0 just before and read just after, every kernel call's
     shape recorded (`kernel_calls`, the flash forward's variants in
-    `variants`).  A CUDA event is recorded after each
-    step call; call `trace_call` (0-based) is traced with torch.profiler
-    after the queue has drained; call `capture_call` has its batch and draws
-    copied to the host; `on_step(call, state, batch, metrics)` runs after
-    each step call."""
+    `variants`).  The hooks sit around the trainer's per-step call
+    (`Trainer.run_step`: the CUDA graph's replay, or the eager step): a
+    CUDA event is recorded after each step call; call `trace_call`
+    (0-based) is traced with torch.profiler after the queue has drained
+    (the kernels' names counted: `traced_counts`); call `capture_call` has
+    its batch and draws copied to the host; `on_step(call, state, batch,
+    metrics)` runs after each step call.  Returns the peak allocated and
+    reserved bytes too."""
     import torch
     import torch.profiler
 
@@ -2061,36 +2149,32 @@ def instrumented_train(argv, trace_call=None, capture_call=None, on_step=None, r
     from textboost_torch.train import trainer as trainer_mod
 
     events, traced, captured = [], {}, {}
-    real_make = trainer_mod.make_train_step
+    real_step = trainer_mod.Trainer.run_step
 
-    def timed_make(config, reduce=None):
-        step = real_make(config, reduce)
-
-        def timed_step(state, batch, draws):
-            if len(events) == capture_call:
-                captured.update({name: {k: v.detach().cpu().clone() for k, v in d.items()}
-                                 for name, d in (("batch", batch), ("draws", draws))})
-            if len(events) == trace_call:
+    def timed_step(self, batch, draws):
+        if len(events) == capture_call:
+            captured.update({name: {k: v.detach().cpu().clone() for k, v in d.items()}
+                             for name, d in (("batch", batch), ("draws", draws))})
+        if len(events) == trace_call:
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = real_step(self, batch, draws)
                 torch.cuda.synchronize()
-                with torch.profiler.profile(
-                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    out = step(state, batch, draws)
-                    torch.cuda.synchronize()
-                    traced["wall_ms"] = (time.perf_counter() - t0) * 1e3
-                traced["prof"] = prof
-            else:
-                out = step(state, batch, draws)
-            if on_step is not None:
-                on_step(len(events), state, batch, out)
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append(ev)
-            return out
+                traced["wall_ms"] = (time.perf_counter() - t0) * 1e3
+            traced["prof"] = prof
+        else:
+            out = real_step(self, batch, draws)
+        if on_step is not None:
+            on_step(len(events), self.state, batch, out)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return out
 
-        return timed_step
-
-    trainer_mod.make_train_step = timed_make
+    trainer_mod.Trainer.run_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
     try:
         with kernel_calls("training", variants) as rec:
             torch.cuda.synchronize()
@@ -2099,7 +2183,7 @@ def instrumented_train(argv, trace_call=None, capture_call=None, on_step=None, r
             torch.cuda.synchronize()
             run_s = time.time() - t0
     finally:
-        trainer_mod.make_train_step = real_make
+        trainer_mod.Trainer.run_step = real_step
     kernel_ms = collections.Counter()
     if "prof" in traced:
         for e in traced["prof"].key_averages():
@@ -2108,16 +2192,42 @@ def instrumented_train(argv, trace_call=None, capture_call=None, on_step=None, r
     return {"metrics": metrics, "launches": rec["launches"], "variants": rec["variants"],
             "bwd_variants": rec["bwd_variants"],
             "run_s": run_s, "events": events, "traced_wall_ms": traced.get("wall_ms"),
-            "kernel_ms": kernel_ms, "captured": captured, "shapes": rec["shapes"]}
+            "kernel_ms": kernel_ms, "captured": captured, "shapes": rec["shapes"],
+            "traced_counts": traced_counts(traced["prof"]) if "prof" in traced else None,
+            "graphs": rec["graphs"], "peak_bytes": torch.cuda.max_memory_allocated(),
+            "reserved_bytes": torch.cuda.max_memory_reserved()}
+
+
+def step_graph_check(m: dict, steps: int, what: str, start: int = 0) -> str:
+    """The trainer's result for a run of `steps` steps from step `start`
+    inside the envelope: captured after WARMUP_STEPS eager steps, then a
+    replay a step.  Returns a line of the graph's numbers."""
+    from textboost_torch.train.graph import WARMUP_STEPS
+
+    replays = steps - start - WARMUP_STEPS
+    if (m["step_graph"] != "captured" or m["step_graph_eager_steps"] != WARMUP_STEPS
+            or m["step_graph_replays"] != replays):
+        raise AssertionError(f"{what}: the step ran {m['step_graph']}, "
+                             f"{m.get('step_graph_eager_steps')} eager steps and "
+                             f"{m.get('step_graph_replays')} replays, not captured after "
+                             f"{WARMUP_STEPS} with {replays}")
+    return (f"step graph captured after {WARMUP_STEPS} eager steps in "
+            f"{m['step_graph_capture_ms']:.1f} ms, pool {m['step_graph_pool_bytes'] / 2**30:.2f} "
+            f"GiB, {replays} replays")
 
 
 def train_main_path(instance_dir: str, output_dir: str):
-    """The sd15 training main path: TRAIN_STEPS steps at batch 8; the warm
-    step time averages steps 3-9, the last step is traced."""
+    """The sd15 training main path: TRAIN_STEPS steps at batch 8, steps 1-3
+    eager, step 4 the capture and its replay, then replays; the warm step
+    averages the replays of steps 5-9 (`warm_step_ms`) and the eager steps
+    2-3 (`eager_step_ms`); the last step (a replay) is traced."""
     tr = instrumented_train(train_flags(instance_dir, output_dir, 8, TRAIN_STEPS),
                             trace_call=TRAIN_STEPS - 1)
     events = tr.pop("events")
-    tr["warm_step_ms"] = events[1].elapsed_time(events[TRAIN_STEPS - 2]) / (TRAIN_STEPS - 3)
+    # Step s runs between events s-2 and s-1.
+    tr["warm_step_ms"] = events[3].elapsed_time(events[TRAIN_STEPS - 2]) / (TRAIN_STEPS - 5)
+    tr["eager_step_ms"] = events[0].elapsed_time(events[2]) / 2
+    tr["capture_step_ms"] = events[2].elapsed_time(events[3])
     return tr
 
 
@@ -2269,19 +2379,40 @@ def paper_run_phase(gen, card: dict, work: str, gn_rows: dict, gn_bwd_rows: dict
     os.makedirs(instance_dir)
     write_instance_image(os.path.join(instance_dir, "teapot.png"), seed=1)
     out = os.path.join(work, "run")
-    run = instrumented_train(paper_flags(instance_dir, out), trace_call=PAPER_STEPS - 1,
-                             capture_call=PAPER_CADENCE)
-    m = run["metrics"]
     rounds = PAPER_STEPS // PAPER_CADENCE
+    # Its two validation rounds are too few for the trainer to capture
+    # their sampling; the straight run lowers the threshold so that its
+    # second round replays the graph (checked against the resume's eager
+    # round below).
+    from textboost_torch.train import graph as train_graph
+
+    threshold = train_graph.VALIDATION_CAPTURE_ROUNDS
+    train_graph.VALIDATION_CAPTURE_ROUNDS = rounds
+    try:
+        run = instrumented_train(paper_flags(instance_dir, out), trace_call=PAPER_STEPS - 1,
+                                 capture_call=PAPER_CADENCE)
+    finally:
+        train_graph.VALIDATION_CAPTURE_ROUNDS = threshold
+    m = run["metrics"]
     want = {"flash": PAPER_STEPS * per_step[0] + rounds * val_launches[0],
             "flash_bwd": PAPER_STEPS * per_step[1],
             "gn": PAPER_STEPS * per_step[2] + rounds * val_launches[1],
             "gn_bwd": PAPER_STEPS * per_step[3]}
     ev = run["events"]
-    # Step s runs between events s-1 and s; step 6 also holds the checkpoint
-    # and the validation round of step 5.
-    warm = [ev[s - 2].elapsed_time(ev[s - 1]) for s in range(3, PAPER_STEPS)
-            if (s - 1) % PAPER_CADENCE]
+    # Step s runs between events s-2 and s-1; steps 1-3 run eagerly, step 4
+    # captures the graph and replays it, the rest replay; step 6 also holds
+    # the checkpoint and the validation round of step 5, step 10 is traced.
+    warm = [ev[s - 2].elapsed_time(ev[s - 1]) for s in (5, 7, 8, 9)]
+    eager_warm = [ev[s - 2].elapsed_time(ev[s - 1]) for s in (2, 3)]
+    capture_step = ev[2].elapsed_time(ev[3])
+    graph_line = step_graph_check(m, PAPER_STEPS, "the paper run")
+    if m.get("validation_graph") != "captured" or m.get("validation_graph_replays") != rounds - 1:
+        raise AssertionError(f"the paper run's validation rounds ran {m.get('validation_graph')} "
+                             f"and replayed {m.get('validation_graph_replays')} times, not "
+                             f"{rounds - 1}")
+    check_traced_counts(run["traced_counts"], dict(zip(("flash", "flash_bwd", "gn", "gn_bwd"),
+                                                       per_step)),
+                        "the paper run's traced step 10 (a replay)")
     busy = sum(run["kernel_ms"].values())
     port_ms = {name: sum(ms for key, ms in run["kernel_ms"].items() if tag in key)
                for name, tag in (("flash_attention_fwd", "flash_fwd"),
@@ -2291,9 +2422,16 @@ def paper_run_phase(gen, card: dict, work: str, gn_rows: dict, gn_bwd_rows: dict
     print(f"[paper] {PAPER_STEPS} steps sd21base 512 px batch 8 bf16, --augment pda "
           f"--augment_inversion, checkpoint and validation every {PAPER_CADENCE}, in "
           f"{run['run_s']:.1f} s (model init, validation and export included): loss "
-          f"{m['loss']:.5g}, kpl {m['kpl']:.3g}; warm step {np.mean(warm):.1f} ms (steps 3-9 "
-          f"but 6, CUDA events; each {[round(w, 1) for w in warm]}); launches {run['launches']} "
-          f"(expected {want}); flash forward by variant {run['variants']}", flush=True)
+          f"{m['loss']:.5g}, kpl {m['kpl']:.3g}; warm step captured {np.mean(warm):.1f} ms "
+          f"(replays, steps 5, 7-9, CUDA events; each {[round(w, 1) for w in warm]}), eager "
+          f"{np.mean(eager_warm):.1f} ms (steps 2-3), step 4 (capture and replay) "
+          f"{capture_step:.1f} ms; {graph_line}; validation round 2 replayed the sampler graph "
+          f"(capture {m['validation_graph_capture_ms']:.1f} ms, pool "
+          f"{m['validation_graph_pool_bytes'] / 2**30:.2f} GiB); peak "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB allocated, {run['reserved_bytes'] / 2**30:.2f} "
+          f"reserved; launches {run['launches']} (expected {want}, "
+          f"replays counted); flash forward by variant {run['variants']}; the traced replay's "
+          f"kernels {run['traced_counts']}", flush=True)
     print(f"[paper breakdown] traced step {PAPER_STEPS}: {run['traced_wall_ms']:.1f} ms wall, {busy:.1f} ms "
           f"of kernels (idle {1 - busy / run['traced_wall_ms']:.3f}); " + ", ".join(
               f"{k} {v:.2f} ms" for k, v in port_ms.items()), flush=True)
@@ -2408,6 +2546,9 @@ def paper_run_phase(gen, card: dict, work: str, gn_rows: dict, gn_bwd_rows: dict
     res = instrumented_train(paper_flags(instance_dir, resumed, "--resume_from_checkpoint=latest"),
                              capture_call=0)
     rest = PAPER_STEPS - PAPER_CADENCE
+    # Its steps 6-8 run eagerly where the straight run's replayed.
+    res_graph_line = step_graph_check(res["metrics"], PAPER_STEPS, "the resumed run",
+                                      start=PAPER_CADENCE)
     want_res = {"flash": rest * per_step[0] + val_launches[0], "flash_bwd": rest * per_step[1],
                 "gn": rest * per_step[2] + val_launches[1], "gn_bwd": rest * per_step[3]}
     if res["launches"] != want_res:
@@ -2423,20 +2564,36 @@ def paper_run_phase(gen, card: dict, work: str, gn_rows: dict, gn_bwd_rows: dict
                         for t in reversed(lora)))
     rows_gap = rel_l2(*(torch.from_numpy(np.stack([r[t] for t in sorted(r)]))
                         for r in reversed(rows)))
+    # The step-10 grid: the straight run's replayed sampler graph against the
+    # resumed run's eager round, on the same weights.
+    grids = [np.asarray(Image.open(os.path.join(d, f"validation_{PAPER_STEPS}.jpg")))
+             for d in (out, resumed)]
+    same_grid = bool(np.array_equal(*grids))
+    res_val = res["metrics"].get("validation_graph", "")
+    print(f"[paper resume] step-{PAPER_STEPS} validation grid, the straight run's replay against "
+          f"the resume's eager round ({res_val}): "
+          f"{'bit-equal' if same_grid else 'DIFFERENT'}", flush=True)
+    if not same_grid or not res_val.startswith("eager: "):
+        raise AssertionError(f"the validation graph's replay and the eager round differ "
+                             f"(the resume's round ran {res_val!r})")
     print(f"[paper resume] from checkpoint-{PAPER_CADENCE} to step {PAPER_STEPS}: step 6's batch "
           f"{'the same bytes' if same_batch else 'DIFFERS'}, its draws (noise, VAE eps, "
           f"timesteps) {'the same bits' if same_draws else 'DIFFER'}; step-10 loss "
-          f"{res['metrics']['loss']:.6g} vs {m['loss']:.6g}: relative gap {loss_gap:.3g} (limit "
-          f"{RESUME_LOSS_REL}); rel L2 gap of the exported LoRA {lora_gap:.3g}, of the added rows "
-          f"{rows_gap:.3g} (limit {RESUME_REL_L2})" + (
-              "; all gaps are zero" if loss_gap == lora_gap == rows_gap == 0 else ""), flush=True)
-    if not (same_batch and same_draws and loss_gap <= RESUME_LOSS_REL
-            and lora_gap <= RESUME_REL_L2 and rows_gap <= RESUME_REL_L2):
-        raise AssertionError("the resumed run left the straight run's trajectory")
+          f"{res['metrics']['loss']:.6g} vs {m['loss']:.6g}: relative gap {loss_gap:.3g}; rel L2 "
+          f"gap of the exported LoRA {lora_gap:.3g}, of the added rows {rows_gap:.3g}: must all "
+          f"be zero (its steps 6-8 eager, the straight run's replays; "
+          f"{res_graph_line})", flush=True)
+    if not (same_batch and same_draws and loss_gap == lora_gap == rows_gap == 0):
+        raise AssertionError("the resumed run left the straight run's trajectory: the eager "
+                             "steps and the graph's replays differ")
     return {
         "launches": run["launches"], "resumed_launches": res["launches"],
         "variants": run["variants"], "run_s": run["run_s"], "resumed_run_s": res["run_s"],
         "warm_step_ms": float(np.mean(warm)), "warm_steps_ms": warm,
+        "eager_step_ms": float(np.mean(eager_warm)), "capture_step_ms": capture_step,
+        "step_graph": {k: m[k] for k in m if k.startswith(("step_graph", "validation_graph"))},
+        "peak_bytes": run["peak_bytes"], "reserved_bytes": run["reserved_bytes"],
+        "traced_counts": run["traced_counts"],
         "traced_step_wall_ms": run["traced_wall_ms"], "traced_step_kernel_ms": busy,
         "traced_port_kernel_ms": port_ms, "idle_share": 1 - busy / run["traced_wall_ms"],
         "final_loss": m["loss"], "checkpoint_snapshot_ms": m["checkpoint_snapshot_ms"],
@@ -2662,6 +2819,9 @@ def snapshot_run_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict
     run = instrumented_train(snapshot_flags(snap, instance_dir, class_dir, out),
                              trace_call=SNAPSHOT_STEPS - 1, on_step=on_step)
     m = run["metrics"]
+    if not m["step_graph"].startswith("eager: --unet_params_to_train"):
+        raise AssertionError(f"the snapshot run (kv-LoRA, image prior) ran its step "
+                             f"{m['step_graph']}, not eagerly")
     prior_losses = [float(x) for x in seen_steps["prior_loss"]]
     per_step = train_step_calls("sd21base", 16, 16, checkpointing=True, cross_lora_rank=4)
     per_step_n = {k: sum(c.values()) for k, c in per_step.items()}
@@ -3736,18 +3896,20 @@ def sd21_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     write_instance_image(square, seed=2, width=size, height=size)
     write_instance_image(os.path.join(instance_dir, "b.png"), seed=3, width=1024, height=size)
     out = os.path.join(work, "run")
-    peaks = {"train": [], "validation": []}
+    peaks = {"train": [], "validation": [], "train_reserved": [], "validation_reserved": []}
     real_validation = trainer_mod.Trainer.run_validation
 
     def measured_validation(self, step):
         torch.cuda.synchronize()
         peaks["train"].append(torch.cuda.max_memory_allocated())
+        peaks["train_reserved"].append(torch.cuda.max_memory_reserved())
         torch.cuda.reset_peak_memory_stats()
         try:
             return real_validation(self, step)
         finally:
             torch.cuda.synchronize()
             peaks["validation"].append(torch.cuda.max_memory_allocated())
+            peaks["validation_reserved"].append(torch.cuda.max_memory_reserved())
             torch.cuda.reset_peak_memory_stats()
 
     trainer_mod.Trainer.run_validation = measured_validation
@@ -3765,12 +3927,17 @@ def sd21_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     print(f"[sd21] {SD21_STEPS} steps sd21 768 px batch 8 bf16, --augment_device, PNDM "
           f"validation every {SD21_CADENCE}, in {run['run_s']:.1f} s (model init, validation and "
           f"export included): loss {m['loss']:.5g}, kpl {m['kpl']:.3g}; warm step "
-          f"{np.mean(warm):.1f} ms (each {[round(w, 1) for w in warm]}); traced step "
+          f"{np.mean(warm):.1f} ms (step 3 eager, step 5 a replay: "
+          f"{[round(w, 1) for w in warm]}); {step_graph_check(m, SD21_STEPS, 'the sd21 run')}; "
+          f"traced step "
           f"{SD21_STEPS}: {run['traced_wall_ms']:.1f} ms wall, {busy:.1f} ms of kernels (idle "
           f"{1 - busy / run['traced_wall_ms']:.3f}); validation round {m['validation_ms']:.0f} ms "
           f"(16 images, PNDM 25 steps); peak memory {max(peaks['train']) / 2**30:.2f} GiB "
           f"training, {max(peaks['validation']) / 2**30:.2f} GiB in a validation round (UNet "
-          f"batch 32 at 96x96 latents, the step's state alive); launches {run['launches']} "
+          f"batch 32 at 96x96 latents, the step's state alive), reserved "
+          f"{max(peaks['train_reserved'] + [run['reserved_bytes']]) / 2**30:.2f} and "
+          f"{max(peaks['validation_reserved']) / 2**30:.2f} GiB ({m['validation_graph']}); "
+          f"launches {run['launches']} "
           f"(expected {want}); {smi}", flush=True)
     if run["launches"] != want:
         raise AssertionError(f"the sd21 run launched {run['launches']}, expected {want}")
@@ -4076,7 +4243,8 @@ def dp_rank(json_dir: str, argv, digest: bool = False) -> int:
            "peak_bytes": torch.cuda.max_memory_allocated(), "writes": sorted(set(writes)),
            "dp": {k: m[k] for k in ("dp_backend", "dp_world", "all_reduce_bytes_per_call",
                                     "all_reduce_ms_by_call") if k in m},
-           "tp": {k: m[k] for k in m if k.startswith("tp_")}, "digests": digests}
+           "tp": {k: m[k] for k in m if k.startswith("tp_")}, "digests": digests,
+           "step_graph": {k: m[k] for k in m if k.startswith(("step_graph", "validation_graph"))}}
     with open(os.path.join(json_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
@@ -4197,8 +4365,10 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
                                  f"matching {pattern!r}")
         return found[0]
 
-    # a. one process, no launcher; then NCCL at world 1 ------------------------
+    # a. one process, no launcher (its step a CUDA graph from step 4); then
+    # NCCL at world 1 (eager: a torch.distributed launch) ---------------------
     _, (one,) = ranks("one", 0)
+    step_graph_check(one["step_graph"], DP_STEPS, "the dp phase's one process")
     t0 = time.perf_counter()
     nccl_out = run_launch([*torchrun(1), "-m", "textboost_torch.train", *flags("nccl")],
                           "the NCCL world-1 run")
@@ -4237,6 +4407,8 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
 
     # b. two ranks on the card over gloo; their resume ---------------------------
     two_out, two = ranks("two", DP_RANKS)
+    if any(r["step_graph"]["step_graph"] != f"eager: {DP_RANKS} processes" for r in two):
+        raise AssertionError(f"the dp ranks' steps ran {[r['step_graph'] for r in two]}")
     backends = [(r["rank"], r["dp"].get("dp_backend"), r["dp"].get("dp_world")) for r in two]
     # Each rank's all-reduce at the warm steps (rank 1's at step 3 waits for
     # rank 0's checkpoint).
@@ -4477,6 +4649,14 @@ def tp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
 
     _, (one,) = ranks("one", 0)
     two_out, two = ranks("two", TP_RANKS, f"--mesh_tp={TP_RANKS}")
+    # The UNet's kv-LoRA and tensor parallelism: outside the graphs' envelope,
+    # the validation round's sampling too (a tp rank's UNet reduces over the
+    # host in its forward).
+    if any(not r["step_graph"]["step_graph"].startswith("eager: --unet_params_to_train")
+           or r["step_graph"]["validation_graph"] != r["step_graph"]["step_graph"]
+           for r in [one, *two]):
+        raise AssertionError(f"the tp phase's steps and rounds ran "
+                             f"{[r['step_graph'] for r in [one, *two]]}")
     shutil.copytree(os.path.join(dirs["two"], f"checkpoint-{DP_CADENCE}"),
                     os.path.join(dirs["resumed"], f"checkpoint-{DP_CADENCE}"))
     _, resumed = ranks("resumed", TP_RANKS, f"--mesh_tp={TP_RANKS}",
@@ -5042,6 +5222,7 @@ def native_dp_phase(gen, card: dict, work: str, smi: str, held: dict, snap: str)
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -5061,6 +5242,7 @@ def main() -> int:
     from textboost_torch.ops import flash_attention as fa
     from textboost_torch.ops import group_norm as gn
     from textboost_torch.pipelines.loading import load_textboost_pipeline
+    from textboost_torch.graphs import set_capture
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -5220,17 +5402,46 @@ def main() -> int:
     load_s = time.time() - t0
     latents = torch.randn(len(seeds), 64, 64, 4, generator=gen, device=dev)
 
-    def sample() -> float:
-        t0 = time.time()
-        pipe([args.prompt] * len(seeds), num_inference_steps=steps, guidance_scale=7.5,
-             latents=latents)
+    def sample():
+        """(images, seconds, launches (flash, group norm, backward)) of one call."""
+        before = (fa.launches, gn.launches, fa.bwd_launches + gn.bwd_launches)
         torch.cuda.synchronize()
-        return time.time() - t0
+        t0 = time.time()
+        images = pipe([args.prompt] * len(seeds), num_inference_steps=steps,
+                      guidance_scale=7.5, latents=latents)
+        torch.cuda.synchronize()
+        return images, time.time() - t0, (fa.launches - before[0], gn.launches - before[1],
+                                          fa.bwd_launches + gn.bwd_launches - before[2])
 
-    first_sample_s, sample_s = sample(), sample()
-    # One more call traced on the card: kernel time against wall time.
+    # A pipeline samples eagerly unless its caller gives it graphs; given
+    # them, the signature's first call runs eagerly, the second captures the
+    # trajectory as a CUDA graph and replays it, the third replays.
+    from textboost_torch.graphs import CapturedSampler
+
+    pipe.graphs = CapturedSampler([(len(seeds), 512, 512, steps, True, "dpm++2m", 7.5)])
+    gen_calls = [sample() for _ in range(3)]
+    first_sample_s, capture_sample_s, sample_s = (c[1] for c in gen_calls)
+    sample_graph = next(iter(pipe.graphs.stats().values()))
+    print(f"[generate graph] {len(seeds)} prompts, {steps} steps, CFG 7.5: eager call "
+          f"{first_sample_s * 1e3:.1f} ms ({len(seeds) / first_sample_s:.3f} images/s), capture "
+          f"and replay {capture_sample_s * 1e3:.1f} ms (capture {sample_graph['capture_ms']:.1f} "
+          f"ms, pool {sample_graph['pool_bytes'] / 2**30:.2f} GiB), replay {sample_s * 1e3:.1f} "
+          f"ms ({len(seeds) / sample_s:.3f} images/s); launches per call "
+          f"{[c[2] for c in gen_calls]} (derived {want_flash, want_gn}); the three calls' "
+          f"images bit-equal: {all(np.array_equal(gen_calls[0][0], c[0]) for c in gen_calls)}; "
+          f"{smi}", flush=True)
+    if not all(np.array_equal(gen_calls[0][0], c[0]) for c in gen_calls):
+        raise AssertionError("the sampler graph's images differ from the eager call's")
+    if any(c[2] != (want_flash, want_gn, 0) for c in gen_calls):
+        raise AssertionError(f"sampling calls launched {[c[2] for c in gen_calls]}, derived "
+                             f"{want_flash, want_gn}")
+    # One more replay traced on the card: kernel time against wall time,
+    # and each kernel's launches in the trace.
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        traced_s = sample()
+        traced_s = sample()[1]
+    sample_counts = traced_counts(prof)
+    check_traced_counts(sample_counts, {"flash": want_flash, "gn": want_gn},
+                        "the traced sampling replay")
     kernel_ms = collections.Counter()  # device ms by kernel name
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -5240,11 +5451,12 @@ def main() -> int:
                       for name, tag in (("flash_attention_fwd", "flash_fwd"),
                                         ("group_norm_fwd", "group_norm_fwd_kernel"))}
     print(f"[breakdown] load {load_s * 1e3:.0f} ms; sampling {first_sample_s * 1e3:.0f} ms "
-          f"(first call), {sample_s * 1e3:.0f} ms (second); UNet forward (batch 8) "
+          f"(eager), {sample_s * 1e3:.0f} ms (replay); UNet forward (batch 8) "
           f"{unet_ms:.1f} ms x {steps}, VAE decode {vae_ms:.1f} ms; traced call "
           f"{traced_s * 1e3:.0f} ms wall, {busy_ms:.0f} ms of kernels, of which flash "
           f"{traced_port_ms['flash_attention_fwd']:.1f} ms and group norm "
-          f"{traced_port_ms['group_norm_fwd']:.1f} ms", flush=True)
+          f"{traced_port_ms['group_norm_fwd']:.1f} ms (idle {1 - busy_ms / (traced_s * 1e3):.3f}); "
+          f"kernels in the trace {sample_counts}", flush=True)
     for name, ms in kernel_ms.most_common(10):
         print(f"[breakdown]   {ms:8.1f} ms  {name[:100]}", flush=True)
     del pipe
@@ -5323,9 +5535,14 @@ def main() -> int:
     m = tr["metrics"]
     print(f"[train] {TRAIN_STEPS} steps sd15 512 px batch 8 bf16 in {tr['run_s']:.1f} s "
           f"(model init and export included): loss {m['loss']:.5g}, kpl {m['kpl']:.3g}, "
-          f"grad_norm {m['grad_norm']:.3g}; warm step (steps 3-9, CUDA events) "
-          f"{tr['warm_step_ms']:.1f} ms; launches {tr['launches']} (expected {want_run}); "
-          f"flash forward by variant {tr['variants']}", flush=True)
+          f"grad_norm {m['grad_norm']:.3g}; warm step (CUDA events) captured {tr['warm_step_ms']:.1f} "
+          f"ms (replays, steps 5-9), eager {tr['eager_step_ms']:.1f} ms (steps 2-3), step 4 (capture "
+          f"and replay) {tr['capture_step_ms']:.1f} ms; {step_graph_check(m, TRAIN_STEPS, 'the sd15 run')}; "
+          f"peak {tr['peak_bytes'] / 2**30:.2f} GiB allocated, {tr['reserved_bytes'] / 2**30:.2f} "
+          f"reserved; launches {tr['launches']} (expected "
+          f"{want_run}); flash forward by variant {tr['variants']}", flush=True)
+    check_traced_counts(tr["traced_counts"], dict(zip(("flash", "flash_bwd", "gn", "gn_bwd"), want)),
+                        "the sd15 run's traced step (a replay)")
     if tr["launches"] != want_run:
         raise AssertionError(f"training launched {tr['launches']}, expected {want_run}")
     if m["steps"] != TRAIN_STEPS or not all(
@@ -5354,6 +5571,31 @@ def main() -> int:
           f"{new_ms['group_norm_fwd']:.1f} ms", flush=True)
     for name, ms in tr["kernel_ms"].most_common(10):
         print(f"[train breakdown]   {ms:8.2f} ms  {name[:100]}", flush=True)
+    # The same flags with capture off for 5 steps: the eager path,
+    # its warm step and peak beside the captured run's, and its losses those
+    # of the captured run's first 5 steps bit for bit (steps 4-5 replays
+    # there).
+    set_capture(False)
+    try:
+        eager_tr = instrumented_train(train_flags(instance_dir, out_dir + "_eager", 8, 5))
+    finally:
+        set_capture(True)
+    eager_ev = eager_tr["events"]
+    eager_run = {"warm_step_ms": eager_ev[0].elapsed_time(eager_ev[4]) / 4,
+                 "peak_bytes": eager_tr["peak_bytes"], "reserved_bytes": eager_tr["reserved_bytes"],
+                 "step_graph": eager_tr["metrics"]["step_graph"],
+                 "loss_by_step": eager_tr["metrics"]["loss_by_step"]}
+    same_losses = eager_run["loss_by_step"] == m["loss_by_step"][:5]
+    print(f"[train eager] the same flags with capture off, 5 steps: warm step "
+          f"{eager_run['warm_step_ms']:.1f} ms (steps 2-5) against {tr['warm_step_ms']:.1f} "
+          f"captured; peak {eager_run['peak_bytes'] / 2**30:.2f} GiB allocated and "
+          f"{eager_run['reserved_bytes'] / 2**30:.2f} reserved against "
+          f"{tr['peak_bytes'] / 2**30:.2f} and {tr['reserved_bytes'] / 2**30:.2f} captured; "
+          f"launches {eager_tr['launches']}; losses "
+          f"{'the same bits as' if same_losses else 'DIFFER from'} the captured run's steps 1-5 "
+          f"({eager_run['loss_by_step']}); {smi}", flush=True)
+    if not same_losses or eager_tr["launches"] != {k: n // TRAIN_STEPS * 5 for k, n in want_run.items()}:
+        raise AssertionError("the eager sd15 run differs from the captured one")
     images = generate(parse_args([out_dir, "--model", "sd15", "--prompt", "photo of a <v*> dog",
                                   "--seeds", "0", "--steps", "2", "--lora-rank", "4"]))
     if images.dtype.name != "uint8" or images.shape != (1, 512, 512, 3):
@@ -5477,7 +5719,7 @@ def main() -> int:
                            **{f"tp_{k}": v for k, v in tp["k1"].items()},
                            **{f"native_dp_{k}": v for k, v in nd["k1"].items()},
                            **{f"flash_impl_{k}": v for k, v in fl["k1_forms"].items()}},
-             per_generate_ms=flash_ms, launches_by_path=by_path["flash_attention_fwd"],
+             per_generate_ms=flash_ms, launches_by_path=by_path["flash_attention_fwd"], launches_counted=REPLAYS_COUNTED,
              variants={"generate": variants, "train": tr["variants"],
                        "paper": paper["variants"],
                        "flash_sd15_bf16": fl["runs"]["bf16"]["variants"],
@@ -5500,7 +5742,7 @@ def main() -> int:
                            **{f"dp_{k}": v for k, v in dp["k2"].items()},
                            **{f"tp_{k}": v for k, v in tp["k2"].items()},
                            **{f"flash_impl_{k}": v for k, v in fl["k2_forms"].items()}},
-             launches_by_path=by_path["flash_attention_bwd"],
+             launches_by_path=by_path["flash_attention_bwd"], launches_counted=REPLAYS_COUNTED,
              variants={"flash_sd15_bf16": fl["runs"]["bf16"]["bwd_variants"],
                        "flash_sd15_fp32": fl["runs"]["fp32"]["bwd_variants"]},
              launches_per_train_step=snap["launches"]["flash_bwd"] / SNAPSHOT_STEPS),
@@ -5522,7 +5764,7 @@ def main() -> int:
          "per_dp_rank_step": dp["group_norm_per_rank_step"]["group_norm_fwd"],
          "plain_ms_sd15_8x320x64x64": gn_plain, "per_sd21_phase": sd21["group_norm"]["group_norm_fwd"],
          "per_generate": gn_sums["generate"], "per_train_step": gn_sums["train_step"],
-         "launches_by_path": by_path["group_norm_fwd"], "registers": gn_regs,
+         "launches_by_path": by_path["group_norm_fwd"], "launches_counted": REPLAYS_COUNTED, "registers": gn_regs,
          "host_us_8x1280x8x8": gn_host},
         {"name": "group_norm_bwd", "route": "cuda",
          "source": "textboost_torch/csrc/group_norm_bwd.cu",
@@ -5541,17 +5783,26 @@ def main() -> int:
          "plain_ms_sd15_8x320x64x64": gn_bwd_plain,
          "per_sd21_phase": sd21["group_norm"]["group_norm_bwd"],
          "per_train_step": gn_bwd_sums, "registers": gn_bwd_regs,
-         "launches_by_path": by_path["group_norm_bwd"],
+         "launches_by_path": by_path["group_norm_bwd"], "launches_counted": REPLAYS_COUNTED,
          "launches_per_train_step": tr["launches"]["gn_bwd"] / TRAIN_STEPS},
     ], "sd15_images_per_s": len(seeds) / warm_s, "sd15_images_per_s_cold": len(seeds) / cold_s,
         "generate_ms": warm_s * 1e3, "load_ms": load_s * 1e3,
         "sample_ms": sample_s * 1e3, "sample_first_ms": first_sample_s * 1e3,
+        "sample_capture_ms": capture_sample_s * 1e3, "sample_graph": sample_graph,
+        "sd15_images_per_s_eager_call": len(seeds) / first_sample_s,
+        "sd15_images_per_s_replay": len(seeds) / sample_s,
+        "traced_sample_idle": 1 - busy_ms / (traced_s * 1e3),
         "traced_sample_ms": traced_s * 1e3, "traced_kernel_ms": busy_ms,
         "traced_port_kernel_ms": traced_port_ms,
         "unet_forward_ms": unet_ms, "vae_decode_ms": vae_ms,
         "unet_rel_l2_kernels_vs_math": rel, "card": card,
         "train": {"steps": TRAIN_STEPS, "batch": 8, "run_s": tr["run_s"],
-                  "warm_step_ms": tr["warm_step_ms"], "traced_step_wall_ms": tr["traced_wall_ms"],
+                  "warm_step_ms": tr["warm_step_ms"], "eager_step_ms": tr["eager_step_ms"],
+                  "capture_step_ms": tr["capture_step_ms"], "peak_bytes": tr["peak_bytes"],
+                  "reserved_bytes": tr["reserved_bytes"],
+                  "step_graph": {k: m[k] for k in m if k.startswith("step_graph")},
+                  "traced_step_idle": 1 - busy / tr["traced_wall_ms"], "eager_run": eager_run,
+                  "traced_step_wall_ms": tr["traced_wall_ms"],
                   "traced_step_kernel_ms": busy, "traced_port_kernel_ms": new_ms,
                   "final_loss": m["loss"], "step_parity_batch2": parity},
         "paper_run_sd21base": {k: v for k, v in paper.items()

@@ -1,0 +1,232 @@
+"""CUDA graphs: capture once, replay, and keep the kernels' launch counts.
+
+The port's counterpart of the JAX package's compiled programs: a
+`torch.cuda.CUDAGraph` records a function's kernels once and replays them
+with one launch from the host, where an eager call dispatches each kernel
+from Python.  The train step's graph (train/graph.py::CapturedStep) and
+the sampling trajectory's (`CapturedSampler`, which pipelines/
+text_to_image.py holds when its caller asks for it) are built on `Graph`.
+
+* A replay makes no Python call, so the kernels' launch counters
+  (ops/flash_attention.py, ops/group_norm.py) would miss it: each graph
+  records the counters' delta over its capture, takes it back (a capture
+  launches nothing), and adds it at every replay (`LaunchDelta`).
+* Warm-ups and captures run on one side stream per device
+  (`capture_stream`).
+* A graph reads its inputs at the addresses it was captured at (the flash
+  kernels take their TMA maps as kernel parameters, which the graph keeps):
+  callers copy each call's inputs into the captured ones (`static_copy`).
+
+Graphs need CUDA.  `set_capture(False)` turns capture off everywhere (tests
+and chip_smoke take eager references with it); it is not a CLI flag, as
+the JAX package has none for its compiled programs.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import time
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import torch
+
+from .ops import flash_attention as fa
+from .ops import group_norm as gn
+
+MAX_SIGNATURES = 6  # textboost_tpu/train/aot.py::_AOT_MEMO_MAX
+
+_capture = True
+
+
+def set_capture(enabled: bool) -> None:
+    """Capture where a caller asks for graphs on CUDA (the default), or not."""
+    global _capture
+    _capture = bool(enabled)
+
+
+def capture_enabled() -> bool:
+    return _capture
+
+
+# -- the kernels' launch counters --------------------------------------------
+def launch_counts() -> Dict[str, object]:
+    """The four wrappers' launch counts and the flash kernels' variant counts."""
+    return {"flash": fa.launches, "flash_bwd": fa.bwd_launches,
+            "gn": gn.launches, "gn_bwd": gn.bwd_launches,
+            "variants": collections.Counter(fa.variant_counts),
+            "bwd_variants": collections.Counter(fa.bwd_variant_counts)}
+
+
+def set_launch_counts(counts: Dict[str, object]) -> None:
+    """Set the counters to `counts` (the variant Counters in place)."""
+    fa.launches, fa.bwd_launches = counts["flash"], counts["flash_bwd"]
+    gn.launches, gn.bwd_launches = counts["gn"], counts["gn_bwd"]
+    for live, value in ((fa.variant_counts, counts["variants"]),
+                        (fa.bwd_variant_counts, counts["bwd_variants"])):
+        live.clear()
+        live.update(value)
+
+
+class LaunchDelta:
+    """The launches one capture counted: taken back when it ends (a capture
+    launches nothing) and added at each replay."""
+
+    def __init__(self):
+        self.delta: Optional[Dict[str, object]] = None
+
+    @contextlib.contextmanager
+    def recording(self):
+        before = launch_counts()
+        try:
+            yield
+        finally:
+            after = launch_counts()
+            self.delta = {key: after[key] - before[key] for key in after}
+            set_launch_counts(before)
+
+    def add(self) -> None:
+        now = launch_counts()
+        set_launch_counts({key: now[key] + self.delta[key] for key in now})
+
+
+# -- graphs --------------------------------------------------------------------
+_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The side stream that warm-ups and captures run on, one per device."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    if device not in _streams:
+        _streams[device] = torch.cuda.Stream(device)
+    return _streams[device]
+
+
+class Graph:
+    """One CUDA graph.  `run_eager(fn)` runs fn on the capture stream (a
+    warm-up), `capture(fn)` records fn's kernels without running them,
+    `replay()` runs them and returns what fn returned at the capture (the
+    same tensors each time).  Keeps the capture's wall ms, the bytes it
+    reserved (its pool), the launches it counted and the replays."""
+
+    def __init__(self, device, pool=None):
+        self.device = torch.device(device)
+        self.pool = pool
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.outputs = None
+        self.launches = LaunchDelta()
+        self.replays = 0
+        self.capture_ms: Optional[float] = None
+        self.pool_bytes: Optional[int] = None
+
+    def run_eager(self, fn: Callable):
+        stream = capture_stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            out = fn()
+        current.wait_stream(stream)
+        return out
+
+    def capture(self, fn: Callable) -> None:
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        with self.launches.recording():
+            with torch.cuda.graph(self.graph, pool=self.pool, stream=capture_stream(self.device),
+                                  capture_error_mode="thread_local"):
+                self.outputs = fn()
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+
+    def replay(self):
+        self.graph.replay()
+        self.launches.add()
+        self.replays += 1
+        return self.outputs
+
+    def stats(self) -> Dict[str, float]:
+        return {"capture_ms": self.capture_ms, "pool_bytes": self.pool_bytes,
+                "replays": self.replays}
+
+
+def static_copy(static: Dict[str, torch.Tensor], values: Dict[str, torch.Tensor],
+                what: str) -> None:
+    """Copy `values` into the static buffers of a captured graph; raises if
+    the keys, shapes or dtypes changed (a graph takes fixed ones)."""
+    if set(values) != set(static):
+        raise ValueError(f"{what}: the inputs {sorted(values)} are not the captured "
+                         f"{sorted(static)}")
+    for key, value in values.items():
+        if value.shape != static[key].shape or value.dtype != static[key].dtype:
+            raise ValueError(f"{what}: input {key} is {value.dtype} {tuple(value.shape)}, the "
+                             f"graph was captured at {static[key].dtype} "
+                             f"{tuple(static[key].shape)}")
+        static[key].copy_(value)
+
+
+class CapturedSampler:
+    """Sampling trajectories as CUDA graphs, one for each signature its
+    caller names: the counterpart of the JAX package's compiled sampler.  A
+    named signature's first call runs eagerly (the capture's warm-up), its
+    second captures and replays, later ones replay; any other signature
+    runs eagerly.  A capture pays back only over calls that repeat, so a
+    caller names a signature only when it knows it repeats often enough
+    (the trainer's validation rounds, train/graph.py::
+    validation_eager_reason).  At most MAX_SIGNATURES, as the JAX package's
+    `_AOT_MEMO_MAX`.  The graphs share one memory pool: a replay's images
+    are read before the next replay, so no graph reads what another
+    overwrote.
+
+    `__call__(key, guard, fn, inputs)` returns fn(inputs); `guard` names
+    what the graph reads besides `inputs` (the weights' addresses), and a
+    graph whose guard changed is dropped.  A failed capture raises."""
+
+    def __init__(self, signatures: Iterable[Tuple]):
+        self.signatures = set(signatures)
+        if len(self.signatures) > MAX_SIGNATURES:
+            raise ValueError(f"{len(self.signatures)} sampling signatures, at most "
+                             f"{MAX_SIGNATURES}")
+        self.entries: Dict[Tuple, Dict] = {}
+        self.pool = None
+
+    def __call__(self, key: Tuple, guard, fn: Callable, inputs: Dict[str, torch.Tensor]):
+        if key not in self.signatures:
+            return fn(inputs)
+        entry = self.entries.get(key)
+        if entry is not None and entry["guard"] != guard:
+            del self.entries[key]
+            entry = None
+        if entry is None:
+            device = next(iter(inputs.values())).device
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            entry = self.entries[key] = {"graph": Graph(device, self.pool), "guard": guard,
+                                         "static": None}
+            return entry["graph"].run_eager(lambda: fn(inputs))
+        graph = entry["graph"]
+        if entry["static"] is None:
+            static = entry["static"] = {k: v.clone() for k, v in inputs.items()}
+            try:
+                graph.capture(lambda: fn(static))
+            except Exception as e:
+                del self.entries[key]
+                raise RuntimeError(f"capturing the sampling trajectory {key} as a CUDA graph "
+                                   f"failed") from e
+        else:
+            static_copy(entry["static"], inputs, f"the captured sampling trajectory {key}")
+        return graph.replay()
+
+    def stats(self) -> Dict[Tuple, Dict[str, float]]:
+        return {key: entry["graph"].stats() for key, entry in self.entries.items()
+                if entry["static"] is not None}
+
+    def release(self) -> None:
+        """Drop every graph and the pool."""
+        self.entries.clear()
+        self.pool = None
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()

@@ -20,6 +20,13 @@ the same bias correction), but torch decays every row of the embedding,
 zero-gradient rows included; `pin_original_rows` restores the original
 vocabulary exactly after each step, as the JAX step zeroes their updates
 (textboost_tpu/train/step.py:239-246, PARITY deviation 4).
+
+On a card the optimizer is capturable (its step counts on the device, the
+bias correction computed there in fp32, as optax does) and each group's
+learning rate is a 0-dim fp32 tensor on the device, which the schedule
+fills in place: the step then holds no host value and runs the same
+arithmetic eagerly and inside a CUDA graph (train/graph.py).  The CPU keeps
+torch's default AdamW with float learning rates.
 """
 from __future__ import annotations
 
@@ -156,13 +163,21 @@ def make_optimizer(
     when `unet` is given (train_textboost.py:829-854).
     Accumulation and the encoder-only clip are the train step's
     (train/step.py), applied before `step()` as optax's MultiSteps and
-    chain do."""
+    chain do.  On CUDA: capturable, each group's lr a 0-dim fp32 tensor on
+    the card (module docstring)."""
     groups = [
         {"params": [text_encoder.token_embedding.weight], "lr": emb_learning_rate},
         {"params": lora_parameters(text_encoder)
                    + (lora_parameters(unet) if unet is not None else []), "lr": learning_rate},
     ]
-    return torch.optim.AdamW(groups, betas=(beta1, beta2), eps=eps, weight_decay=weight_decay)
+    device = text_encoder.token_embedding.weight.device
+    kwargs = dict(betas=(beta1, beta2), eps=eps, weight_decay=weight_decay)
+    if device.type != "cuda":
+        return torch.optim.AdamW(groups, **kwargs)
+    for group in groups:
+        group["initial_lr"] = group["lr"]  # the schedule's base, a float
+        group["lr"] = torch.tensor(group["lr"], dtype=torch.float32, device=device)
+    return torch.optim.AdamW(groups, capturable=True, **kwargs)
 
 
 def lr_lambda(name: str, warmup_steps: int, total_steps: int):
@@ -199,5 +214,18 @@ def lr_lambda(name: str, warmup_steps: int, total_steps: int):
 
 def lr_schedule(optimizer: torch.optim.Optimizer, name: str, warmup_steps: int,
                 total_steps: int) -> torch.optim.lr_scheduler.LambdaLR:
-    """The schedule as a LambdaLR over every group (stepped once per update)."""
-    return torch.optim.lr_scheduler.LambdaLR(optimizer, lr_lambda(name, warmup_steps, total_steps))
+    """The schedule as a LambdaLR over every group (stepped once per
+    update), from each group's base rate as a float.  torch's scheduler
+    fills a group's lr tensor (the capturable AdamW's, `make_optimizer`)
+    in place; raises if this torch's replaces it, as a CUDA graph would
+    then keep reading the old one."""
+    for group in optimizer.param_groups:
+        group.setdefault("initial_lr", float(group["lr"]))
+    rates = [group["lr"] for group in optimizer.param_groups]
+    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer,
+                                                  lr_lambda(name, warmup_steps, total_steps))
+    if any(isinstance(rate, torch.Tensor) and group["lr"] is not rate
+           for group, rate in zip(optimizer.param_groups, rates)):
+        raise RuntimeError("torch's LR scheduler replaced a tensor learning rate instead of "
+                           "filling it in place")
+    return scheduler

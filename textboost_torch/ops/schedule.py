@@ -4,13 +4,15 @@ The float32 `betas` / `alphas_cumprod` tables are computed in float64 and
 cast to float32 exactly as the JAX package does, so that sampler
 coefficients derived from them are bit-identical; the training queries
 (add_noise, velocity, snr, training_target, pred_original_sample) repeat
-the JAX package's float32 arithmetic.  The tables stay on the CPU and are
-gathered on the device of the timesteps.
+the JAX package's float32 arithmetic.  The tables are made on the CPU;
+the first query on another device copies `alphas_cumprod` there once and
+keeps the copy, so that a step neither copies from the host nor waits for
+a copy (and can run inside a CUDA graph, train/graph.py).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +29,9 @@ class NoiseSchedule:
     alphas_cumprod: torch.Tensor
     num_train_timesteps: int
     prediction_type: str
+    # alphas_cumprod on each other device it was queried on, by device.
+    device_tables: Dict[torch.device, torch.Tensor] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
 
     @classmethod
     def create(
@@ -63,8 +68,18 @@ class NoiseSchedule:
         )
 
     # -- schedule queries --------------------------------------------------
+    def alphas_on(self, device: torch.device) -> torch.Tensor:
+        """`alphas_cumprod` on `device` (a tensor's device: with its index),
+        copied there at the first call and kept."""
+        if device.type == "cpu":
+            return self.alphas_cumprod
+        table = self.device_tables.get(device)
+        if table is None:
+            table = self.device_tables[device] = self.alphas_cumprod.to(device)
+        return table
+
     def _alphas(self, timesteps: torch.Tensor) -> torch.Tensor:
-        return self.alphas_cumprod.to(timesteps.device)[timesteps]
+        return self.alphas_on(timesteps.device)[timesteps]
 
     def _gather_sqrt(self, timesteps: torch.Tensor, ndim: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(sqrt_alpha_prod, sqrt_one_minus_alpha_prod) broadcastable against

@@ -82,6 +82,7 @@ def load_textboost_pipeline(
                 if isinstance(mod, LoRALinear) and mod.lora_rank > 0:
                     mod.lora_B.weight.zero_()
         reuse.tokenizer = tokenizer
+        reuse.release_graphs()  # captured over the previous instance's weights
         _bind_instance(reuse, model_path, has_unet_adapter, unet_dir)
         return reuse
 

@@ -6,10 +6,22 @@ samplers/solvers.py (DPM-Solver++(2M) by default) over the CFG-doubled UNet (bat
 [-1, 1] and the uint8 conversion on the device before the host copy.
 Latents come in as [B, h, w, 4] and images go out as uint8 [B, H, W, 3],
 the JAX package's layout; the models run NCHW inside.
+
+`trajectory` (encode -> sampler -> decode) is the scope of the JAX
+package's `build_sample_program`.  It runs eagerly unless the caller gives
+the pipeline a `graphs.CapturedSampler` (`self.graphs`; the trainer does
+for its validation rounds when they pay a capture back): then on CUDA a
+signature it names (batch, height, width, steps, CFG, sampler, guidance
+scale) runs as a CUDA graph, eagerly at its first call, captured and
+replayed at the second, replayed after.  The prompts' ids, the negative
+ids, the latents, the guidance scalar and DDPM's noise are made eagerly
+and are the graph's inputs; the finiteness check and the host copy run
+after it.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+import itertools
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,7 +34,8 @@ from ..models.textboost import apply_null_embedding_patch
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
 from ..ops.schedule import NoiseSchedule
-from ..samplers.solvers import get_sampler
+from ..samplers.solvers import get_sampler, predrawn_noises
+from .. import graphs
 
 
 def to_uint8(images: torch.Tensor) -> torch.Tensor:
@@ -67,6 +80,21 @@ class TextToImagePipeline:
             beta_schedule=sch.beta_schedule,
             prediction_type=sch.prediction_type,
         )
+        self.graphs: Optional[graphs.CapturedSampler] = None  # eager unless a caller sets it
+
+    def release_graphs(self) -> None:
+        """Drop the sampling graphs and their memory."""
+        if self.graphs is not None:
+            self.graphs.release()
+
+    def _graph_guard(self) -> Tuple:
+        """The addresses and shapes of every weight a graph reads: a graph
+        captured over other tensors (another instance bound) is stale."""
+        tensors = itertools.chain(*(itertools.chain(m.parameters(), m.buffers())
+                                    for m in (self.text_encoder, self.unet, self.vae)))
+        if self.null_embedding is not None:
+            tensors = itertools.chain(tensors, [self.null_embedding])
+        return tuple((t.data_ptr(), tuple(t.shape)) for t in tensors)
 
     def encode_prompts(self, prompts: Sequence[str]) -> np.ndarray:
         return tokenize_prompt(self.tokenizer, list(prompts))
@@ -114,11 +142,40 @@ class TextToImagePipeline:
         if latents.dim() == 3:
             latents = latents[None].expand(batch, *latents.shape)
         x = latents.permute(0, 3, 1, 2).contiguous()
+        do_cfg = guidance_scale > 1.0
+        guidance = (torch.tensor(guidance_scale, dtype=torch.float32, device=dev)
+                    if do_cfg else None)
+        if self.graphs is not None and dev.type == "cuda" and graphs.capture_enabled():
+            inputs = {"ids": ids, "neg_ids": neg_ids, "x": x}
+            if guidance is not None:
+                inputs["guidance"] = guidance
+            noises = predrawn_noises(sample, x.shape, num_inference_steps, dev)
+            if noises is not None:
+                inputs["noises"] = noises
+            key = (batch, height, width, num_inference_steps, do_cfg, sampler, guidance_scale)
+            images = self.graphs(key, self._graph_guard(), lambda s: self.trajectory(
+                s["ids"], s["neg_ids"], s["x"], s.get("guidance"), steps=num_inference_steps,
+                sample=sample, noises=s.get("noises")), inputs)
+        else:
+            images = self.trajectory(ids, neg_ids, x, guidance, steps=num_inference_steps,
+                                     sample=sample)
+        if not bool(torch.isfinite(images).all()):  # before the clamp turns inf into +-1
+            raise FloatingPointError("the decoded images hold non-finite values")
+        images = images.clamp(-1.0, 1.0).permute(0, 2, 3, 1)
+        if output_type == "float":
+            return images.contiguous().cpu().numpy()
+        return to_uint8(images).cpu().numpy()
 
+    def trajectory(self, ids: torch.Tensor, neg_ids: torch.Tensor, x: torch.Tensor,
+                   guidance: Optional[torch.Tensor], *, steps: int, sample,
+                   noises: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """CLIP encode -> `sample` over the UNet (CFG-doubled, batch order
+        [negative, positive], when `guidance` is given) -> VAE decode:
+        float NCHW images, not clamped.  `noises` goes to a sampler that
+        draws noise (DDPM)."""
         hidden = self._encode(ids)
-        if guidance_scale > 1.0:
+        if guidance is not None:
             ctx = torch.cat([self._encode(neg_ids), hidden], dim=0)
-            guidance = torch.tensor(guidance_scale, dtype=torch.float32, device=dev)
 
             def model_fn(x, t):
                 out = self.unet(torch.cat([x, x]), torch.cat([t, t]), ctx)
@@ -130,14 +187,9 @@ class TextToImagePipeline:
             def model_fn(x, t):
                 return self.unet(x, t, hidden)
 
-        z = sample(model_fn, self.schedule, x, num_inference_steps)
-        images = self.vae.decode(z / self.spec.vae.scaling_factor).float()
-        if not bool(torch.isfinite(images).all()):  # before the clamp turns inf into +-1
-            raise FloatingPointError("the decoded images hold non-finite values")
-        images = images.clamp(-1.0, 1.0).permute(0, 2, 3, 1)
-        if output_type == "float":
-            return images.contiguous().cpu().numpy()
-        return to_uint8(images).cpu().numpy()
+        kwargs = {} if noises is None else {"noises": noises}
+        z = sample(model_fn, self.schedule, x, steps, **kwargs)
+        return self.vae.decode(z / self.spec.vae.scaling_factor).float()
 
     @torch.inference_mode()
     def compute_null_embedding(self, prompt: str = "") -> np.ndarray:

@@ -6,7 +6,10 @@ Every per-step coefficient is precomputed on the host in numpy from the
 schedule's float32 `alphas_cumprod`, with the JAX package's arithmetic, so
 the coefficients are bit-identical; the trajectory is a Python loop over
 `model_fn(x, t_batch) -> model_output` calls in fp32.  Classifier-free
-guidance lives in the pipeline.
+guidance lives in the pipeline.  A trajectory's Python structure and
+coefficients are fixed by (sampler, steps) and it reads no value back from
+the device, so a CUDA graph can hold it whole (train/graph.py); DDPM's
+noise is drawn before the loop (`ddpm_noises`), outside such a graph.
 """
 from __future__ import annotations
 
@@ -158,6 +161,21 @@ def ddim_sample(
     return x
 
 
+def ddpm_noises(shape, num_steps: int, device) -> torch.Tensor:
+    """DDPM's default noise, [num_steps, *shape] fp32: one draw a step, in
+    the order `ddpm_sample` takes them, from a torch.Generator on `device`
+    seeded with 0 (the counterpart of the JAX package's fixed PRNGKey(0))."""
+    generator = torch.Generator(device).manual_seed(0)
+    return torch.stack([torch.randn(tuple(shape), generator=generator, device=device,
+                                    dtype=torch.float32) for _ in range(num_steps)])
+
+
+def predrawn_noises(sample, shape, num_steps: int, device) -> Optional[torch.Tensor]:
+    """The noise `sample` draws, made before its trajectory (`ddpm_noises`
+    for DDPM), or None for a sampler that draws none."""
+    return ddpm_noises(shape, num_steps, device) if sample is ddpm_sample else None
+
+
 def ddpm_sample(
     model_fn: ModelFn,
     schedule: NoiseSchedule,
@@ -168,9 +186,8 @@ def ddpm_sample(
     """DDPM ancestral sampling on the "leading" grid: the posterior
     q(x_{t-1} | x_t, x0) with its std clipped at 1e-20 and 0 at the last
     step.  The noise of step i is `noises[i]` when given (the JAX package's
-    threefry draws cannot be made by torch), else drawn from a
-    torch.Generator on the latents' device seeded with 0 at each call (the
-    counterpart of the JAX package's fixed PRNGKey(0))."""
+    threefry draws cannot be made by torch), else `ddpm_noises` on the
+    latents' device, drawn before the loop."""
     ts = make_timesteps(schedule.num_train_timesteps, num_steps, "leading")
     ac = schedule.alphas_cumprod.numpy()[ts]
     ac_prev = np.concatenate([ac[1:], [1.0]])
@@ -182,16 +199,13 @@ def ddpm_sample(
     std = np.sqrt(var)
     std[-1] = 0.0
     x = latents.float()
-    generator = torch.Generator(x.device).manual_seed(0) if noises is None else None
+    if noises is None:
+        noises = ddpm_noises(x.shape, num_steps, x.device)
     for i, (t, a, s, cx0, cxt, noise_std) in enumerate(zip(
             ts, _f32(alpha), _f32(sigma), _f32(c_x0), _f32(c_xt), _f32(std))):
         out = model_fn(x, _t_batch(x, t)).float()
         x0 = _predict_x0(schedule, out, x, a, s)
-        if noises is None:
-            noise = torch.randn(x.shape, generator=generator, device=x.device,
-                                dtype=torch.float32)
-        else:
-            noise = torch.as_tensor(noises[i], dtype=torch.float32, device=x.device)
+        noise = torch.as_tensor(noises[i], dtype=torch.float32, device=x.device)
         x = cx0 * x0 + cxt * x + noise_std * noise
     return x
 

@@ -22,6 +22,15 @@ them back into the live modules, optimizer, scheduler and generator; it
 assumes the base weights the run started from, which resuming a run with
 the same flags and seed rebuilds.
 
+On a card the optimizer is capturable (lora/partition.py): its step counts
+live on the device and each group's learning rate is a 0-dim device
+tensor.  The snapshot writes them as the CPU optimizer's state holds them
+(CPU step counts, float rates), so that the files are the same whichever
+optimizer wrote them; restore puts them back on the live optimizer's terms
+(its rate tensors filled in place, its step counts on the card).  Restore
+runs before any CUDA graph is captured (train/graph.py): a graph holds the
+addresses of the optimizer state it was captured on.
+
 The device-to-host copy is synchronous (a few MB); the files are written on
 one writer thread, whose exception is kept and raised at the join.
 """
@@ -83,6 +92,16 @@ def _cpu(value):
     return value.detach().cpu().clone() if isinstance(value, torch.Tensor) else value
 
 
+def _floats(value):
+    """`value` with every tensor in it (a capturable optimizer's rates, a
+    list of them) as a Python float."""
+    if isinstance(value, torch.Tensor):
+        return float(value)
+    if isinstance(value, (list, tuple)):
+        return type(value)(_floats(v) for v in value)
+    return value
+
+
 def _unet_lora(unet) -> Dict[str, torch.Tensor]:
     """{PEFT key: weight} of the UNet's LoRA adapters (`unet_lora_weights`);
     raises if any other UNet parameter trains (it would be left out of the
@@ -123,8 +142,10 @@ def snapshot(text_encoder, optimizer, lr_scheduler, generator: torch.Generator, 
                  if labels[name] == LORA_LABEL},
         "unet_lora": ({key: _cpu(p) for key, p in _unet_lora(unet).items()}
                       if unet is not None else {}),
-        "optimizer": {"state": state, "param_groups": opt["param_groups"]},
-        "lr_scheduler": lr_scheduler.state_dict(),
+        "optimizer": {"state": state,
+                      "param_groups": [{k: _floats(v) for k, v in group.items()}
+                                       for group in opt["param_groups"]]},
+        "lr_scheduler": {k: _floats(v) for k, v in lr_scheduler.state_dict().items()},
         "generator": generator.get_state(),
     }
 
@@ -230,7 +251,17 @@ def restore_checkpoint(ckpt_dir: str, text_encoder, optimizer, lr_scheduler,
                 full[first_added_id:] = entry[key]
                 entry[key] = full
         state[idx] = entry
-    optimizer.load_state_dict({"state": state, "param_groups": opt["param_groups"]})
+    # The saved hyper-parameters, on the live optimizer's terms: capturable
+    # (step counts on the device) as it is, its rate tensors kept and filled.
+    live = optimizer.param_groups
+    groups = [{**saved, "capturable": group.get("capturable", False)}
+              for saved, group in zip(opt["param_groups"], live)]
+    rates = [group["lr"] for group in live]
+    optimizer.load_state_dict({"state": state, "param_groups": groups})
+    for group, rate in zip(optimizer.param_groups, rates):
+        if isinstance(rate, torch.Tensor):
+            rate.fill_(float(group["lr"]))
+            group["lr"] = rate
     lr_scheduler.load_state_dict(payload["lr_scheduler"])
     generator.set_state(payload["generator"])
     return {"step": payload["step"], "micro_step": payload["micro_step"]}

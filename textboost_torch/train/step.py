@@ -1,7 +1,7 @@
 """The TextBoost train step.
 
 Counterpart of textboost_tpu/train/step.py (step.py:195-280 and `loss_fn`
-:100-193), eager PyTorch on the port's modules: VAE encode -> noise ->
+:100-193), PyTorch on the port's modules: VAE encode -> noise ->
 text encode (null-patched; with `use_attention_mask` through the padded
 CLIP mask) -> UNet prediction (frozen, or with its cross-attention LoRA
 training) -> MSE (+ the image prior's class half) + knowledge-preservation
@@ -16,6 +16,11 @@ step's min-SNR weighting is off in every config and not ported.
 The random draws (posterior epsilon, noise, timesteps) come in as an
 argument, made by `sample_draws` from a `torch.Generator`, so that a test
 can hand the step the very numbers the JAX step drew from its threefry key.
+`TrainStep.body` is the device work, with no host sync and a Python
+structure fixed by the config, so that a CUDA graph can hold it
+(train/graph.py: the counterpart of the JAX package's compiled step);
+`TrainStep.finish` is the host's part (the learning-rate schedule, the
+micro-step count).
 Accumulation follows optax's MultiSteps: gradients of `accumulate_steps`
 micro-batches are averaged, clipped once, and applied on the last one.
 Data parallel, `reduce` (parallel/mesh.py::GradReducer) averages each
@@ -196,24 +201,39 @@ def forward_backward(state: TrainState, config: StepConfig, batch: Dict,
     return loss.detach(), aux
 
 
-def make_train_step(config: StepConfig,
-                    reduce: Optional[Reduce] = None) -> Callable[[TrainState, Dict, Draws], Dict]:
+class TrainStep:
     """The step fn(state, batch, draws) -> metrics (0-dim tensors, not
     synchronised).  `batch` holds `pixel_values` (uint8 or float NHWC),
     `input_ids`, `prior_input_ids` and optionally `mask`, on the device
     (with the image prior, `pixel_values`, `input_ids` and `mask` hold the
     class samples after the instance ones).  `reduce(loss, aux) -> (loss,
-    aux)`, when given, runs right after the backward (data parallel)."""
-    first_added = config.first_added_token_id
+    aux)`, when given, runs right after the backward (data parallel).
 
-    def train_step(state: TrainState, batch: Dict, draws: Draws) -> Dict[str, torch.Tensor]:
+    A call is `body` then `finish`: `body` is the device work, with a
+    Python structure fixed by the config and the micro-step count and no
+    host sync, which a CUDA graph can hold (train/graph.py); `finish` is
+    what stays on the host: the learning-rate schedule after an update and
+    the micro-step count."""
+
+    def __init__(self, config: StepConfig, reduce: Optional[Reduce] = None):
+        self.config = config
+        self.reduce = reduce
+
+    def updates(self, state: TrainState) -> bool:
+        """Whether this micro-step applies the update (the last of an
+        accumulation)."""
+        accum = self.config.accumulate_steps
+        return accum <= 1 or (state.step + 1) % accum == 0
+
+    def body(self, state: TrainState, batch: Dict, draws: Draws) -> Dict[str, torch.Tensor]:
+        config, first_added = self.config, self.config.first_added_token_id
         te = state.text_encoder
         emb = te.token_embedding.weight
         lora = lora_parameters(te)
         trainable = [emb] + lora + state.unet_lora
         loss, aux = forward_backward(state, config, batch, draws)
-        if reduce is not None:
-            loss, aux = reduce(loss, aux)
+        if self.reduce is not None:
+            loss, aux = self.reduce(loss, aux)
 
         # Gradient surgery (train_textboost.py:1109-1126).
         zero_original_vocab_rows(emb.grad, first_added)
@@ -223,7 +243,7 @@ def make_train_step(config: StepConfig,
                 apply_mixing_mask(state.unet, config.augment_ops)
         grad_norm = encoder_grad_norm(lora)  # pre-clip, for the metrics
 
-        update = True
+        update = self.updates(state)
         if config.accumulate_steps > 1:
             with torch.no_grad():
                 if state.accumulated is None:
@@ -231,7 +251,6 @@ def make_train_step(config: StepConfig,
                 else:
                     for acc, p in zip(state.accumulated, trainable):
                         acc.add_(p.grad)
-            update = (state.step + 1) % config.accumulate_steps == 0
             for p, acc in zip(trainable, state.accumulated):
                 p.grad = acc.div_(config.accumulate_steps) if update else None
             if update:
@@ -240,12 +259,10 @@ def make_train_step(config: StepConfig,
             if config.max_grad_norm is not None:
                 clip_encoder_grads(lora, config.max_grad_norm)
             state.optimizer.step()
-            state.lr_scheduler.step()
             state.optimizer.zero_grad(set_to_none=True)
             # Decoupled decay shrinks zero-gradient rows too: pin them.
             pin_original_rows(emb.data, state.original_rows)
         renorm_added_embeddings(emb.data, first_added, state.target_norm)
-        state.step += 1
         return {
             "loss": loss,
             "grad_norm": grad_norm,
@@ -253,4 +270,19 @@ def make_train_step(config: StepConfig,
             **aux,
         }
 
-    return train_step
+    def finish(self, state: TrainState) -> None:
+        """The schedule moves after an update (it sets the next update's
+        rate); the micro-step count moves every call."""
+        if self.updates(state):
+            state.lr_scheduler.step()
+        state.step += 1
+
+    def __call__(self, state: TrainState, batch: Dict, draws: Draws) -> Dict[str, torch.Tensor]:
+        metrics = self.body(state, batch, draws)
+        self.finish(state)
+        return metrics
+
+
+def make_train_step(config: StepConfig, reduce: Optional[Reduce] = None) -> TrainStep:
+    """The train step of `config` (`TrainStep`)."""
+    return TrainStep(config, reduce)

@@ -1,19 +1,28 @@
 """Trainer: set-up, the loop, checkpoints, validation and the final export.
 
 Counterpart of textboost_tpu/train/trainer.py (`_setup` :184-814 without
-the AOT, mesh, relay and warm-up machinery; the loop :853-1026; `save`
+the mesh, relay and warm-up machinery; the loop :853-1026; `save`
 :1032-1075; `save_final` :1076-1115; validation :1157-1321): tokenizer ->
 token surgery (placeholders, and with --augment_inversion the bank of
 augmentation tokens) -> models -> frozen text encoder captured before
 surgery -> embedding growth and norm stats -> null embedding -> schedule ->
 optimizer -> class-prior images (generated when the class dir is short)
--> paired augmentation and loaders -> resume; then one eager
-train step per (micro-)batch, metrics every 10 steps to `metrics.jsonl`, a
+-> paired augmentation and loaders -> resume; then one train step per
+(micro-)batch, metrics every 10 steps to `metrics.jsonl`, a
 compact checkpoint every --checkpointing_steps and a validation grid every
 --validation_steps (both written on writer threads, joined at the end),
 and at the end the PEFT `text_encoder/` adapter (and `unet/`, with
 `--unet_params_to_train crossattn_kv`) and `{token}.bin` files that
 `textboost_torch.inference` and the JAX `load_textboost_pipeline` load.
+On a card, inside the envelope of the JAX package's compiled step
+(train/graph.py::eager_reason: no UNet LoRA, no image prior, no tensor
+parallelism, no accumulation, one process), the step runs as a CUDA graph
+after its warm-up steps (the counterpart of textboost_tpu/train/aot.py);
+the batch and the draws are made eagerly and copied into the graph's
+inputs.  The validation rounds' sampling runs as one from the second
+round when the run holds enough rounds to pay the capture back
+(train/graph.py::validation_eager_reason).  Elsewhere each runs eagerly,
+and the result and the log say why.
 `--gradient_checkpointing` recomputes the UNet's blocks in the backward;
 `--text_encoder_use_attention_mask` threads the padded CLIP mask into the
 step's text encodes.  `--augment_device` uploads the instance images once
@@ -82,7 +91,8 @@ from ..samplers.solvers import get_sampler
 from ..tokens.surgery import OBJECT_AUGMENTATIONS, STYLE_AUGMENTATIONS, plan_token_addition
 from ..utils.profiling import StepTimer, device_memory_stats
 from ..utils.trackers import Trackers
-from . import checkpoint
+from .. import graphs
+from . import checkpoint, graph
 from .config import TrainConfig, unsupported_flags
 from .prior_generation import generate_prior_images
 from .step import StepConfig, TrainState, make_train_step, sample_draws
@@ -91,6 +101,7 @@ logger = logging.getLogger("textboost_torch")
 
 ATTENTION_IMPLS = {"auto": "auto", "xla": "math", "flash": "flash"}  # --attention_impl -> impl
 WRITER_TIMEOUT_S = 600.0
+VALIDATION_GUIDANCE = 7.5  # train_textboost.py's log_validation
 
 
 def _join_writers(threads: List[threading.Thread], kind: str) -> None:
@@ -431,7 +442,13 @@ class Trainer:
                         "micro-step, against %d bytes of the embedding's whole gradient",
                         self.mesh.dp, self.reducer.values(), 4 * self.reducer.values(),
                         emb_bytes)
-        self.train_step = make_train_step(self.step_config, reduce=self.reducer)
+        step = make_train_step(self.step_config, reduce=self.reducer)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        self.eager_reason = graph.eager_reason(cfg, dev, world, distributed=dist.is_initialized())
+        self.train_step = (step if self.eager_reason is not None
+                           else graph.CapturedStep(step, dev))
+        logger.info("train step: %s", f"eager: {self.eager_reason}" if self.eager_reason else
+                    f"a CUDA graph, captured after {graph.WARMUP_STEPS} eager steps")
         self.state = TrainState(
             text_encoder=te, frozen_text_encoder=self.frozen_te, unet=unet, vae=vae,
             optimizer=optimizer, lr_scheduler=scheduler, schedule=self.schedule,
@@ -447,6 +464,7 @@ class Trainer:
         self._ckpt_threads: List[threading.Thread] = []
         self._val_threads: List[threading.Thread] = []
         self._val_pipe: Optional[TextToImagePipeline] = None
+        self.validation_eager_reason: Optional[str] = None
         # Seconds of each checkpoint (snapshot on the loop, write on its
         # thread) and validation round (sampling, on the loop).
         self.timings: Dict[str, List[float]] = collections.defaultdict(list)
@@ -527,6 +545,43 @@ class Trainer:
         finally:
             self.train_loader.stop()
             self.prior_loader.stop()
+            self.release_graphs()
+
+    def release_graphs(self) -> None:
+        """Drop the step's and the validation rounds' CUDA graphs and their
+        memory (a --sequential sweep builds one trainer per instance)."""
+        if isinstance(self.train_step, graph.CapturedStep):
+            self.train_step.release()
+        if self._val_pipe is not None:
+            self._val_pipe.release_graphs()
+
+    def run_step(self, batch: Dict[str, torch.Tensor],
+                 draws: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One (micro-)step: the graph's replay or the eager step."""
+        return self.train_step(self.state, batch, draws)
+
+    def graph_stats(self) -> Dict[str, object]:
+        """`step_graph`: "captured" or "eager: <reason>"; with the graphs'
+        capture ms, pool bytes and replays."""
+        out: Dict[str, object] = {}
+        if isinstance(self.train_step, graph.CapturedStep):
+            if self.train_step.captured:
+                out["step_graph"] = "captured"
+                out.update({f"step_graph_{k}": v for k, v in self.train_step.stats().items()})
+            else:
+                out["step_graph"] = (f"eager: the run ended within its "
+                                     f"{self.train_step.warmup} warm-up steps")
+        else:
+            out["step_graph"] = f"eager: {self.eager_reason}"
+        if self._val_pipe is not None:
+            if self._val_pipe.graphs is None:
+                out["validation_graph"] = f"eager: {self.validation_eager_reason}"
+            else:
+                stats = self._val_pipe.graphs.stats().get(self._validation_key())
+                out["validation_graph"] = ("captured" if stats else
+                                           "eager: the run ended within its first round")
+                out.update({f"validation_graph_{k}": v for k, v in (stats or {}).items()})
+        return out
 
     def _train(self) -> Dict[str, float]:
         cfg = self.config
@@ -559,7 +614,7 @@ class Trainer:
                 batch = next_batch
                 self._count_augmentations(next_prompts)
                 t0 = time.perf_counter()
-                metrics = self.train_step(self.state, batch, self._draws())
+                metrics = self.run_step(batch, self._draws())
                 t1 = time.perf_counter()
                 host = (next(train_iter), next(prior_iter))
                 t2 = time.perf_counter()
@@ -570,7 +625,7 @@ class Trainer:
                 host_waits.append((t2 - t1) * 1000)
                 loop_t["h2d_ms"] += (t3 - t2) * 1000
             step += 1
-            losses.append(metrics["loss"])
+            losses.append(metrics["loss"].clone())  # a replay overwrites the graph's outputs
             if self.tp is not None:
                 tp_steps.append((tp_first, self.tp.calls))
             if profiler is not None and step - self.start_step == 15:
@@ -606,7 +661,8 @@ class Trainer:
         loss_by_step = torch.stack(losses).float().cpu().tolist() if losses else []
         logger.info("Loss by step %d-%d: %s", self.start_step + 1, step, loss_by_step)
         result = {"wall_time_s": wall, "steps": step, **last_metrics,
-                  "host_wait_ms_by_step": host_waits, "loss_by_step": loss_by_step}
+                  "host_wait_ms_by_step": host_waits, "loss_by_step": loss_by_step,
+                  **self.graph_stats()}
         if self.reducer is not None and self.reducer.calls:
             r, ms = self.reducer, self.reducer.milliseconds()
             result.update({"dp_backend": dist.get_backend(), "dp_world": self.mesh.dp,
@@ -703,15 +759,29 @@ class Trainer:
         n = max(cfg.num_validation_images, 1)
         return [p for p in subs for _ in range(n)]
 
+    def _validation_key(self) -> tuple:
+        """The pipeline's signature of a validation round: the JAX package's
+        validation signature and the guidance scale."""
+        return graph.validation_signature(self.config, self.bundle.spec) + (VALIDATION_GUIDANCE,)
+
     def _validation_pipe(self) -> TextToImagePipeline:
         """The sampling pipeline over the LIVE text encoder, UNet and VAE
         (no copy of the weights; the grown embedding is read as it is now),
-        built once and kept across rounds."""
+        built once and kept across rounds; its rounds' sampling a CUDA graph
+        from the second round where `graph.validation_eager_reason` allows."""
         if self._val_pipe is None:
             self._val_pipe = TextToImagePipeline(
                 self.bundle.spec, self.tokenizer, self.text_encoder, self.bundle.unet,
                 self.bundle.vae, null_embedding=self.null_embedding, fixed_special=True,
                 device=self.device, freeze=False)
+            self.validation_eager_reason = graph.validation_eager_reason(
+                self.config, self.eager_reason,
+                graph.validation_rounds(self.config, self.start_step))
+            if self.validation_eager_reason is None:
+                self._val_pipe.graphs = graphs.CapturedSampler([self._validation_key()])
+            logger.info("validation sampling: %s",
+                        f"eager: {self.validation_eager_reason}" if self.validation_eager_reason
+                        else "a CUDA graph, captured at the second round")
         return self._val_pipe
 
     def join_validation_writers(self) -> None:
@@ -740,7 +810,7 @@ class Trainer:
         try:
             for m in modules:
                 m.eval()
-            images = pipe(prompts, num_inference_steps=25, guidance_scale=7.5,
+            images = pipe(prompts, num_inference_steps=25, guidance_scale=VALIDATION_GUIDANCE,
                           generator=torch.Generator(self.device).manual_seed(cfg.seed),
                           sampler=cfg.validation_scheduler)
         finally:
