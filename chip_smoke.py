@@ -72,19 +72,29 @@ with the launch counts set to 0 just before and read just after:
     bit-identical;
   * the DreamBooth benchmark (`benchmark_phase`): `run_textboost_db -m
     sd21base --sequential` trains two instances (dog, clock) for 4 steps in
-    this process; a scorer-weights dir is written from seeded weights in the
+    this process, the second taking the first's bundle and step graph from
+    the cross-instance memos (one step capture in the sweep, no warm-up
+    steps for the second; its time to first step beside the same instance
+    trained alone with the memos cleared, whose exports must be the
+    sweep's to the bit); a scorer-weights dir is written from seeded weights in the
     published torch layouts (CLIP ViT-L/14-336 as a transformers CLIPModel,
     DINOv2 ViT-L/14 in the hub layout, clip-flant5's vision tower, projector
     and a flan-t5-xxl-wide T5 cut to 2 + 2 layers, with a Unigram
     tokenizer.json); `textboost_torch.eval` generates both instances' 25
     prompts for seeds 0 and 1 (25 steps, CFG 7.5, batch 16: chunks of 16 and
-    9, the pipeline reused across instances) and scores them with CLIP-T,
+    9, the pipeline reused across instances; the eval's capture rule, its
+    threshold lowered to the 4 calls it plans for each chunk signature,
+    names both, whose graphs the first instance captures and the second
+    replays)
+    and scores them with CLIP-T,
     CLIP-I, DINO and VQAScore into metric_last.csv.  Every kernel is held at
     every shape the training and the generation called it at (the tail
     chunk's UNet batch 18 and decoder batch 9 among them), the launches and
     GroupNorm calls must be those derived from the config, the images carry
     the reference's names, the CSV its header; the second instance sampled
-    again from a fresh load must give the same bits; the scorers on the card
+    again from a fresh load with the memos cleared, eagerly (2 calls a
+    signature, below the lowered threshold), must give the same bits; the
+    scorers on the card
     must match the port's CPU fp32 math on the same weights; and
     clip-flant5-xxl at full depth, seeded on the card, scores the 100 pairs;
   * sd21 at 768 px (`sd21_phase`): `textboost_torch.train.main` with
@@ -184,6 +194,8 @@ eagerly (outside the envelope), their validation rounds too.  A replay
 makes no Python call: the launch counts and the recorded kernel shapes
 add, at each replay, what the capture recorded.  Each run's peak is
 given as allocated and as reserved (the graphs' pools are reserved).
+Each phase starts with the memos released (`release_memos`), so that no
+earlier phase's bundle or graph stays resident.
 
 fp32 matmuls and convolutions are held to full fp32 (TF32 off) so that the
 plain references are what they say.
@@ -2384,15 +2396,15 @@ def paper_run_phase(gen, card: dict, work: str, gn_rows: dict, gn_bwd_rows: dict
     # their sampling; the straight run lowers the threshold so that its
     # second round replays the graph (checked against the resume's eager
     # round below).
-    from textboost_torch.train import graph as train_graph
+    from textboost_torch import graphs as graph_mod
 
-    threshold = train_graph.VALIDATION_CAPTURE_ROUNDS
-    train_graph.VALIDATION_CAPTURE_ROUNDS = rounds
+    threshold = graph_mod.VALIDATION_CAPTURE_ROUNDS
+    graph_mod.VALIDATION_CAPTURE_ROUNDS = rounds
     try:
         run = instrumented_train(paper_flags(instance_dir, out), trace_call=PAPER_STEPS - 1,
                                  capture_call=PAPER_CADENCE)
     finally:
-        train_graph.VALIDATION_CAPTURE_ROUNDS = threshold
+        graph_mod.VALIDATION_CAPTURE_ROUNDS = threshold
     m = run["metrics"]
     want = {"flash": PAPER_STEPS * per_step[0] + rounds * val_launches[0],
             "flash_bwd": PAPER_STEPS * per_step[1],
@@ -3257,6 +3269,22 @@ def _part_bytes(root: str, parts) -> dict:
             for part in parts}
 
 
+def release_memos() -> None:
+    """Drop the port's cross-instance memos (the step's and its graph,
+    train/graph.py; the preset bundle, models/pretrained.py) and free the
+    card memory they held: each phase starts with nothing of an earlier one
+    resident."""
+    import torch
+
+    from textboost_torch.models import pretrained
+    from textboost_torch.train import graph as train_graph
+
+    train_graph.release_memo()
+    pretrained._PRESET_MEMO.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def benchmark_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     """The DreamBooth benchmark at sd21base, through the port's entry points:
     `run_textboost_db` trains two instances in-process (`--sequential`), a
@@ -3267,9 +3295,15 @@ def benchmark_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     metric_last.csv; every kernel call of the training and the generation is
     recorded and each kernel held at every shape it ran at (`held`: what the
     earlier phases held), the launches must be those derived from the
-    config; then the second instance again from a fresh load (bit-identical
-    images), the scorers on the card against the CPU, and clip-flant5-xxl at
-    full depth from a seed, in bf16 held to its own fp32 weights."""
+    config; the second instance takes the first's bundle and step graph
+    from the memos (one capture in the sweep, no warm-up steps for it) and
+    exports the bits it exports trained alone with the memos cleared; the
+    eval's rule names its chunk signatures (threshold lowered to its calls)
+    and the reused pipeline keeps their graphs across the instances; then
+    the instance bound with reuse= again from a fresh load, eager
+    (bit-identical images), the scorers on the card against the CPU, and
+    clip-flant5-xxl at full depth from a seed, in bf16 held to its own fp32
+    weights."""
     import numpy as np
     import torch
     from PIL import Image
@@ -3281,9 +3315,12 @@ def benchmark_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     from textboost_torch.eval.dino import DINOScorer, ViTConfig
     from textboost_torch.eval.t5_tokenizer import T5Tokenizer
     from textboost_torch.eval.vqa import CLIPT5Model, NativeVQAScorer
+    from textboost_torch import graphs as graph_mod
+    from textboost_torch.models import pretrained
     from textboost_torch.models.configs import get_spec
     from textboost_torch.pipelines import loading
     from textboost_torch.pipelines.text_to_image import TextToImagePipeline
+    from textboost_torch.train import graph as train_graph
     from textboost_torch.utils import sweep
 
     t_phase = time.perf_counter()
@@ -3300,24 +3337,42 @@ def benchmark_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
         for root, seed in ((data, 100 + k), (val, 200 + k)):
             os.makedirs(os.path.join(root, name))
             write_instance_image(os.path.join(root, name, "0.png"), seed=seed)
-    job_s = []
+    # Each job's seconds, time to its first step (set-up and the step, the
+    # queue drained) and peak reserved bytes; what its first step read.
+    jobs = []
     real_job = sweep.run_job
 
     def timed_job(*a, **k):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        jobs.append({"t0": time.perf_counter()})
         real_job(*a, **k)
         torch.cuda.synchronize()
-        job_s.append(time.perf_counter() - t0)
+        jobs[-1].update(s=time.perf_counter() - jobs[-1]["t0"],
+                        reserved=torch.cuda.max_memory_reserved())
 
-    sweep.run_job = timed_job
-    try:
-        tr = instrumented_train(
-            ["-m", "sd21base", "--instances", *BENCH_INSTANCES, "--total-steps", str(BENCH_STEPS),
-             "--sequential", "--data-dir", data, "--outdir", models],
-            run=lambda argv: run_textboost_db.main(run_textboost_db.parse_args(argv)))
-    finally:
-        sweep.run_job = real_job
+    def first_step(call, state, batch, metrics):
+        if state.step == 1:  # an instance's first step has run
+            torch.cuda.synchronize()
+            jobs[-1].update(first_step_s=time.perf_counter() - jobs[-1]["t0"], read={
+                "table": state.text_encoder.token_embedding.weight.data_ptr(),
+                "frozen": state.frozen_text_encoder, "unet": state.unet,
+                "exp_avg": [v["exp_avg"].data_ptr() for v in state.optimizer.state.values()]})
+
+    def sweep_run(instances, outdir):
+        sweep.run_job = timed_job
+        try:
+            return instrumented_train(
+                ["-m", "sd21base", "--instances", *instances, "--total-steps", str(BENCH_STEPS),
+                 "--sequential", "--data-dir", data, "--outdir", outdir],
+                run=lambda argv: run_textboost_db.main(run_textboost_db.parse_args(argv)),
+                on_step=first_step)
+        finally:
+            sweep.run_job = real_job
+
+    release_memos()
+    tr = sweep_run(BENCH_INSTANCES, models)
+    job_s = [j["s"] for j in jobs]
     steps = len(BENCH_INSTANCES) * BENCH_STEPS
     want_train = {"flash": steps * per_step[0], "flash_bwd": steps * per_step[1],
                   "gn": steps * per_step[2], "gn_bwd": steps * per_step[3]}
@@ -3328,6 +3383,61 @@ def benchmark_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     if tr["launches"] != want_train or len(tr["events"]) != steps:
         raise AssertionError(f"the sweep launched {tr['launches']} in {len(tr['events'])} steps, "
                              f"expected {want_train} in {steps}")
+    # The second instance took the first's bundle (the memo's pristine
+    # encoder as its frozen one, the shared UNet) and its memo entry (the
+    # same table and AdamW state): the sweep captured the step once, and the
+    # second instance replayed from its first step.
+    first, second = (j.pop("read") for j in jobs)
+    step_graphs = tr["graphs"]
+    replays = steps - train_graph.WARMUP_STEPS
+    memo_entries = list(train_graph._AOT_MEMO.values())
+    pristine = pretrained._PRESET_MEMO["bundle"].text_encoder
+    pristine_bytes = pretrained.memo_bytes()
+    took = (second["frozen"] is first["frozen"] is pristine and second["unet"] is first["unet"]
+            and second["table"] == first["table"] and second["exp_avg"] == first["exp_avg"])
+    ttfs = [j["first_step_s"] for j in jobs]
+    print(f"[bench memo] {BENCH_INSTANCES[1]} took {BENCH_INSTANCES[0]}'s bundle and memo "
+          f"entry: {took}; step graphs captured in the sweep {len(step_graphs)} (replays "
+          f"{[g['replays'] for g in step_graphs]}, expected 1 with {replays}: "
+          f"{train_graph.WARMUP_STEPS} warm-up steps, all of them {BENCH_INSTANCES[0]}'s); time "
+          f"to first step {[round(t, 3) for t in ttfs]} s; the pristine text encoder "
+          f"{pristine_bytes / 1e9:.3f} GB; peak reserved by job "
+          f"{[round(j['reserved'] / 2**30, 3) for j in jobs]} GiB; {smi}", flush=True)
+    if not (took and len(step_graphs) == 1 and step_graphs[0]["replays"] == replays
+            and len(memo_entries) == 1 and not memo_entries[0].busy):
+        raise AssertionError(f"the sweep's second instance did not replay the first's step "
+                             f"graph from the memo: took {took}, graphs {step_graphs}")
+    # The second instance alone, the memos cleared: the same exports to the
+    # bit, and one instance's peak.
+    del memo_entries, pristine, first, second, step_graphs
+    release_memos()
+    alone_dir = os.path.join(work, "alone")
+    sweep_jobs = list(jobs)
+    jobs.clear()
+    alone = sweep_run(BENCH_INSTANCES[1:], alone_dir)
+    alone_job = jobs[0]
+    alone_job.pop("read")
+    jobs[:] = sweep_jobs
+    name = BENCH_INSTANCES[1]
+    got, want = (os.path.join(d, name) for d in (models, alone_dir))
+    exported = ["text_encoder/adapter_model.safetensors"] + sorted(
+        f for f in os.listdir(want) if f.endswith(".bin"))
+    same_exports = all(open(os.path.join(got, f), "rb").read()
+                       == open(os.path.join(want, f), "rb").read() for f in exported)
+    want_alone = {k: v // len(BENCH_INSTANCES) for k, v in want_train.items()}
+    print(f"[bench memo] {name} alone, the memos cleared: time to first step "
+          f"{alone_job['first_step_s']:.3f} s against {ttfs[1]:.3f} through the memo; its "
+          f"{len(exported)} exported files {'bit-equal to' if same_exports else 'DIFFERENT from'} "
+          f"the sweep's; launches {alone['launches']} (expected {want_alone}); peak reserved "
+          f"{alone_job['reserved'] / 2**30:.3f} GiB alone against the sweep's "
+          f"{[round(j['reserved'] / 2**30, 3) for j in jobs]}; {smi}", flush=True)
+    if not same_exports or alone["launches"] != want_alone or len(alone["graphs"]) != 1:
+        raise AssertionError(f"{name} through the memo exports other bits than {name} alone")
+    release_memos()
+    memo = {"took": took, "time_to_first_step_s": ttfs,
+            "alone_time_to_first_step_s": alone_job["first_step_s"],
+            "pristine_bytes": pristine_bytes, "reserved_bytes_by_job": [j["reserved"] for j in jobs],
+            "alone_reserved_bytes": alone_job["reserved"], "same_exports": same_exports}
     for name in BENCH_INSTANCES:
         run_dir = os.path.join(models, name)
         files = os.listdir(run_dir)
@@ -3358,6 +3468,23 @@ def benchmark_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     loads, sampled, scorers = [], [], {}
     real_load, real_call = loading.load_textboost_pipeline, TextToImagePipeline.__call__
     real_build = eval_cli.build_scorers
+    # The eval's plan: both instances add as many rows (one run, which the
+    # reused pipeline's graphs serve), each chunk signature called once per
+    # (instance, seed).  Those calls are too few to pay a capture back; the
+    # eval's rule (eval_cli.sampler_signatures) is run with its threshold
+    # lowered to them, so that it names both signatures, the first instance
+    # captures their graphs and the second replays them, while the fresh
+    # load below, with half the calls, samples eagerly.
+    order = {k: v for k, v in dreambooth_bench.INSTANCES.items() if k in BENCH_INSTANCES}
+    plan = eval_cli.planned_runs(eval_cli.parse_args(argv), order, spec.resolution // 8)
+    per_sig = len(BENCH_INSTANCES) * len(BENCH_SEEDS)
+    sig_keys = [graph_mod.sampler_key(b, spec.resolution, spec.resolution, 25,
+                                      eval_cli.GUIDANCE, eval_cli.SAMPLER)
+                for b in (BENCH_BATCH, prompts_n - (chunks - 1) * BENCH_BATCH)]
+    if plan != [(list(order), {key: per_sig for key in sig_keys})]:
+        raise AssertionError(f"the eval plans {plan}, not one run of {list(order)} with "
+                             f"{per_sig} calls of each of {sig_keys}")
+    threshold = graph_mod.VALIDATION_CAPTURE_ROUNDS
 
     def timed_load(*a, **k):
         torch.cuda.synchronize()
@@ -3383,11 +3510,13 @@ def benchmark_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
 
     def eval_run(args_list):
         loading.load_textboost_pipeline, TextToImagePipeline.__call__ = timed_load, timed_call
+        graph_mod.VALIDATION_CAPTURE_ROUNDS = per_sig
         try:
             with kernel_calls("the eval") as rec:
                 out = eval_cli.generate(eval_cli.parse_args(args_list))
         finally:
             loading.load_textboost_pipeline, TextToImagePipeline.__call__ = real_load, real_call
+            graph_mod.VALIDATION_CAPTURE_ROUNDS = threshold
         return out, rec
 
     t0 = time.perf_counter()
@@ -3397,8 +3526,26 @@ def benchmark_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     first, second = loads[0][2], loads[1][2]
     shared = second is first and all(a.data_ptr() == b.data_ptr() for a, b in zip(
         first.unet.parameters(), second.unet.parameters()))
+    sampler_graphs = first.graphs.stats()
+    first.release_graphs()
     del first, second
     loads.clear()
+    # Each signature: the first instance's seed 0 eager (the warm-up), its
+    # seed 1 captured and replayed, the second instance's replayed.
+    full_calls = [s for b, s in sampled if b == BENCH_BATCH]
+    replays = per_sig - 1  # the capture replays once too
+    print(f"[bench eval graph] the eval's rule at a threshold of {per_sig} calls named "
+          f"{sig_keys}; on the reused pipeline: "
+          f"{[(g['replays'], round(g['capture_ms'], 1), round(g['pool_bytes'] / 2**30, 3)) for g in sampler_graphs.values()]} "
+          f"(replays, capture ms, pool GiB), expected {replays} replays each; the batch-16 "
+          f"calls eager / capturing / replayed {[round(x, 3) for x in full_calls]} s; graphs "
+          f"the eval's kernel counts saw {[g['replays'] for g in ev['graphs']]}; {smi}",
+          flush=True)
+    if (sorted(sampler_graphs) != sorted(sig_keys) or len(ev["graphs"]) != len(sig_keys)
+            or any(g["replays"] != replays for g in sampler_graphs.values())):
+        raise AssertionError(f"the reused pipeline's sampler graphs ran {sampler_graphs}, not "
+                             f"one capture and {replays} replays of each of {sig_keys} across "
+                             f"the instances")
     want_eval = {"flash": calls * per_call[0], "flash_bwd": 0, "gn": calls * per_call[1],
                  "gn_bwd": 0}
     full = [s for b, s in sampled if b == BENCH_BATCH]
@@ -3485,12 +3632,18 @@ def benchmark_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # f. the second instance from a fresh load: the same bits ------------------
-    second_name = BENCH_INSTANCES[1]
+    # f. the second instance from a fresh load (the memos cleared; its 2 calls
+    # a signature below the rule's threshold: eager): the same bits as its
+    # images from the reused pipeline's graphs --------------------------------
+    second_name = list(order)[1]  # the eval's order: the instance bound with reuse=
+    release_memos()
     fresh_dir, fresh = eval_run(argv + ["--instances", second_name,
                                         "--outdir", os.path.join(work, "fresh")])
     fresh_ms = loads[0][0]
     loads.clear()
+    release_memos()
+    if fresh["graphs"]:
+        raise AssertionError("the fresh load's sampling was captured: its calls are too few")
 
     def pixels(root, seed, f):
         return np.asarray(Image.open(os.path.join(root, f"seed{seed}", second_name, f)))
@@ -3499,9 +3652,10 @@ def benchmark_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
                for seed in BENCH_SEEDS
                for f in os.listdir(os.path.join(outdir, f"seed{seed}", second_name)))
     want_fresh = {k: v // len(BENCH_INSTANCES) for k, v in want_eval.items()}
-    print(f"[bench reuse] {second_name} again from a fresh load ({fresh_ms:.1f} ms): "
+    print(f"[bench reuse] {second_name} again from a fresh load ({fresh_ms:.1f} ms), eager: "
           f"{2 * prompts_n} images {'bit-identical to' if same else 'DIFFERENT from'} those "
-          f"sampled with reuse= ({reuse_loads[1][0]:.1f} ms); launches {fresh['launches']}; "
+          f"sampled with reuse= ({reuse_loads[1][0]:.1f} ms), its chunks replayed from the "
+          f"graphs the first instance captured; launches {fresh['launches']}; "
           f"{smi}", flush=True)
     if not same or fresh["launches"] != want_fresh:
         raise AssertionError("the reused pipeline's images differ from a fresh load's")
@@ -3616,6 +3770,8 @@ def benchmark_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
         "train_launches": tr["launches"], "eval_launches": ev["launches"],
         "fresh_eval_launches": fresh["launches"], "runner_s_per_instance": job_s,
         "generate_s": gen_s, "images_per_s_batch16": BENCH_BATCH / float(np.mean(full)),
+        "memo": memo, "eval_batch16_calls_s": full_calls, "eval_sampler_graph": {
+            str(k): v for k, v in sampler_graphs.items()},
         "pipeline_load_ms_fresh": [reuse_loads[0][0], fresh_ms],
         "pipeline_load_ms_reuse": reuse_loads[1][0], "scorer_write_s": write_s,
         "scorer_bytes": written, "scorer_load_s": scorers["load_s"], "metrics_s": metrics_s,
@@ -5361,7 +5517,7 @@ def main() -> int:
     export_token_embeddings(torch.randn(1, 768, generator=gen, device=dev) * 0.02,
                             {"<v*>": 0}, work.name)
     del bundle, te, unet, vae
-    torch.cuda.empty_cache()
+    release_memos()  # the cold call below loads its model, as a fresh process does
 
     args = parse_args([work.name, "--model", "sd15", "--prompt", "photo of a <v*> dog",
                        "--seeds", *map(str, seeds), "--steps", str(steps),
@@ -5493,8 +5649,7 @@ def main() -> int:
     write_instance_image(os.path.join(instance_dir, "dog.png"), seed=0)
     parity, gn_train_shapes = train_step_parity(gen, instance_dir,
                                                 os.path.join(train_work.name, "parity"))
-    gc.collect()
-    torch.cuda.empty_cache()
+    release_memos()
 
     # 9. group norm backward vs its plain version, training shapes at batch 8 --
     if {(k[0][1:],) + k[1:] for k in calls["unet_backward"]} != gn_train_shapes:
@@ -5605,8 +5760,7 @@ def main() -> int:
     train_work.cleanup()
 
     # 11. main path: the paper's run at sd21base, then its resume --------------
-    gc.collect()
-    torch.cuda.empty_cache()
+    release_memos()
     paper_work = tempfile.TemporaryDirectory()
     paper = paper_run_phase(gen, card, paper_work.name, gn_rows, gn_bwd_rows)
     paper_work.cleanup()
@@ -5616,8 +5770,7 @@ def main() -> int:
 
     # 11b. main path: --attention_impl flash at sd15, bf16 and fp32, with K2
     # at its new forms --------------------------------------------------------
-    gc.collect()
-    torch.cuda.empty_cache()
+    release_memos()
     flash_work = tempfile.TemporaryDirectory()
     sd15_held = {"flash": held["flash"] | {(8, 4096, 8, 40, 4096), (8, 1024, 8, 80, 1024),
                                            (4, 4096, 1, 512, 4096), (8, 4096, 8, 40, 77)},
@@ -5627,8 +5780,7 @@ def main() -> int:
 
     # 12. main path: training from a diffusers snapshot with the DB runner's
     # remaining flags, then serving its output over the snapshot ------------
-    gc.collect()
-    torch.cuda.empty_cache()
+    release_memos()
     snapshot_work = tempfile.TemporaryDirectory()
     snap = snapshot_run_phase(gen, card, snapshot_work.name, smi, held)
     # The seeded snapshot serves the native phase last; the rest goes now.
@@ -5639,16 +5791,14 @@ def main() -> int:
 
     # 13. main path: the DreamBooth benchmark: the sweep runner's training,
     # the eval's generation and its four scorers --------------------------
-    gc.collect()
-    torch.cuda.empty_cache()
+    release_memos()
     bench_work = tempfile.TemporaryDirectory()
     bench = benchmark_phase(gen, card, bench_work.name, smi, held)
     bench_work.cleanup()
 
     # 14. main path: sd21 at 768 px, the plans executed on the card, PNDM
     # validation, then sampling with every sampler ------------------------
-    gc.collect()
-    torch.cuda.empty_cache()
+    release_memos()
     sd21_work = tempfile.TemporaryDirectory()
     sd21 = sd21_phase(gen, card, sd21_work.name, smi, held)
     sd21_work.cleanup()
@@ -5656,8 +5806,7 @@ def main() -> int:
     # 15. main path: data parallel over torch.distributed at sd21base: one
     # process, NCCL at world 1, two ranks on the card over gloo and their
     # resume, each launched as a user would ---------------------------------
-    gc.collect()
-    torch.cuda.empty_cache()
+    release_memos()
     dp_work = tempfile.TemporaryDirectory()
     dp = dp_phase(gen, card, dp_work.name, smi, held)
     dp_work.cleanup()
@@ -5665,16 +5814,14 @@ def main() -> int:
     # 16. main path: tensor parallel over torch.distributed at sd21base: one
     # process and two tp ranks on the card over gloo and their resume, each
     # launched as a user would ---------------------------------------------
-    gc.collect()
-    torch.cuda.empty_cache()
+    release_memos()
     tp_work = tempfile.TemporaryDirectory()
     tp = tp_phase(gen, card, tp_work.name, smi, held)
     tp_work.cleanup()
 
     # 17. main path: the JAX package's native snapshot written, read and
     # served, and inference and the eval over two ranks on the card ---------
-    gc.collect()
-    torch.cuda.empty_cache()
+    release_memos()
     native_work = tempfile.TemporaryDirectory()
     nd = native_dp_phase(gen, card, native_work.name, smi, held,
                          os.path.join(snapshot_work.name, "sd21base_snapshot"))

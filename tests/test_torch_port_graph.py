@@ -190,7 +190,7 @@ def test_validation_capture_follows_the_step_envelope(case, monkeypatch):
     envelope (a tp-sharded UNet reduces over the host in its forward) and
     only over enough rounds to pay the capture back; the reason names the
     cause."""
-    monkeypatch.setattr(graph, "VALIDATION_CAPTURE_ROUNDS", 6)
+    monkeypatch.setattr(graphs, "VALIDATION_CAPTURE_ROUNDS", 6)
     kw, device, world, distributed, rounds, captured = VALIDATION_CASES[case]
     cfg = TrainConfig(**_config_kwargs(**kw))
     step_reason = graph.eager_reason(cfg, torch.device(device), world, distributed)
@@ -215,7 +215,7 @@ def test_trainer_gives_its_validation_pipe_a_graph_only_where_allowed(case, monk
             self.graphs = None
 
     monkeypatch.setattr(trainer_mod, "TextToImagePipeline", Pipe)
-    monkeypatch.setattr(graph, "VALIDATION_CAPTURE_ROUNDS", 6)
+    monkeypatch.setattr(graphs, "VALIDATION_CAPTURE_ROUNDS", 6)
     steps = {"inside_too_few_rounds": 10}.get(case, 30)
     cfg = TrainConfig(**_config_kwargs(validation_prompts=["a", "b"], validation_steps=5,
                                        max_train_steps=steps,

@@ -29,6 +29,17 @@ is that run's.  When B does not divide, rank 0 samples every chunk (the JAX
 CLI then runs on one device) and the other ranks wait for it.  Every rank
 keeps the resident base across instances (`reuse=`).
 
+In one process on a card, a chunk signature is sampled as a CUDA graph,
+captured at its second call and replayed, where it pays the capture back
+(`sampler_signatures`): the reused pipeline keeps its graphs across a run
+of consecutive instances that add as many token rows (pipelines/
+loading.py, `reuse=`), so the calls are counted for each such run before
+the first call (`planned_runs`: its instances x seeds x chunks), and a
+signature called graphs.VALIDATION_CAPTURE_ROUNDS times or more in a run
+is captured for it.  The JAX CLI compiles its sampler once for the whole
+run.  Ranks under torch.distributed sample eagerly, as the trainer's
+validation rounds do there.
+
 Deviations from the JAX CLI:
   * the tail chunk (25 = 16 + 9) runs at its own size; the JAX CLI padded it
     to a full batch to reuse one compiled program;
@@ -42,9 +53,10 @@ Deviations from the JAX CLI:
 from __future__ import annotations
 
 import argparse
+import collections
 import csv
 import os
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -116,6 +128,54 @@ def seed_latent(seed: int, size: int, device) -> torch.Tensor:
                        device=device)
 
 
+GUIDANCE = 7.5
+SAMPLER = "dpm++2m"  # DPM-Solver++(2M), the pipeline's default
+
+
+def planned_runs(args, instances: Dict[str, str], size: int
+                 ) -> List[Tuple[List[str], collections.Counter]]:
+    """The runs of consecutive instance dirs that add as many token rows,
+    each with the sampling calls `generate` makes for it in one process, by
+    signature (graphs.sampler_key): each instance, each seed, each chunk of
+    its prompts."""
+    from .. import graphs
+    from ..pipelines.loading import added_rows
+    from .dreambooth_bench import prompts_for
+
+    runs, rows = [], None
+    for instance in instances:
+        model_path = os.path.join(args.path.rstrip("/"), instance)
+        if not os.path.isdir(model_path):
+            continue
+        n_rows = added_rows(model_path, args.checkpoint)
+        if not runs or n_rows != rows:
+            runs.append(([], collections.Counter()))
+        rows = n_rows
+        names, calls = runs[-1]
+        names.append(instance)
+        n = len(prompts_for(instance))
+        for i in range(0, n, args.batch_size):
+            key = graphs.sampler_key(min(args.batch_size, n - i), size * 8, size * 8,
+                                     args.steps, GUIDANCE, SAMPLER)
+            calls[key] += len(args.seeds)
+    return runs
+
+
+def sampler_signatures(calls: Dict[Tuple, int], device, distributed: bool = False
+                       ) -> List[Tuple]:
+    """The signatures of one run sampled as CUDA graphs: those it calls
+    often enough to pay a capture back (graphs.VALIDATION_CAPTURE_ROUNDS),
+    on a card, outside a torch.distributed launch, with capture on; at most
+    graphs.MAX_SIGNATURES, the most called first."""
+    from .. import graphs
+
+    if torch.device(device).type != "cuda" or distributed or not graphs.capture_enabled():
+        return []
+    often = sorted((key for key, n in calls.items() if n >= graphs.VALIDATION_CAPTURE_ROUNDS),
+                   key=lambda key: -calls[key])
+    return often[:graphs.MAX_SIGNATURES]
+
+
 def output_dir(args) -> str:
     basename = os.path.basename(args.path.rstrip("/"))
     if args.checkpoint is not None:
@@ -130,6 +190,7 @@ def generate(args) -> str:
     returns the image dir."""
     from PIL import Image
 
+    from .. import graphs
     from ..device import resolve_device
     from ..parallel import mesh
     from ..pipelines.loading import load_textboost_pipeline
@@ -151,6 +212,11 @@ def generate(args) -> str:
               "ranks: rank 0 generates every batch", flush=True)
     if sub is None and rank > 0:
         return outdir  # rank 0 generates alone; `main` waits for it
+    # Each run's first instance: the signatures its pipeline captures.
+    starts = {}
+    for run, calls in planned_runs(args, instances, size):
+        starts[run[0]] = sampler_signatures(calls, device,
+                                            distributed=torch.distributed.is_initialized())
     pipeline = None
     for instance, cls in instances.items():
         model_path = os.path.join(path, instance)
@@ -162,6 +228,9 @@ def generate(args) -> str:
             model_path, model, checkpoint=args.checkpoint, lora_rank=args.lora_rank,
             null_embedding_path=args.null_emb_path, device=device, reuse=pipeline,
         )
+        if instance in starts:  # loading released the last run's graphs
+            pipeline.release_graphs()
+            pipeline.graphs = graphs.CapturedSampler(starts[instance]) if starts[instance] else None
         files = os.listdir(model_path if args.checkpoint is None
                            else os.path.join(model_path, f"checkpoint-{args.checkpoint}"))
         num_vectors = detect_num_vectors(files, instance)
@@ -196,8 +265,8 @@ def _sample_chunk(pipeline, prompts, latent, size: int, steps: int, sub: Optiona
     from ..parallel import mesh
 
     def sample(batch):
-        return pipeline(batch, num_inference_steps=steps, guidance_scale=7.5, latents=latent,
-                        height=size * 8, width=size * 8)
+        return pipeline(batch, num_inference_steps=steps, guidance_scale=GUIDANCE,
+                        sampler=SAMPLER, latents=latent, height=size * 8, width=size * 8)
 
     if sub is None:
         return sample(prompts)

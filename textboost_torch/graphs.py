@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import math
 import time
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
@@ -34,6 +35,22 @@ from .ops import flash_attention as fa
 from .ops import group_norm as gn
 
 MAX_SIGNATURES = 6  # textboost_tpu/train/aot.py::_AOT_MEMO_MAX
+
+# A sampling graph pays its capture back only over enough calls of its
+# signature: the call that captures costs CAPTURE_EXTRA of an eager call
+# more than one (the capture, then its replay), and each later replay saves
+# REPLAY_SAVING of one.  Measured at the paper's validation round (sd21base,
+# 16 images of 512 px, 25 DPM-Solver++ steps, CFG 7.5: 2.576 s eager, 5.135 s
+# capturing, 2.492 s replayed) by textboost_torch/tools/graph_costs.py on an
+# NVIDIA H100 80GB HBM3 at 700 W; sd15's and sd21's rounds pay back later
+# still (PERF.md section 5).  The trainer's validation rounds
+# (train/graph.py::validation_eager_reason) and the eval's chunks
+# (eval/__main__.py::sampler_signatures) name a signature to a
+# `CapturedSampler` only from this many calls.
+CAPTURE_EXTRA = 0.9930
+REPLAY_SAVING = 0.0328
+# The first call runs eagerly (the capture's warm-up), the second captures.
+VALIDATION_CAPTURE_ROUNDS = 2 + math.ceil(CAPTURE_EXTRA / REPLAY_SAVING)  # 33
 
 _capture = True
 
@@ -168,15 +185,22 @@ def static_copy(static: Dict[str, torch.Tensor], values: Dict[str, torch.Tensor]
         static[key].copy_(value)
 
 
+def sampler_key(batch: int, height: int, width: int, steps: int, guidance_scale: float,
+                sampler: str) -> Tuple:
+    """A sampling call's signature: the key of its graph in a
+    `CapturedSampler`.  TextToImagePipeline.__call__ looks its graphs up by
+    it, and a caller names the signatures it wants captured with it."""
+    return (batch, height, width, steps, guidance_scale > 1.0, sampler, guidance_scale)
+
+
 class CapturedSampler:
     """Sampling trajectories as CUDA graphs, one for each signature its
     caller names: the counterpart of the JAX package's compiled sampler.  A
     named signature's first call runs eagerly (the capture's warm-up), its
     second captures and replays, later ones replay; any other signature
     runs eagerly.  A capture pays back only over calls that repeat, so a
-    caller names a signature only when it knows it repeats often enough
-    (the trainer's validation rounds, train/graph.py::
-    validation_eager_reason).  At most MAX_SIGNATURES, as the JAX package's
+    caller names a signature (`sampler_key`) only when it knows it repeats
+    VALIDATION_CAPTURE_ROUNDS times or more.  At most MAX_SIGNATURES, as the JAX package's
     `_AOT_MEMO_MAX`.  The graphs share one memory pool: a replay's images
     are read before the next replay, so no graph reads what another
     overwrote.

@@ -159,6 +159,18 @@ class CLIPTextModel(nn.Module):
         emb.weight.requires_grad_(old.requires_grad)
         self.text_model.embeddings.token_embedding = emb
 
+    @torch.no_grad()
+    def fill_token_embedding(self, weight: torch.Tensor) -> bool:
+        """Copy `weight` into the token-embedding table in place, in the
+        table's dtype, when the shapes match: the table keeps its address, so
+        a CUDA graph captured over it stays valid.  Returns False, changing
+        nothing, when they do not (`set_token_embedding` then)."""
+        table = self.token_embedding.weight
+        if tuple(weight.shape) != tuple(table.shape):
+            return False
+        table.copy_(weight)
+        return True
+
     def _embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
         emb = self.token_embedding
         if self.tp is None:

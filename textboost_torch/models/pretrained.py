@@ -20,10 +20,27 @@ norms.  The random numbers come from one `torch.Generator` per component
 cross-attention LoRA, when asked for, draws from its own (seed+7, the JAX
 trainer's key for it), after the base weights, so that the frozen UNet is
 the same with and without it.
+
+A preset's bundle is kept in a one-entry memo (`_PRESET_MEMO`, the JAX
+package's, textboost_tpu/models/pretrained.py): a `--sequential` sweep and
+the eval load the same seeded base once.  The UNet and the VAE are shared
+by every taker of the entry; the text encoder, which a trainer grows and
+trains and a pipeline binds an instance into, is not: the memo keeps a
+pristine copy (`ModelBundle.frozen_text_encoder`, the trainer's frozen
+reference, which no taker changes) and each taker gets a fresh copy of it.
+A taker that changes a tensor of the shared parts in place (training the
+UNet's LoRA, loading weights into them) spends the entry: each tensor's
+address, shape and version counter are checked at every take, and the next
+load builds anew.  Snapshot dirs are never kept (their contents can change
+between calls, the JAX rule), nor is a load with `memo=False` (a
+tensor-parallel run splits the frozen modules in place).  Tests clear the
+memo with `monkeypatch.setattr(pretrained, "_PRESET_MEMO", {})`.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -45,7 +62,7 @@ from .convert import (
     state_dict_from_jax,
     unflatten_tree,
 )
-from .layers import GroupNorm, LoRALinear
+from .layers import GroupNorm, LoRALinear, set_impl
 from .unet import UNet2DCondition
 from .vae import AutoencoderKL
 
@@ -64,6 +81,48 @@ class ModelBundle:
     text_encoder: CLIPTextModel
     unet: UNet2DCondition
     vae: AutoencoderKL
+    # The memo's pristine text encoder, equal to `text_encoder` as loaded
+    # and shared by every taker of the entry: read it, never change it.
+    # None for a load the memo does not keep.
+    frozen_text_encoder: Optional[CLIPTextModel] = None
+
+
+# One entry: {"key", "bundle" (its text_encoder the pristine copy), "guard"}.
+_PRESET_MEMO: dict = {}
+
+
+def _fingerprint(*modules: nn.Module) -> Tuple:
+    """Address, shape, dtype and version counter of every tensor of
+    `modules`: any in-place change, a `.data` swap or a split alters it."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype, t._version) for m in modules
+                 for t in itertools.chain(m.parameters(), m.buffers()))
+
+
+def _take_memo(key) -> Optional[ModelBundle]:
+    """The memo's bundle for `key` with a fresh copy of its pristine text
+    encoder and the shared modules' switches as a load sets them; None (the
+    entry dropped if it was spent) when there is none."""
+    if _PRESET_MEMO.get("key") != key:
+        return None
+    kept = _PRESET_MEMO["bundle"]
+    if _fingerprint(kept.text_encoder, kept.unet, kept.vae) != _PRESET_MEMO["guard"]:
+        _PRESET_MEMO.clear()  # a taker changed a shared tensor
+        return None
+    for mod in (kept.unet, kept.vae):
+        set_impl(mod, "auto")
+        mod.eval()
+    kept.unet.gradient_checkpointing = False
+    te = copy.deepcopy(kept.text_encoder).requires_grad_(True)  # as a load makes it
+    return ModelBundle(kept.spec, te, kept.unet, kept.vae, frozen_text_encoder=kept.text_encoder)
+
+
+def memo_bytes() -> int:
+    """Bytes of the memo's pristine text encoder (0 without an entry)."""
+    if not _PRESET_MEMO:
+        return 0
+    te = _PRESET_MEMO["bundle"].text_encoder
+    return sum(t.numel() * t.element_size() for t in itertools.chain(te.parameters(),
+                                                                     te.buffers()))
 
 
 def build_models(spec: ModelSpec, *, lora_rank: int = 0, unet_lora_rank: int = 0,
@@ -183,16 +242,26 @@ def load_models(
     vae_dtype: Optional[torch.dtype] = None,
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,
+    memo: bool = True,
 ) -> ModelBundle:
     """Snapshot dir (native or diffusers) or preset name -> ModelBundle of frozen-ready
     modules in eval mode, on `device`, cast to `dtype` (the VAE to
     `vae_dtype` when given; GroupNorm affines and LoRA adapters stay fp32).
     `preset` names the family of a diffusers snapshot in place of the
     inferred one; a native snapshot's spec.json names its own (as in the JAX
-    package, `preset` is then not read)."""
+    package, `preset` is then not read).  A preset's bundle comes from the
+    memo when `memo` (module docstring)."""
     dev = resolve_device(device)
+    memo_key = (model_name_or_path, preset, lora_rank, unet_lora_rank, str(dtype),
+                str(vae_dtype), seed, str(dev))
+    disk = bool(model_name_or_path and os.path.isdir(model_name_or_path))
+    if memo and not disk:
+        kept = _take_memo(memo_key)
+        if kept is not None:
+            return kept
+        _PRESET_MEMO.clear()  # the old entry's memory goes before the new one is built
     snapshot = None
-    if model_name_or_path and os.path.isdir(model_name_or_path):
+    if disk:
         if os.path.isfile(os.path.join(model_name_or_path, NATIVE_SPEC)):
             spec_name, snapshot = read_native_snapshot(model_name_or_path)
             spec = get_spec(spec_name)
@@ -222,4 +291,11 @@ def load_models(
         if name == "unet":
             init_lora_(mod, torch.Generator(device=dev).manual_seed(seed + UNET_LORA_SEED_OFFSET))
         out.append(mod.eval())
-    return ModelBundle(spec, *out)
+    bundle = ModelBundle(spec, *out)
+    if memo and not disk:
+        pristine = copy.deepcopy(bundle.text_encoder)
+        kept = ModelBundle(spec, pristine, bundle.unet, bundle.vae)
+        _PRESET_MEMO.update(key=memo_key, bundle=kept,
+                            guard=_fingerprint(pristine, bundle.unet, bundle.vae))
+        bundle.frozen_text_encoder = pristine
+    return bundle

@@ -152,7 +152,8 @@ class TextToImagePipeline:
             noises = predrawn_noises(sample, x.shape, num_inference_steps, dev)
             if noises is not None:
                 inputs["noises"] = noises
-            key = (batch, height, width, num_inference_steps, do_cfg, sampler, guidance_scale)
+            key = graphs.sampler_key(batch, height, width, num_inference_steps,
+                                     guidance_scale, sampler)
             images = self.graphs(key, self._graph_guard(), lambda s: self.trajectory(
                 s["ids"], s["neg_ids"], s["x"], s.get("guidance"), steps=num_inference_steps,
                 sample=sample, noises=s.get("noises")), inputs)

@@ -8,7 +8,7 @@ STEPS steps with a validation round every CADENCE (ROUNDS rounds), each run
 a process of its own: with capture off (every step and round eager), with
 capture on (the step captured after its warm-up steps; the validation
 rounds' graph forced on, captured at the second round and replayed at the
-later ones, whatever train/graph.py::VALIDATION_CAPTURE_ROUNDS says), and,
+later ones, whatever graphs.py::VALIDATION_CAPTURE_ROUNDS says), and,
 for each tree of `--trees` (an older checkout of this repository, for
 instance the parent commit unpacked with `git archive`), that tree's own
 trainer as it stands.  Each process reports torch.cuda.max_memory_reserved
@@ -53,8 +53,8 @@ if mode == "eager":
     from textboost_torch.graphs import set_capture
     set_capture(False)
 elif mode == "captured":
-    from textboost_torch.train import graph
-    graph.VALIDATION_CAPTURE_ROUNDS = 2
+    from textboost_torch import graphs
+    graphs.VALIDATION_CAPTURE_ROUNDS = 2
 rounds = []
 real = trainer_mod.Trainer.run_validation
 

@@ -23,7 +23,30 @@ where an eager step dispatches thousands of kernels from Python.
   (graphs.py::CapturedSampler over `validation_signature`): inside the
   step's envelope (a tensor-parallel UNet reduces over the host in its
   forward, which no graph holds), and only for a run with enough rounds to
-  pay the capture back (VALIDATION_CAPTURE_ROUNDS).
+  pay the capture back (graphs.VALIDATION_CAPTURE_ROUNDS).
+
+* `_AOT_MEMO` is the counterpart of aot.py's memo of the same name
+  (:80-124), keyed by `_memo_key` (the config without
+  `_PER_INSTANCE_FIELDS`, the spec, the device, the dtype, the vocabulary
+  size, the first added id and the step's eager reason).  An entry
+  (`MemoEntry`) holds what the step reads: the trainable and the frozen
+  text encoder, the UNet, the VAE, the optimizer and its state, the null
+  embedding, the target norm, the original rows and the step itself (a
+  `CapturedStep` with its graph and static buffers).  The next instance of
+  a `--sequential` sweep with the same key binds itself into those tensors
+  in place (trainer.py) and replays from its first step, with no warm-up
+  and no capture.  It keeps one entry (`_AOT_MEMO_MAX`), where aot.py
+  keeps 6: an entry there is a compiled program, here it pins its graph's
+  pool and the step's state on the card (about 10.7 GiB at sd21base, 512
+  px, PERF.md), so a new key releases the old entry before its instance
+  warms up and captures, and a sweep holds no more than the parent's one
+  instance at a time.  The memo serves the envelope of the JAX package's
+  compiled step on every device (on the CPU the entry holds the eager
+  step, so that the binding is tested there); an entry is taken by one
+  trainer at a time and handed back when its run ends.  The validation
+  rounds' sampling graph is not kept: the trainer releases it at the run's
+  end.  Tests clear the memo with
+  `monkeypatch.setattr(graph, "_AOT_MEMO", {})`.
 
 Inside the envelope a failed capture or replay raises: nothing falls back
 to eager.  Graphs need CUDA; on the CPU the trainer runs as it did, the
@@ -33,28 +56,16 @@ not a CLI flag, as the JAX package has none for its compiled step.
 """
 from __future__ import annotations
 
-import math
-from typing import Dict, Optional, Tuple
+import dataclasses
+import itertools
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .. import graphs
 from ..graphs import Graph, capture_enabled, static_copy
 
 WARMUP_STEPS = 3
-
-# The validation rounds' sampling graph pays its capture back only over
-# enough rounds: a round that captures costs CAPTURE_EXTRA of an eager
-# round more than one (the capture, then its replay), and each later
-# replay saves REPLAY_SAVING of one.  Measured at the paper's validation
-# (sd21base, 16 images of 512 px, 25 DPM-Solver++ steps, CFG 7.5: 2.576 s
-# eager, 5.135 s capturing, 2.492 s replayed) by textboost_torch/tools/
-# graph_costs.py on an NVIDIA H100 80GB HBM3 at 700 W; sd15's and sd21's
-# rounds pay back later still (PERF.md section 5).
-CAPTURE_EXTRA = 0.9930
-REPLAY_SAVING = 0.0328
-# The first round runs eagerly (the capture's warm-up), the second captures.
-VALIDATION_CAPTURE_ROUNDS = 2 + math.ceil(CAPTURE_EXTRA / REPLAY_SAVING)  # 33
-
 
 def eager_reason(cfg, device, world: int = 1, distributed: bool = False) -> Optional[str]:
     """Why the train step of `cfg` runs eagerly on `device` in a launch of
@@ -64,6 +75,19 @@ def eager_reason(cfg, device, world: int = 1, distributed: bool = False) -> Opti
     device = torch.device(device)
     if device.type != "cuda":
         return f"the device is {device.type} (CUDA graphs need CUDA)"
+    reason = envelope_reason(cfg, world, distributed)
+    if reason is not None:
+        return reason
+    if not capture_enabled():
+        return "capture turned off (graphs.set_capture(False))"
+    return None
+
+
+def envelope_reason(cfg, world: int = 1, distributed: bool = False) -> Optional[str]:
+    """Why `cfg` in a launch of `world` processes is outside the envelope of
+    the JAX package's compiled step (aot.py:132-141, and no torch.distributed
+    launch), or None: where the step may be captured and where the memo
+    keeps its entries."""
     if cfg.unet_params_to_train != "none":
         return f"--unet_params_to_train {cfg.unet_params_to_train}"
     if cfg.with_image_prior:
@@ -76,8 +100,6 @@ def eager_reason(cfg, device, world: int = 1, distributed: bool = False) -> Opti
         return f"{world} processes"
     if distributed:
         return "a torch.distributed launch (its gradient all-reduce is not captured)"
-    if not capture_enabled():
-        return "capture turned off (graphs.set_capture(False))"
     return None
 
 
@@ -96,9 +118,9 @@ def validation_eager_reason(cfg, step_reason: Optional[str], rounds: int) -> Opt
     pays back over the rounds left."""
     if step_reason is not None:
         return step_reason
-    if rounds < VALIDATION_CAPTURE_ROUNDS:
+    if rounds < graphs.VALIDATION_CAPTURE_ROUNDS:
         return (f"{rounds} validation rounds, too few to pay a capture back (it pays from "
-                f"{VALIDATION_CAPTURE_ROUNDS})")
+                f"{graphs.VALIDATION_CAPTURE_ROUNDS})")
     return None
 
 
@@ -163,3 +185,112 @@ class CapturedStep:
         self.eager_steps, self.captured, self._static = 0, False, None
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
+
+
+# -- the cross-instance memo (textboost_tpu/train/aot.py::_AOT_MEMO) ----------
+# Config fields that cannot change what the step reads or how: host paths,
+# token strings (the step sees only the vocabulary size and the first added
+# id, which the key carries), trackers and resume state.  A copy of aot.py's
+# set; every other field splits the key.
+_PER_INSTANCE_FIELDS = frozenset({
+    "instance_data_dir", "class_data_dir", "output_dir", "logging_dir",
+    "placeholder_token", "instance_token", "initializer_token",
+    "class_token", "concepts_list", "resume_from_checkpoint",
+    "human_prompts_path", "report_to", "null_embedding_path",
+})
+_AOT_MEMO: dict = {}
+_AOT_MEMO_MAX = 1  # aot.py keeps 6; one entry here pins GiBs (module docstring)
+
+
+def _memo_key(kind, cfg, spec, device, dtype, *extra) -> Tuple:
+    """aot.py::_memo_key with the device in place of the mesh."""
+    cfg_d = dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) else vars(cfg)
+    cfg_items = tuple((k, repr(v)) for k, v in sorted(cfg_d.items())
+                      if k not in _PER_INSTANCE_FIELDS)
+    return (kind, cfg_items, repr(spec), str(torch.device(device)), str(dtype), extra)
+
+
+@dataclasses.dataclass
+class MemoEntry:
+    """What one instance's step reads, kept for the next instance with the
+    same key, which copies its own values into these tensors in place."""
+
+    text_encoder: Any  # trainable: its grown fp32 table and LoRA adapters
+    frozen_text_encoder: Any
+    unet: Any
+    vae: Any
+    optimizer: torch.optim.Optimizer
+    null_embedding: torch.Tensor
+    target_norm: torch.Tensor
+    original_rows: torch.Tensor
+    train_step: Any  # CapturedStep (its graph and static buffers) or the eager step
+    busy: bool = True  # taken by a trainer
+
+
+def memo_take(key: Tuple) -> Optional[MemoEntry]:
+    """The entry of `key`, now taken; None when there is none or another
+    trainer holds it."""
+    entry = _AOT_MEMO.get(key)
+    if entry is None or entry.busy:
+        return None
+    entry.busy = True
+    return entry
+
+
+def memo_put(key: Tuple, entry: MemoEntry) -> None:
+    """Keep `entry` (taken) under `key`; the oldest entries past
+    _AOT_MEMO_MAX are evicted, their graphs released at once (a taken one's
+    when it is handed back)."""
+    while len(_AOT_MEMO) >= _AOT_MEMO_MAX:
+        old = _AOT_MEMO.pop(next(iter(_AOT_MEMO)))
+        if not old.busy:
+            _release(old)
+    _AOT_MEMO[key] = entry
+
+
+def memo_give_back(key: Tuple, entry: MemoEntry) -> None:
+    """A run that took `entry` has ended: the next instance may take it."""
+    entry.busy = False
+    if _AOT_MEMO.get(key) is not entry:  # evicted meanwhile
+        _release(entry)
+
+
+def memo_drop(key: Tuple) -> None:
+    """Drop and release the entry of `key` (a run that failed with it)."""
+    entry = _AOT_MEMO.pop(key, None)
+    if entry is not None:
+        _release(entry)
+
+
+def release_memo() -> None:
+    """Drop and release every entry."""
+    while _AOT_MEMO:
+        _release(_AOT_MEMO.pop(next(iter(_AOT_MEMO))))
+
+
+def _release(entry: MemoEntry) -> None:
+    if isinstance(entry.train_step, CapturedStep):
+        entry.train_step.release()
+
+
+@torch.no_grad()
+def copy_module_(dst: torch.nn.Module, src: torch.nn.Module, skip=()) -> None:
+    """Copy `src`'s parameters and buffers into `dst`'s in place (names in
+    `skip` apart); nothing when they are one module."""
+    if dst is src:
+        return
+    theirs = dict(itertools.chain(src.named_parameters(), src.named_buffers()))
+    for name, t in itertools.chain(dst.named_parameters(), dst.named_buffers()):
+        if name not in skip:
+            t.copy_(theirs[name])
+
+
+@torch.no_grad()
+def reset_optimizer_(optimizer: torch.optim.Optimizer) -> None:
+    """The optimizer's state as a fresh one's first update finds it, in
+    place: AdamW's moments and step count zero (a fresh optimizer creates
+    them as zeros at its first step)."""
+    for state in optimizer.state.values():
+        for value in state.values():
+            if isinstance(value, torch.Tensor):
+                value.zero_()

@@ -189,7 +189,13 @@ class Trainer:
         self.config = config
         self.device = resolve_device(device)
         self._setup_logging()
-        self._setup()
+        self._memo_key = None
+        try:
+            self._setup()
+        except BaseException:
+            if self._memo_key is not None:  # an entry taken or filled, perhaps half bound
+                graph.memo_drop(self._memo_key)
+            raise
 
     # ------------------------------------------------------------------
     def _setup_logging(self):
@@ -267,22 +273,58 @@ class Trainer:
 
         # ---- models (train_textboost.py:630-654, UNet LoRA :712-721) ----
         self.train_unet = cfg.unet_params_to_train == "crossattn_kv"
-        self.bundle = load_models(
+        # A tensor-parallel run splits the frozen modules in place: it
+        # neither takes nor fills the preset memo.
+        bundle = load_models(
             cfg.pretrained_model_name_or_path, preset=cfg.model_preset,
             lora_rank=cfg.lora_rank, unet_lora_rank=cfg.lora_rank if self.train_unet else 0,
             dtype=dtype, vae_dtype=torch.float32 if cfg.vae_fp32 else None, device=dev,
-            seed=cfg.seed,
+            seed=cfg.seed, memo=self.tp is None,
         )
-        spec = self.bundle.spec
-        te, unet, vae = self.bundle.text_encoder, self.bundle.unet, self.bundle.vae
+        spec = bundle.spec
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        self.eager_reason = graph.eager_reason(cfg, dev, world, distributed=dist.is_initialized())
+        # The cross-instance memo (train/graph.py): inside the JAX package's
+        # envelope, keyed as its step memo; taken by this trainer alone.
+        self._memo_key = None
+        memo = None
+        if graph.envelope_reason(cfg, world, dist.is_initialized()) is None:
+            self._memo_key = graph._memo_key("step", cfg, spec, dev, dtype,
+                                             first_added_id + len(new_row_ids), first_added_id,
+                                             self.eager_reason)
+            memo = graph.memo_take(self._memo_key)
+            if memo is None and self._memo_key in graph._AOT_MEMO:
+                self._memo_key = None  # another trainer holds it: this run keeps out
+        self._memo = memo
+        te, unet, vae = bundle.text_encoder, bundle.unet, bundle.vae
+        frozen_te = bundle.frozen_text_encoder
+        if memo is not None:
+            # This instance's fresh weights into the entry's tensors (nothing
+            # to copy where they are the memo's own modules).
+            graph.copy_module_(memo.text_encoder, te,
+                               skip=("text_model.embeddings.token_embedding.weight",))
+            graph.copy_module_(memo.frozen_text_encoder, te if frozen_te is None else frozen_te)
+            graph.copy_module_(memo.unet, unet)
+            graph.copy_module_(memo.vae, vae)
+            table = te.token_embedding.weight  # the base rows the added ones copy
+            te, frozen_te, unet, vae = (memo.text_encoder, memo.frozen_text_encoder,
+                                        memo.unet, memo.vae)
+        else:
+            table = te.token_embedding.weight
+        self.bundle = dataclasses.replace(bundle, text_encoder=te, unet=unet, vae=vae,
+                                          frozen_text_encoder=frozen_te)
+        del bundle
         for mod in (te, unet, vae):
             mod.requires_grad_(False)
             set_attention_impl(mod, ATTENTION_IMPLS[cfg.attention_impl])
         unet.gradient_checkpointing = cfg.gradient_checkpointing
-        mark("models loaded")
+        mark("models loaded" if memo is None else "models bound into the memo's entry")
 
-        # Frozen reference encoder, captured BEFORE token surgery (:650).
-        self.frozen_te = copy.deepcopy(te)
+        # Frozen reference encoder, captured BEFORE token surgery (:650): the
+        # memo's pristine copy where the bundle came from it.
+        self.frozen_te = frozen_te if frozen_te is not None else copy.deepcopy(te)
+        self.frozen_te.requires_grad_(False)
+        set_attention_impl(self.frozen_te, ATTENTION_IMPLS[cfg.attention_impl])
         if self.tp is not None:
             # The frozen encoder and the UNet split over the tp group; the
             # trainable encoder and the VAE stay whole (:668-676).
@@ -297,14 +339,15 @@ class Trainer:
 
         # ---- embedding growth, norm stats, null embedding ----
         with torch.no_grad():
-            e = te.token_embedding.weight
             src = torch.as_tensor(init_row_ids, dtype=torch.long, device=dev)
-            grown = torch.cat([e.float(), e[src].float()], dim=0)
+            grown = torch.cat([table.float(), table[src].float()], dim=0)
             norms = torch.linalg.vector_norm(grown, dim=-1)
             max_norm = float(norms[: max(first_added_id - 2, 1)].max())
             self.mean_norm = float(norms.mean())
+        del table
         logger.info("Max norm: %s  Mean norm: %s", max_norm, self.mean_norm)
-        te.set_token_embedding(grown, dtype=torch.float32)  # trains in fp32, cast at use
+        if not (memo is not None and te.fill_token_embedding(grown)):
+            te.set_token_embedding(grown, dtype=torch.float32)  # trains in fp32, cast at use
         trainable = set_trainable(te, unet if self.train_unet else None)
         self.text_encoder = te
         if cfg.null_embedding_path:
@@ -318,6 +361,9 @@ class Trainer:
             with torch.no_grad():
                 hidden, _ = self.frozen_te(torch.from_numpy(null_ids).to(dev), use_lora=False)
             self.null_embedding = hidden[0].float()
+        if memo is not None:
+            memo.null_embedding.copy_(self.null_embedding)
+            self.null_embedding = memo.null_embedding
         mark("token surgery and null embedding done")
 
         # ---- schedule, optimizer (:829-854, :911-916) ----
@@ -333,9 +379,15 @@ class Trainer:
             # process count (train_textboost.py:823-826).
             scale = cfg.gradient_accumulation_steps * cfg.train_batch_size
             lr, emb_lr = lr * scale, emb_lr * scale
-        optimizer = make_optimizer(te, lr, emb_lr, unet=unet if self.train_unet else None,
-                                   beta1=cfg.adam_beta1, beta2=cfg.adam_beta2,
-                                   weight_decay=cfg.adam_weight_decay, eps=cfg.adam_epsilon)
+        if memo is not None:  # the entry's, as a fresh optimizer's first update finds it
+            optimizer = memo.optimizer
+            graph.reset_optimizer_(optimizer)
+        else:
+            optimizer = make_optimizer(te, lr, emb_lr, unet=unet if self.train_unet else None,
+                                       beta1=cfg.adam_beta1, beta2=cfg.adam_beta2,
+                                       weight_decay=cfg.adam_weight_decay, eps=cfg.adam_epsilon)
+        # A new schedule over the entry's optimizer starts again: each group's
+        # `initial_lr` is the config's rate, which the key holds.
         scheduler = lr_schedule(optimizer, cfg.lr_scheduler, cfg.lr_warmup_steps,
                                 cfg.max_train_steps)
         n_train = count_params(trainable)
@@ -442,21 +494,34 @@ class Trainer:
                         "micro-step, against %d bytes of the embedding's whole gradient",
                         self.mesh.dp, self.reducer.values(), 4 * self.reducer.values(),
                         emb_bytes)
-        step = make_train_step(self.step_config, reduce=self.reducer)
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        self.eager_reason = graph.eager_reason(cfg, dev, world, distributed=dist.is_initialized())
-        self.train_step = (step if self.eager_reason is not None
-                           else graph.CapturedStep(step, dev))
+        if memo is not None:
+            self.train_step = memo.train_step
+            memo.target_norm.fill_(self.mean_norm)
+            memo.original_rows.copy_(grown[:first_added_id])
+            target_norm, original_rows = memo.target_norm, memo.original_rows
+        else:
+            step = make_train_step(self.step_config, reduce=self.reducer)
+            self.train_step = (step if self.eager_reason is not None
+                               else graph.CapturedStep(step, dev))
+            target_norm = torch.tensor(self.mean_norm, dtype=torch.float32, device=dev)
+            original_rows = grown[:first_added_id].clone()
+        captured = isinstance(self.train_step, graph.CapturedStep) and self.train_step.captured
         logger.info("train step: %s", f"eager: {self.eager_reason}" if self.eager_reason else
+                    "the memo's CUDA graph, replayed from the first step" if captured else
                     f"a CUDA graph, captured after {graph.WARMUP_STEPS} eager steps")
         self.state = TrainState(
             text_encoder=te, frozen_text_encoder=self.frozen_te, unet=unet, vae=vae,
             optimizer=optimizer, lr_scheduler=scheduler, schedule=self.schedule,
-            null_embedding=self.null_embedding,
-            target_norm=torch.tensor(self.mean_norm, dtype=torch.float32, device=dev),
-            original_rows=grown[:first_added_id].clone(),
-            unet_lora=unet_lora,
+            null_embedding=self.null_embedding, target_norm=target_norm,
+            original_rows=original_rows, unet_lora=unet_lora,
         )
+        if memo is None and self._memo_key is not None:
+            self._memo = graph.MemoEntry(
+                text_encoder=te, frozen_text_encoder=self.frozen_te, unet=unet, vae=vae,
+                optimizer=optimizer, null_embedding=self.null_embedding,
+                target_norm=target_norm, original_rows=original_rows,
+                train_step=self.train_step)
+            graph.memo_put(self._memo_key, self._memo)
         self.generator = torch.Generator(dev).manual_seed(cfg.seed)
         self.latent_shape = (spec.vae.latent_channels, cfg.resolution // 8, cfg.resolution // 8)
         mark("step + state built")
@@ -484,12 +549,22 @@ class Trainer:
                     unet=unet if self.train_unet else None)
                 self.start_step = restored["step"]
                 self.state.step = restored["micro_step"]
+                if isinstance(self.train_step, graph.CapturedStep):
+                    # The optimizer's state tensors are the checkpoint's now:
+                    # the memo's graph read the old ones.
+                    self.train_step.release()
                 # Carry on the data stream instead of replaying batch 0 (the
                 # loaders count micro-batches).
                 accum = max(cfg.gradient_accumulation_steps, 1)
                 self.train_loader.set_start_step(self.start_step * accum)
                 self.prior_loader.set_start_step(self.start_step * accum)
                 logger.info("Resumed from %s at step %d", ckpt, self.start_step)
+        # This run's own counts of the step graph: an entry's carries those of
+        # the instances before it.
+        held = isinstance(self.train_step, graph.CapturedStep)
+        self._step_from_memo = held and self.train_step.captured
+        self._step_counts = ((self.train_step.eager_steps, self.train_step.graph.replays)
+                             if held else (0, 0))
 
     # ------------------------------------------------------------------
     def _device_batch(self, batch: Dict, prior_batch: Dict) -> Dict[str, torch.Tensor]:
@@ -542,18 +617,28 @@ class Trainer:
     def train(self) -> Dict[str, float]:
         try:
             return self._train()
+        except BaseException:
+            if self._memo_key is not None:  # its graphs may be half made
+                graph.memo_drop(self._memo_key)
+                self._memo_key = None
+            raise
         finally:
             self.train_loader.stop()
             self.prior_loader.stop()
             self.release_graphs()
 
     def release_graphs(self) -> None:
-        """Drop the step's and the validation rounds' CUDA graphs and their
-        memory (a --sequential sweep builds one trainer per instance)."""
-        if isinstance(self.train_step, graph.CapturedStep):
-            self.train_step.release()
+        """The run's end: drop the validation rounds' CUDA graphs and their
+        memory; hand the memo's entry back with the step's graph (the next
+        instance of a --sequential sweep with the same key replays it), or,
+        outside the memo, drop the step's graph too."""
         if self._val_pipe is not None:
             self._val_pipe.release_graphs()
+        if self._memo_key is not None:
+            graph.memo_give_back(self._memo_key, self._memo)
+            self._memo_key = None
+        elif isinstance(self.train_step, graph.CapturedStep):
+            self.train_step.release()
 
     def run_step(self, batch: Dict[str, torch.Tensor],
                  draws: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -562,12 +647,17 @@ class Trainer:
 
     def graph_stats(self) -> Dict[str, object]:
         """`step_graph`: "captured" or "eager: <reason>"; with the graphs'
-        capture ms, pool bytes and replays."""
+        capture ms, pool bytes and this run's replays and eager steps, and
+        `step_graph_from_memo`: whether an earlier instance captured it."""
         out: Dict[str, object] = {}
         if isinstance(self.train_step, graph.CapturedStep):
             if self.train_step.captured:
+                stats = self.train_step.stats()
+                stats["eager_steps"] -= self._step_counts[0]
+                stats["replays"] -= self._step_counts[1]
                 out["step_graph"] = "captured"
-                out.update({f"step_graph_{k}": v for k, v in self.train_step.stats().items()})
+                out["step_graph_from_memo"] = self._step_from_memo
+                out.update({f"step_graph_{k}": v for k, v in stats.items()})
             else:
                 out["step_graph"] = (f"eager: the run ended within its "
                                      f"{self.train_step.warmup} warm-up steps")
@@ -762,7 +852,9 @@ class Trainer:
     def _validation_key(self) -> tuple:
         """The pipeline's signature of a validation round: the JAX package's
         validation signature and the guidance scale."""
-        return graph.validation_signature(self.config, self.bundle.spec) + (VALIDATION_GUIDANCE,)
+        batch, height, width, steps, _, sampler = graph.validation_signature(
+            self.config, self.bundle.spec)
+        return graphs.sampler_key(batch, height, width, steps, VALIDATION_GUIDANCE, sampler)
 
     def _validation_pipe(self) -> TextToImagePipeline:
         """The sampling pipeline over the LIVE text encoder, UNet and VAE

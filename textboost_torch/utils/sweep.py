@@ -164,7 +164,10 @@ def run_job(cmd: List[str], *, sequential: bool, device: str = "cuda", nproc: in
     from .. import train
 
     train.main([*cmd, f"--device={device}"])
-    # The trainer, its optimizer and its loaders are garbage now: free their
+    # The trainer has handed its memo entry back (the bundle, the step's
+    # graph, its optimizer: train/graph.py, models/pretrained.py), which the
+    # next job with the same key binds itself into; the rest of it, its
+    # loaders and a bundle the memos do not keep are garbage now: free their
     # card memory before the next job, or the peak doubles.
     gc.collect()
     if torch.cuda.is_available():
