@@ -29,7 +29,12 @@ with the launch counts set to 0 just before and read just after:
     validation rounds' UNet batch 32 and decoder batch 16 among them; the
     GroupNorm calls must also be those derived from the config), and its
     artifacts, the augmentation tokens in its captions, and the native
-    image ops against this machine's PIL are checked;
+    image ops against this machine's PIL are checked.  Then the same flags
+    at --gradient_accumulation_steps 3 (`accumulation_pair`, through the
+    preset memo): 5 steps, the first 3 eager and the rest replays of one
+    graph per micro-step position (first, middle, last), the launches
+    derived per micro-step, and its resume from checkpoint-3, whose eager
+    micro-steps must equal the replays bit for bit;
   * `--attention_impl flash` at sd15 (`flash_impl_phase`): the flash
     launches a train step (31 K1, 29 K2) and a validation round (751 K1)
     derived on the meta device (also with --gradient_checkpointing and at a
@@ -60,12 +65,15 @@ with the launch counts set to 0 just before and read just after:
     plus the DB runner's remaining ones (the UNet's cross-attention LoRA,
     the image prior with 8 class images generated into an empty dir,
     gradient checkpointing, the padded CLIP mask) for 6 steps, a checkpoint
-    at 3 and a validation round at 6; its launches must be those derived
-    from the config on the meta device, the recompute of the checkpointed
-    blocks included, each kernel is held at every shape the run gave it
-    (the UNet at batch 16), and `load_textboost_pipeline` serves the output
-    over the snapshot (4 seeds; its UNet LoRA the trainer's export, bit for
-    bit).  Last, one train step at these flags with and without
+    at 3 and a validation round at 6, its step a CUDA graph from step 4;
+    its launches must be those derived from the config on the meta device,
+    the recompute of the checkpointed blocks included (per replay, and in
+    the step graph's kernel nodes), and a resume from checkpoint-3, eager
+    at steps 4-6, must equal the replays bit for bit (losses, both
+    adapters, the added rows); each kernel is held at every shape the run
+    gave it (the UNet at batch 16), and `load_textboost_pipeline` serves
+    the output over the snapshot (4 seeds; its UNet LoRA the trainer's
+    export, bit for bit).  Last, one eager train step at these flags with and without
     checkpointing: step time, peak memory and the launches counted in each
     (those derived, with and without the recompute), and one forward and
     backward in each mode, whose loss and trainable gradients must be
@@ -113,13 +121,14 @@ with the launch counts set to 0 just before and read just after:
     path, with its launches at batch 8 and 16, its device time and host time
     per batch, and the bytes each path sends to the card per step;
   * data parallel (`dp_phase`): the paper run's flags at sd21base, global
-    batch 8, 4 steps with a checkpoint every 2 and a validation round at
-    step 4, each run launched as a user would: in one process; under `python -m
-    torch.distributed.run --nproc_per_node 1 -m textboost_torch.train`
-    (NCCL at world 1), which must leave the same bits; with two ranks
+    batch 8, 5 steps with a checkpoint at 3 and a validation round (one
+    image a prompt) at step 5, each run launched as a user would: in one process; under `python -m
+    torch.distributed.run --nproc_per_node 1` (NCCL at world 1, its step a
+    CUDA graph with the all-reduce inside, which counts a call a
+    micro-step), which must leave the same bits; with two ranks
     sharing the card over gloo (batch 4 each), whose losses must be equal
     on both ranks and within a stated bf16 bound of the one-process run's,
-    rank 0 alone writing; and two ranks resumed from its checkpoint-2.  Each
+    rank 0 alone writing; and two ranks resumed from its checkpoint-3.  Each
     rank's launches must be those derived from the config at batch 4, and
     every kernel is held at the ranks' shapes.  The ranks' program is this
     script (`--dp-rank DIR -- FLAGS`: the trainer's `main` under the
@@ -128,7 +137,7 @@ with the launch counts set to 0 just before and read just after:
     sd21base (parallel/validate.py, on the meta device); then the paper
     run's flags plus the UNet's kv-LoRA at sd21base, global batch 8, 4 steps
     with a checkpoint every 2 and a validation round at step 4: in one
-    process, with
+    process (its step captured), with
     `--mesh_tp 2` as two ranks sharing the card over gloo (the frozen UNet
     and text encoder split by heads and FFN columns, both ranks on the same
     batch 8 and in every validation round), and those two ranks resumed
@@ -174,28 +183,30 @@ per-kernel numbers, and as its last line {"ok": true, "device": {...}}.
 Any failed phase raises and the script exits non-zero with no result line.
 Without CUDA, or without the repo beside it, it fails the same way.
 
-The train step runs as a CUDA graph (textboost_torch/train/graph.py,
-textboost_torch/graphs.py) wherever the JAX package compiles it, and the
-sampling trajectory where its caller knows the signature repeats: the
-sd15 pipeline here is given graphs and called three times on the same
-latents (eager, captured, replayed: the same bits, each call the derived
-launches, a traced replay showing each kernel the derived number of
-times); the sd15 run, the paper's run, the flash bf16 run, the
-benchmark's trainers, sd21 and the dp phase's one process capture their
-step after 3 eager steps (the sd15 run beside 5 eager steps at its flags:
-the same losses, the peaks side by side); the paper run's resume, eager
-at steps 6-8 where the straight run replayed, must land on it with every
-gap exactly 0.  The paper run's two validation rounds are too few to pay
-a sampler capture back, so the script lowers the trainer's threshold for
-the straight run: its second round replays the graph, and its grid must
-equal the resumed run's (whose one round is eager) bit for bit.  The
-snapshot run, the dp and tp ranks and the tp phase's one process run
-eagerly (outside the envelope), their validation rounds too.  A replay
-makes no Python call: the launch counts and the recorded kernel shapes
-add, at each replay, what the capture recorded.  Each run's peak is
-given as allocated and as reserved (the graphs' pools are reserved).
-Each phase starts with the memos released (`release_memos`), so that no
-earlier phase's bundle or graph stays resident.
+The train step runs as CUDA graphs (textboost_torch/train/graph.py,
+textboost_torch/graphs.py) wherever the JAX trainer jits it and one card
+can hold and check it, and the sampling trajectory where its caller knows
+the signature repeats: the sd15 pipeline here is given graphs and called
+three times on the same latents (eager, captured, replayed: the same bits,
+each call the derived launches, a traced replay showing each kernel the
+derived number of times); the sd15 run, the paper's run and its
+accumulation pair, the flash bf16 run, the snapshot run, the benchmark's
+trainers, sd21, the dp phase's one process and NCCL world-1 run and the
+tp phase's one process capture their step after 3 eager steps (the sd15
+run beside 5 eager steps at its flags: the same losses, the peaks side by
+side); the paper run's, the accumulation run's and the snapshot run's
+resumes, eager where the straight runs replayed, must land on them with
+every gap exactly 0.  The paper run's two validation rounds are too few to
+pay a sampler capture back, so the script lowers the trainer's threshold
+for the straight run: its second round replays the graph, and its grid
+must equal the resumed run's (whose one round is eager) bit for bit.  The
+dp ranks (two processes over gloo) and the tp ranks (--mesh_tp 2) run
+eagerly, their validation rounds too.  A replay makes no Python call: the
+launch counts and the recorded kernel shapes add, at each replay, what the
+capture recorded.  Each run's peak is given as allocated and as reserved
+(the graphs' pools are reserved).  Each phase starts with the memos
+released (`release_memos`), so that no earlier phase's bundle or graph
+stays resident.
 
 fp32 matmuls and convolutions are held to full fp32 (TF32 off) so that the
 plain references are what they say.
@@ -269,6 +280,14 @@ PAPER_VALIDATION_IMAGES = 4  # --num_validation_images, the runner leaves the de
 # relative L2.  cuDNN and cuBLAS may pick other algorithms in a new process,
 # so bit-identity is reported, not required (the CPU tests require it).
 RESUME_LOSS_REL = 1e-2
+# The accumulation pair (in `paper_run_phase`): the paper flags at
+# --gradient_accumulation_steps 3 (first, middle and last micro-steps each a
+# graph), ACCUM_STEPS steps with a checkpoint every ACCUM_CHECKPOINT and no
+# validation; the resume from that checkpoint runs its warm-up eagerly
+# where the straight run replays.
+ACCUM = 3
+ACCUM_STEPS = 5
+ACCUM_CHECKPOINT = 3
 RESUME_REL_L2 = 1e-2
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (H100 SXM)
@@ -2021,15 +2040,69 @@ def group_norm_control(gen, key, backward: bool) -> None:
                              f"rank's partial sums at {key}")
 
 
+def graph_kernel_names(raw_graph: int) -> collections.Counter:
+    """{function name: kernel nodes} of a captured cudaGraph_t (the one
+    `torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph()` returns), read
+    through libcuda's graph calls (cuGraphGetNodes, cuFuncGetName): what
+    every replay of the graph launches."""
+    import ctypes
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p)] + [
+            (f, ctypes.c_uint) for f in ("grid_x", "grid_y", "grid_z", "block_x", "block_y",
+                                         "block_z", "shared_mem")] + [
+            ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+            ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} returned CUresult {rc}")
+
+    graph = ctypes.c_void_p(raw_graph)
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = collections.Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params)),
+              "cuGraphKernelNodeGetParams_v2")
+        name = ctypes.c_char_p()
+        if params.func:
+            check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func)),
+                  "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern)),
+                  "cuKernelGetName")
+        names[name.value.decode()] += 1
+    return names
+
+
+def tagged_counts(names: collections.Counter) -> dict:
+    """{wrapper: {kernel name tag: count}} of kernel names (TRACE_TAGS)."""
+    return {wrapper: {tag: sum(n for name, n in names.items() if tag in name) for tag in tags}
+            for wrapper, tags in TRACE_TAGS.items()}
+
+
 @contextlib.contextmanager
-def kernel_calls(what: str, variants=WGMMA_VARIANTS):
+def kernel_calls(what: str, variants=WGMMA_VARIANTS, graph_nodes: bool = False):
     """Record the shape of every call of the four kernel wrappers, with the
     launch counts set to 0 on entry.  Yields a dict that holds, on exit,
     "shapes" (flash (B, N, H, D, M); GroupNorm (shape, groups, eps, silu),
     the keys of the checks), "launches", "variants" (the flash forward's,
     all of which must be in `variants`: by default the wgmma ones),
     "bwd_variants" (the flash backward's) and "graphs" (the CUDA graphs
-    captured: kind, replays); calls must equal launches.  A CUDA graph's
+    captured: kind, replays; with `graph_nodes`, the kernel nodes each
+    holds by TRACE_TAGS, read from the graph itself: `graph_kernel_names`);
+    calls must equal launches.  A CUDA graph's
     replay makes no Python call: the calls its capture recorded are taken
     back when it ends (it launched nothing) and added at each replay, as
     the graph does with the launch counts (textboost_torch/graphs.py)."""
@@ -2059,12 +2132,17 @@ def kernel_calls(what: str, variants=WGMMA_VARIANTS):
         return call
 
     real_capture, real_replay = graph_mod.Graph.capture, graph_mod.Graph.replay
+    real_cuda_graph = torch.cuda.CUDAGraph
     graphs = []
 
     def capture(self, fn):
         before = {name: collections.Counter(c) for name, c in shapes.items()}
         try:
-            return real_capture(self, fn)
+            out = real_capture(self, fn)
+            if graph_nodes:
+                self.graph.instantiate()
+                self.nodes = tagged_counts(graph_kernel_names(self.graph.raw_cuda_graph()))
+            return out
         finally:
             self.calls = {name: shapes[name] - before[name] for name in shapes}
             for name, c in shapes.items():
@@ -2081,6 +2159,8 @@ def kernel_calls(what: str, variants=WGMMA_VARIANTS):
     for name, (mod, attr) in wrappers.items():
         setattr(mod, attr, recording(name))
     graph_mod.Graph.capture, graph_mod.Graph.replay = capture, replay
+    if graph_nodes:  # the captured cudaGraph_t kept, so that its nodes can be read
+        torch.cuda.CUDAGraph = lambda: real_cuda_graph(keep_graph=True)
     fa.launches = fa.bwd_launches = gn.launches = gn.bwd_launches = 0
     fa.variant_counts.clear()
     fa.bwd_variant_counts.clear()
@@ -2091,9 +2171,11 @@ def kernel_calls(what: str, variants=WGMMA_VARIANTS):
         for name, (mod, attr) in wrappers.items():
             setattr(mod, attr, real[name])
         graph_mod.Graph.capture, graph_mod.Graph.replay = real_capture, real_replay
+        torch.cuda.CUDAGraph = real_cuda_graph
     torch.cuda.synchronize()
     out["graphs"] = [{"calls": {k: sum(c.values()) for k, c in g.calls.items()},
-                      **g.stats()} for g in graphs]
+                      **({"kernel_nodes": g.nodes} if graph_nodes else {}), **g.stats()}
+                     for g in graphs]
     out["launches"] = {"flash": fa.launches, "flash_bwd": fa.bwd_launches, "gn": gn.launches,
                        "gn_bwd": gn.bwd_launches}
     out["variants"] = dict(fa.variant_counts)
@@ -2137,12 +2219,11 @@ def check_traced_counts(counts: dict, want: dict, what: str) -> None:
     for name, n in want.items():
         got = {tag: counts[name].get(tag, 0) for tag in TRACE_TAGS[name]}
         if any(v != n for v in got.values()):
-            raise AssertionError(f"{what}: the trace shows {name}'s kernels {got} times, "
-                                 f"derived {n}")
+            raise AssertionError(f"{what}: {name}'s kernels {got} times, derived {n}")
 
 
 def instrumented_train(argv, trace_call=None, capture_call=None, on_step=None, run=None,
-                       variants=WGMMA_VARIANTS):
+                       variants=WGMMA_VARIANTS, graph_nodes=False):
     """`run(argv)` (default `textboost_torch.train.main`) with the launch
     counts set to 0 just before and read just after, every kernel call's
     shape recorded (`kernel_calls`, the flash forward's variants in
@@ -2150,7 +2231,8 @@ def instrumented_train(argv, trace_call=None, capture_call=None, on_step=None, r
     (`Trainer.run_step`: the CUDA graph's replay, or the eager step): a
     CUDA event is recorded after each step call; call `trace_call`
     (0-based) is traced with torch.profiler after the queue has drained
-    (the kernels' names counted: `traced_counts`); call `capture_call` has
+    (the kernels' names counted: `traced_counts`); with `graph_nodes`, each
+    CUDA graph's kernel nodes are counted too (`kernel_calls`); call `capture_call` has
     its batch and draws copied to the host; `on_step(call, state, batch,
     metrics)` runs after each step call.  Returns the peak allocated and
     reserved bytes too."""
@@ -2188,7 +2270,7 @@ def instrumented_train(argv, trace_call=None, capture_call=None, on_step=None, r
     trainer_mod.Trainer.run_step = timed_step
     torch.cuda.reset_peak_memory_stats()
     try:
-        with kernel_calls("training", variants) as rec:
+        with kernel_calls("training", variants, graph_nodes) as rec:
             torch.cuda.synchronize()
             t0 = time.time()
             metrics = (run or train_pkg.main)(argv)
@@ -2210,22 +2292,27 @@ def instrumented_train(argv, trace_call=None, capture_call=None, on_step=None, r
             "reserved_bytes": torch.cuda.max_memory_reserved()}
 
 
-def step_graph_check(m: dict, steps: int, what: str, start: int = 0) -> str:
+def step_graph_check(m: dict, steps: int, what: str, start: int = 0, accumulate: int = 1) -> str:
     """The trainer's result for a run of `steps` steps from step `start`
-    inside the envelope: captured after WARMUP_STEPS eager steps, then a
-    replay a step.  Returns a line of the graph's numbers."""
+    inside the capture envelope: WARMUP_STEPS whole steps eager (WARMUP_STEPS
+    x `accumulate` micro-steps), then one graph per micro-step position
+    (one without accumulation; first, (middle,) last with it), a replay a
+    micro-step.  Returns a line of the graphs' numbers."""
     from textboost_torch.train.graph import WARMUP_STEPS
 
-    replays = steps - start - WARMUP_STEPS
-    if (m["step_graph"] != "captured" or m["step_graph_eager_steps"] != WARMUP_STEPS
-            or m["step_graph_replays"] != replays):
+    eager = WARMUP_STEPS * accumulate
+    replays = (steps - start - WARMUP_STEPS) * accumulate
+    n_graphs = min(accumulate, 3)
+    if (m["step_graph"] != "captured" or m["step_graph_eager_steps"] != eager
+            or m["step_graph_replays"] != replays or m["step_graph_graphs"] != n_graphs):
         raise AssertionError(f"{what}: the step ran {m['step_graph']}, "
-                             f"{m.get('step_graph_eager_steps')} eager steps and "
+                             f"{m.get('step_graph_eager_steps')} eager micro-steps, "
+                             f"{m.get('step_graph_graphs')} graphs and "
                              f"{m.get('step_graph_replays')} replays, not captured after "
-                             f"{WARMUP_STEPS} with {replays}")
-    return (f"step graph captured after {WARMUP_STEPS} eager steps in "
-            f"{m['step_graph_capture_ms']:.1f} ms, pool {m['step_graph_pool_bytes'] / 2**30:.2f} "
-            f"GiB, {replays} replays")
+                             f"{eager} in {n_graphs} with {replays}")
+    return (f"step graph{'s' if n_graphs > 1 else ''} ({n_graphs}) captured after {eager} eager "
+            f"micro-steps in {m['step_graph_capture_ms']:.1f} ms, pool "
+            f"{m['step_graph_pool_bytes'] / 2**30:.2f} GiB, {replays} replays")
 
 
 def train_main_path(instance_dir: str, output_dir: str):
@@ -2598,7 +2685,13 @@ def paper_run_phase(gen, card: dict, work: str, gn_rows: dict, gn_bwd_rows: dict
     if not (same_batch and same_draws and loss_gap == lora_gap == rows_gap == 0):
         raise AssertionError("the resumed run left the straight run's trajectory: the eager "
                              "steps and the graph's replays differ")
+
+    # g. gradient accumulation: one graph per micro-step position, and a
+    # resume whose eager warm-up holds the replays bit for bit ------------------
+    accum = accumulation_pair(instance_dir, work, per_step, set(seen["flash"]),
+                              set(seen["flash_bwd"]))
     return {
+        "accumulation": accum,
         "launches": run["launches"], "resumed_launches": res["launches"],
         "variants": run["variants"], "run_s": run["run_s"], "resumed_run_s": res["run_s"],
         "warm_step_ms": float(np.mean(warm)), "warm_steps_ms": warm,
@@ -2620,6 +2713,79 @@ def paper_run_phase(gen, card: dict, work: str, gn_rows: dict, gn_bwd_rows: dict
         "held": {"gn_rows": new_rows, "gn_bwd_rows": new_bwd_rows, "flash": set(seen["flash"]),
                  "flash_bwd": set(seen["flash_bwd"])},
     }
+
+
+def accumulation_pair(instance_dir: str, work: str, per_step, flash_shapes: set,
+                      flash_bwd_shapes: set) -> dict:
+    """The paper flags at --gradient_accumulation_steps ACCUM (through the
+    preset memo the paper run left): a straight run of ACCUM_STEPS steps,
+    WARMUP_STEPS of them eager and the rest replays of the first, middle and
+    last micro-steps' graphs, with the launches derived per micro-step
+    (`per_step`, the paper run's) at the attention shapes the paper run held;
+    then its resume from checkpoint-ACCUM_CHECKPOINT, whose micro-steps are
+    its eager warm-up, held bit for bit against the replays (losses, the
+    exported adapter and rows)."""
+    import numpy as np
+
+    from textboost_torch.train.graph import WARMUP_STEPS
+
+    t0 = time.perf_counter()
+    out, resumed = os.path.join(work, "accumulation"), os.path.join(work, "accumulation_resumed")
+
+    def flags(output_dir, *extra):
+        return paper_flags(instance_dir, output_dir, f"--gradient_accumulation_steps={ACCUM}",
+                           f"--max_train_steps={ACCUM_STEPS}",
+                           f"--checkpointing_steps={ACCUM_CHECKPOINT}", "--validation_steps=0",
+                           *extra)
+
+    run = instrumented_train(flags(out))
+    m = run["metrics"]
+    line = step_graph_check(m, ACCUM_STEPS, "the accumulation run", accumulate=ACCUM)
+    micro = ACCUM_STEPS * ACCUM
+    want = dict(zip(("flash", "flash_bwd", "gn", "gn_bwd"), (micro * n for n in per_step)))
+    shutil.copytree(os.path.join(out, f"checkpoint-{ACCUM_CHECKPOINT}"),
+                    os.path.join(resumed, f"checkpoint-{ACCUM_CHECKPOINT}"))
+    res = instrumented_train(flags(resumed, "--resume_from_checkpoint=latest"))
+    rm = res["metrics"]
+    rest = (ACCUM_STEPS - ACCUM_CHECKPOINT) * ACCUM
+    want_res = dict(zip(("flash", "flash_bwd", "gn", "gn_bwd"), (rest * n for n in per_step)))
+    gaps = exact_gaps(out, resumed, m["loss_by_step"][ACCUM_CHECKPOINT:], rm["loss_by_step"])
+    shapes = (set(run["shapes"]["flash"]) | set(res["shapes"]["flash"]),
+              set(run["shapes"]["flash_bwd"]) | set(res["shapes"]["flash_bwd"]))
+    pair_s = time.perf_counter() - t0
+    # Micro-step k (1-based) ends at event k-1: whole steps 2-3 eager, steps
+    # 5-6 replays (step 4 holds the three captures).
+    ev = run["events"]
+    step_ms = {s: ev[(s - 1) * ACCUM - 1].elapsed_time(ev[s * ACCUM - 1])
+               for s in range(2, ACCUM_STEPS + 1)}
+    eager_ms = [step_ms[s] for s in range(2, WARMUP_STEPS + 1)]
+    replay_ms = [step_ms[s] for s in range(WARMUP_STEPS + 2, ACCUM_STEPS + 1)]
+    print(f"[paper accumulation] --gradient_accumulation_steps {ACCUM}, {ACCUM_STEPS} steps "
+          f"({micro} micro-steps of batch 8) in {run['run_s']:.1f} s: {line}; a whole step "
+          f"replayed {np.mean(replay_ms):.1f} ms (steps {WARMUP_STEPS + 2}-{ACCUM_STEPS}, each "
+          f"{[round(x, 1) for x in replay_ms]}), eager {np.mean(eager_ms):.1f} ms (steps "
+          f"2-{WARMUP_STEPS}, each {[round(x, 1) for x in eager_ms]}), CUDA events; "
+          f"{m['step_graph_graphs']} graphs (first, middle, last); losses by step "
+          f"{m['loss_by_step']}; launches {run['launches']} (expected {want}: {per_step} a "
+          f"micro-step, replays counted); the resume from checkpoint-{ACCUM_CHECKPOINT} "
+          f"({rest} eager micro-steps, {rm['step_graph']!r}) in {res['run_s']:.1f} s: losses "
+          f"{rm['loss_by_step']}, largest gaps {gaps} (must all be 0: bit for bit), launches "
+          f"{res['launches']} (expected {want_res}); attention shapes {sorted(shapes[0])} "
+          f"(held by the paper run); the pair {pair_s:.1f} s", flush=True)
+    bits = gaps.pop("bit_equal")
+    if not (run["launches"] == want and res["launches"] == want_res and bits
+            and not any(gaps.values()) and rm["step_graph"].startswith("eager: the run ended")
+            and shapes[0] <= flash_shapes and shapes[1] <= flash_bwd_shapes
+            and m["steps"] == ACCUM_STEPS and all(math.isfinite(x) for x in m["loss_by_step"])):
+        raise AssertionError("the accumulation pair: the launches, the resume's bits or the "
+                             "attention shapes are not as derived")
+    return {"launches": run["launches"], "resumed_launches": res["launches"],
+            "step_graph": {k: m[k] for k in m if k.startswith("step_graph")},
+            "warmup_micro_steps": WARMUP_STEPS * ACCUM, "loss_by_step": m["loss_by_step"],
+            "step_ms": step_ms, "replay_step_ms": float(np.mean(replay_ms)),
+            "eager_step_ms": float(np.mean(eager_ms)),
+            "resume_gaps": gaps, "run_s": run["run_s"], "resumed_run_s": res["run_s"],
+            "pair_s": pair_s}
 
 
 SNAPSHOT_STEPS = 6
@@ -2648,14 +2814,15 @@ def snapshot_flags(snapshot: str, instance_dir: str, class_dir: str, output_dir:
 
 def checkpointing_costs(flags) -> dict:
     """One train step at `flags` with and without gradient checkpointing,
-    through a Trainer of those flags.  After one step (which takes every
+    through a Trainer of those flags with capture off (its steps switch
+    checkpointing between calls, which one graph cannot).  After one step (which takes every
     LoRA B off zero), one forward and backward from the same weights, batch
     and draws in turns (plain, checkpointed, plain): the loss and the
     gradient of every trainable tensor (the text encoder's and the UNet's
     LoRA, the added embedding rows) must be bit-identical in all three,
     which holds the recompute's K1 and K3 outputs to those of the first
-    forward.  Then whole steps in turns (off, on, on, off, off, on;
-    warm, the modes having run once already), with the launch counts set to
+    forward.  Then whole steps in turns (off, on, on, off; warm, the
+    modes having run once already), with the launch counts set to
     0 just before each and read just after: CUDA-event time, peak allocated
     memory and the launches of each, the launches equal in every step of a
     mode."""
@@ -2668,8 +2835,14 @@ def checkpointing_costs(flags) -> dict:
     from textboost_torch.train.step import forward_backward
     from textboost_torch.train.trainer import Trainer
 
+    from textboost_torch.graphs import set_capture
+
     t0 = time.perf_counter()
-    trainer = Trainer(parse_args(flags), device="cuda")
+    set_capture(False)  # eager: the steps below switch checkpointing between calls
+    try:
+        trainer = Trainer(parse_args(flags), device="cuda")
+    finally:
+        set_capture(True)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     try:
@@ -2705,7 +2878,7 @@ def checkpointing_costs(flags) -> dict:
         del results
         ms, peak = {False: [], True: []}, {False: [], True: []}
         launches = {False: [], True: []}
-        for mode in (False, True, True, False, False, True):
+        for mode in (False, True, True, False):
             unet.gradient_checkpointing = mode
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2732,6 +2905,36 @@ def checkpointing_costs(flags) -> dict:
     return {"setup_s": setup_s, "loss": losses, "grad_gap": grad_gap,
             "launches": {mode: counts[0] for mode, counts in launches.items()},
             "step_ms": ms, "peak_bytes": peak}
+
+
+def exact_gaps(a: str, b: str, losses_a, losses_b) -> dict:
+    """The largest absolute gaps of run dir b to run dir a: each step's loss
+    (`losses_a` against `losses_b`), the exported adapters' tensors
+    (text_encoder/, and unet/ where a exported one) and the added rows (the
+    token bins); `bit_equal` whether every one of them has the same bytes."""
+    import numpy as np
+
+    from textboost_torch.lora.peft_io import import_token_embeddings, load_safetensors
+
+    pairs = [("loss", np.asarray(losses_a, np.float32), np.asarray(losses_b, np.float32))]
+    for part in ("text_encoder", "unet"):
+        path = os.path.join(part, "adapter_model.safetensors")
+        if os.path.isfile(os.path.join(a, path)):
+            ta, tb = (load_safetensors(os.path.join(d, path)) for d in (a, b))
+            if ta.keys() != tb.keys():
+                raise AssertionError(f"{b}'s {part} adapter holds other tensors than {a}'s")
+            pairs += [(part, ta[k], tb[k]) for k in sorted(ta)]
+    bins = sorted(f for f in os.listdir(a) if f.endswith(".bin"))
+    ra, rb = (import_token_embeddings([os.path.join(d, f) for f in bins]) for d in (a, b))
+    pairs += [("rows", np.asarray(ra[t]), np.asarray(rb[t])) for t in sorted(ra)]
+    gaps, same = {}, True
+    for name, x, y in pairs:
+        if x.shape != y.shape:
+            raise AssertionError(f"{name}: {x.shape} against {y.shape}")
+        gap = float(np.abs(x.astype(np.float64) - y.astype(np.float64)).max()) if x.size else 0.0
+        gaps[name] = max(gaps.get(name, 0.0), gap)
+        same &= x.dtype == y.dtype and x.tobytes() == y.tobytes()
+    return {**gaps, "bit_equal": same}
 
 
 def snapshot_run_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
@@ -2829,11 +3032,11 @@ def snapshot_run_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict
                 int(torch.count_nonzero(b) == 0) for b in state.unet_lora[1::2])
 
     run = instrumented_train(snapshot_flags(snap, instance_dir, class_dir, out),
-                             trace_call=SNAPSHOT_STEPS - 1, on_step=on_step)
+                             trace_call=SNAPSHOT_STEPS - 1, on_step=on_step, graph_nodes=True)
     m = run["metrics"]
-    if not m["step_graph"].startswith("eager: --unet_params_to_train"):
-        raise AssertionError(f"the snapshot run (kv-LoRA, image prior) ran its step "
-                             f"{m['step_graph']}, not eagerly")
+    # kv-LoRA, the image prior and checkpointing: captured as the JAX trainer
+    # jits them (step 4 the capture, steps 4-6 replays).
+    graph_line = step_graph_check(m, SNAPSHOT_STEPS, "the snapshot run")
     prior_losses = [float(x) for x in seen_steps["prior_loss"]]
     per_step = train_step_calls("sd21base", 16, 16, checkpointing=True, cross_lora_rank=4)
     per_step_n = {k: sum(c.values()) for k, c in per_step.items()}
@@ -2845,20 +3048,43 @@ def snapshot_run_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict
             "flash_bwd": SNAPSHOT_STEPS * per_step_n["flash_bwd"],
             "gn": SNAPSHOT_STEPS * per_step_n["gn"] + generates * calls_per_generate[1],
             "gn_bwd": SNAPSHOT_STEPS * per_step_n["gn_bwd"]}
+    # What each replay launches, read from the step's graph itself (its
+    # kernel nodes); the traced replay shows no more (a profiler trace of
+    # this step has lost one GroupNorm forward's record in some processes).
+    if len(run["graphs"]) != 1:
+        raise AssertionError(f"the snapshot run captured {len(run['graphs'])} graphs, not its step")
+    nodes = run["graphs"][0]["kernel_nodes"]
+    check_traced_counts(nodes, per_step_n, "the snapshot run's step graph (its kernel nodes)")
+    traced = run["traced_counts"]
+    lost = {tag: nodes[name][tag] - traced[name].get(tag, 0)
+            for name in TRACE_TAGS for tag in TRACE_TAGS[name]}
+    if any(n < 0 for n in lost.values()):
+        raise AssertionError(f"the snapshot run's traced replay shows {traced}, more than its "
+                             f"graph's kernel nodes {nodes}")
     ev = run["events"]
-    warm = [ev[s - 2].elapsed_time(ev[s - 1]) for s in range(3, SNAPSHOT_STEPS)
-            if s - 1 != SNAPSHOT_CHECKPOINT]
+    # Step s runs between events s-2 and s-1: steps 2-3 eager and warm, step
+    # 4 carries checkpoint-3's snapshot, the capture and its replay, step 5
+    # is a replay, step 6 the traced replay.
+    eager_warm = [ev[s - 2].elapsed_time(ev[s - 1]) for s in (2, 3)]
+    capture_step = ev[2].elapsed_time(ev[3])
+    replay_ms = ev[3].elapsed_time(ev[4])
     busy = sum(run["kernel_ms"].values())
     print(f"[snapshot run] {SNAPSHOT_STEPS} steps sd21base from the snapshot, 512 px, batch 8 "
           f"+ 8 class images, kv-LoRA, gradient checkpointing, padded CLIP mask, in "
           f"{run['run_s']:.1f} s (load, {SNAPSHOT_PRIOR_IMAGES} prior images, a validation round "
           f"and export included): loss {m['loss']:.5g}, prior_loss by step "
-          f"{[round(x, 5) for x in prior_losses]}; warm step {np.mean(warm):.1f} ms (each "
-          f"{[round(w, 1) for w in warm]}); traced step {SNAPSHOT_STEPS}: "
+          f"{[round(x, 5) for x in prior_losses]}; warm step captured {replay_ms:.1f} ms (the "
+          f"replay of step 5, CUDA events), eager {np.mean(eager_warm):.1f} ms (steps 2-3, each "
+          f"{[round(w, 1) for w in eager_warm]}), step 4 (checkpoint-3, the capture and its "
+          f"replay) {capture_step:.1f} ms; {graph_line}; traced replay (step {SNAPSHOT_STEPS}): "
           f"{run['traced_wall_ms']:.1f} ms wall, {busy:.1f} ms of kernels (idle "
-          f"{1 - busy / run['traced_wall_ms']:.3f}); launches {run['launches']} (expected {want}: "
+          f"{1 - busy / run['traced_wall_ms']:.3f}), its kernels {traced} (records the profiler "
+          f"lost: {({k: n for k, n in lost.items() if n} or 'none')}); the step graph's kernel "
+          f"nodes {nodes}; peak "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB allocated, {run['reserved_bytes'] / 2**30:.2f} "
+          f"reserved; launches {run['launches']} (expected {want}, replays counted: "
           f"per step {per_step_n} with the recompute, {plain_n} without; {generates} sampling "
-          f"calls of {calls_per_generate})", flush=True)
+          f"calls of {calls_per_generate}); {smi}", flush=True)
     names = sorted(os.listdir(class_dir))
     if len(names) != SNAPSHOT_PRIOR_IMAGES or not all(
             n.split("-")[0] == str(i) and len(n.split("-")[1]) == 40
@@ -2880,6 +3106,33 @@ def snapshot_run_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict
                  "text_encoder/adapter_model.safetensors", f"validation_{SNAPSHOT_STEPS}.jpg"):
         if not os.path.isfile(os.path.join(out, path)):
             raise AssertionError(f"the snapshot run left no {path}")
+
+    # d2. resume from checkpoint-3: its steps 4-6 are its warm-up, eager,
+    # where the straight run replayed its graph; bit for bit.  The class
+    # images exist (it generates none); no validation round.
+    resumed = os.path.join(work, "snapshot_resumed")
+    shutil.copytree(os.path.join(out, f"checkpoint-{SNAPSHOT_CHECKPOINT}"),
+                    os.path.join(resumed, f"checkpoint-{SNAPSHOT_CHECKPOINT}"))
+    res = instrumented_train(snapshot_flags(snap, instance_dir, class_dir, resumed,
+                                            "--validation_steps=0",
+                                            "--resume_from_checkpoint=latest"))
+    rm = res["metrics"]
+    rest = SNAPSHOT_STEPS - SNAPSHOT_CHECKPOINT
+    want_res = {k: rest * n for k, n in per_step_n.items()}
+    res_gaps = exact_gaps(out, resumed, m["loss_by_step"][SNAPSHOT_CHECKPOINT:],
+                          rm["loss_by_step"])
+    print(f"[snapshot resume] from checkpoint-{SNAPSHOT_CHECKPOINT} to step {SNAPSHOT_STEPS} "
+          f"in {res['run_s']:.1f} s: its steps ran {rm['step_graph']!r} against the straight "
+          f"run's replays; losses {rm['loss_by_step']} against "
+          f"{m['loss_by_step'][SNAPSHOT_CHECKPOINT:]}; largest gaps {res_gaps} (must all be 0, "
+          f"bit for bit: losses, the unet/ and text_encoder/ adapters, the added rows); "
+          f"launches {res['launches']} (expected {want_res}: no prior image generated); "
+          f"class dir {len(os.listdir(class_dir))} images", flush=True)
+    if not (rm["step_graph"].startswith("eager: the run ended within its")
+            and res["launches"] == want_res and res_gaps.pop("bit_equal")
+            and not any(res_gaps.values()) and len(os.listdir(class_dir)) == SNAPSHOT_PRIOR_IMAGES):
+        raise AssertionError("the snapshot run's resume left the straight run's trajectory: "
+                             "its eager steps and the graph's replays differ")
 
     # e. every kernel at every shape the run called it at ---------------------
     gc.collect()
@@ -2984,7 +3237,12 @@ def snapshot_run_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict
                                   for k in ("flash_bwd", "gn_bwd")},
         "launches_per_step": measured["with"],
         "launches_per_step_without_checkpointing": measured["without"], "run_s": run["run_s"],
-        "warm_step_ms": float(np.mean(warm)), "warm_steps_ms": warm,
+        "warm_step_ms": replay_ms, "eager_step_ms": float(np.mean(eager_warm)),
+        "eager_steps_ms": eager_warm, "capture_step_ms": capture_step,
+        "step_graph": {k: m[k] for k in m if k.startswith(("step_graph", "validation_graph"))},
+        "resume": res_gaps, "resumed_run_s": res["run_s"], "resumed_launches": res["launches"],
+        "peak_bytes": run["peak_bytes"], "reserved_bytes": run["reserved_bytes"],
+        "traced_counts": traced, "graph_kernel_nodes": nodes,
         "traced_step_wall_ms": run["traced_wall_ms"], "traced_step_kernel_ms": busy,
         "idle_share": 1 - busy / run["traced_wall_ms"], "final_loss": m["loss"],
         "prior_loss_by_step": prior_losses, "snapshot_bytes": snap_bytes,
@@ -4288,13 +4546,19 @@ def sd21_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
 # batch 8, DP_STEPS steps with a checkpoint every DP_CADENCE and a
 # validation round every DP_VALIDATION, each run a process of its own (or
 # two) launched as a user would.  Few steps, so that the script keeps its
-# time limit: a resume from checkpoint-2 still crosses a checkpoint and a
-# round.
-DP_STEPS = 4
-DP_CADENCE = 2
-DP_VALIDATION = 4
+# time limit: 3 eager, the capture and a clean replay where the step is
+# captured; a resume from checkpoint-3 still crosses a round.
+DP_STEPS = 5
+DP_CADENCE = 3
+DP_VALIDATION = 5
+# One image a validation prompt (the runner's default is 4): a round's UNet
+# at batch 8, so that the phase's four rounds cost a second or so each.
+DP_VALIDATION_IMAGES = 1
 DP_RANKS = 2  # sharing the one card: gloo (NCCL refuses two ranks on one device)
-DP_WARM_STEPS = (2, 4)  # step 3 carries step 2's checkpoint
+# Eager in every run (step 4 carries checkpoint-3 and, in one process, the
+# capture); step 5 a replay in one process and under NCCL at world 1.
+DP_WARM_STEPS = (2, 3)
+DP_REPLAY_STEP = 5
 DP_LAUNCH_TIMEOUT_S = 300
 # The 2-rank run against the one-process run at batch 8, bf16: the same
 # samples and draws, but each rank's UNet runs at batch 4, where cuBLAS and
@@ -4397,7 +4661,8 @@ def dp_rank(json_dir: str, argv, digest: bool = False) -> int:
            "loss_by_step": m["loss_by_step"], "steps_ms": dict(zip(range(2, len(ev) + 1), step_ms)),
            "warm_step_ms": float(np.mean([step_ms[s - 2] for s in DP_WARM_STEPS if s - 2 < len(step_ms)])),
            "peak_bytes": torch.cuda.max_memory_allocated(), "writes": sorted(set(writes)),
-           "dp": {k: m[k] for k in ("dp_backend", "dp_world", "all_reduce_bytes_per_call",
+           "dp": {k: m[k] for k in ("dp_backend", "dp_world", "all_reduce_calls",
+                                    "all_reduce_replayed", "all_reduce_bytes_per_call",
                                     "all_reduce_ms_by_call") if k in m},
            "tp": {k: m[k] for k in m if k.startswith("tp_")}, "digests": digests,
            "step_graph": {k: m[k] for k in m if k.startswith(("step_graph", "validation_graph"))}}
@@ -4504,11 +4769,8 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     def flags(name, *extra):
         return paper_flags(instance_dir, dirs[name], f"--max_train_steps={DP_STEPS}",
                            f"--checkpointing_steps={DP_CADENCE}",
-                           f"--validation_steps={DP_VALIDATION}", *extra)
-
-    def torchrun(nproc):
-        return [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                f"--nproc_per_node={nproc}"]
+                           f"--validation_steps={DP_VALIDATION}",
+                           f"--num_validation_images={DP_VALIDATION_IMAGES}", *extra)
 
     def ranks(name, nproc, *extra):
         return launch_rank_program(work, name, nproc, flags(name, *extra))
@@ -4521,17 +4783,19 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
                                  f"matching {pattern!r}")
         return found[0]
 
-    # a. one process, no launcher (its step a CUDA graph from step 4); then
-    # NCCL at world 1 (eager: a torch.distributed launch) ---------------------
+    # a. one process, no launcher; then NCCL at world 1: each step a CUDA
+    # graph from step 4, the NCCL run's all-reduce inside it ------------------
+    from textboost_torch.train.graph import WARMUP_STEPS
+
     _, (one,) = ranks("one", 0)
     step_graph_check(one["step_graph"], DP_STEPS, "the dp phase's one process")
-    t0 = time.perf_counter()
-    nccl_out = run_launch([*torchrun(1), "-m", "textboost_torch.train", *flags("nccl")],
-                          "the NCCL world-1 run")
-    nccl_s = time.perf_counter() - t0
+    nccl_out, (nccl,) = ranks("nccl", 1)
+    nccl_s = nccl["wall_s"]
+    nccl_graph = step_graph_check(nccl["step_graph"], DP_STEPS, "the NCCL world-1 run")
     backend_nccl = re.findall(r"torch\.distributed: rank 0 of 1 .*backend (\w+)", nccl_out)
     nccl_losses = json.loads(log_line("nccl", r"Loss by step 1-\d+: (\[.*\])"))
-    nccl_reduce = log_line("nccl", r"all-reduce: (\d+) calls, (\d+) bytes each, median ([\d.]+) ms")
+    nccl_reduce = log_line("nccl", r"all-reduce: (\d+) calls, (\d+) bytes each; (\d+) eager, "
+                                   r"timed: median ([\d.]+) ms .*?; (\d+) replayed")
     tree_one, tree_nccl = dp_tree(dirs["one"]), dp_tree(dirs["nccl"])
     same_tree = sorted(tree_one) == sorted(tree_nccl)
     # metrics.jsonl holds times: its losses are compared; the files
@@ -4547,26 +4811,34 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     keys = ("loss", "den_loss", "kpl", "grad_norm", "added_embedding_norm")
     same_records = [[r.get(k) for k in keys] for r in records["one"]] == [
         [r.get(k) for k in keys] for r in records["nccl"]]
-    print(f"[dp nccl] python -m torch.distributed.run --standalone --nproc_per_node 1 -m "
-          f"textboost_torch.train, {DP_STEPS} steps sd21base batch 8 bf16 (a checkpoint every "
-          f"{DP_CADENCE}, a validation round every {DP_VALIDATION}), against the same run "
-          f"without a launcher: backend "
-          f"{backend_nccl}, all-reduce {nccl_reduce[0]} calls of {nccl_reduce[1]} bytes, "
-          f"median {nccl_reduce[2]} ms (CUDA events); losses by step "
+    nccl_calls, nccl_replayed = int(nccl_reduce[0]), int(nccl_reduce[4])
+    one_replay, nccl_replay = (r["steps_ms"][str(DP_REPLAY_STEP)] for r in (one, nccl))
+    print(f"[dp nccl] python -m torch.distributed.run --standalone --nproc_per_node 1, "
+          f"textboost_torch.train.main, {DP_STEPS} steps sd21base batch 8 bf16 (a checkpoint "
+          f"every {DP_CADENCE}, a validation round every {DP_VALIDATION}), against the same run "
+          f"without a launcher: backend {backend_nccl}; {nccl_graph}, the all-reduce inside "
+          f"the graph; all-reduce {nccl_calls} calls of {nccl_reduce[1]} bytes ({nccl_reduce[2]} "
+          f"eager, median {nccl_reduce[3]} ms, CUDA events; {nccl_replayed} replayed, untimed); "
+          f"step {DP_REPLAY_STEP} (a replay) {nccl_replay:.1f} ms against {one_replay:.1f} in "
+          f"one process, eager steps {DP_WARM_STEPS} {nccl['warm_step_ms']:.1f} ms against "
+          f"{one['warm_step_ms']:.1f} (CUDA events); losses by step "
           f"{'the same bits' if nccl_losses == one['loss_by_step'] else 'DIFFER'} "
           f"({one['loss_by_step']}); {len(tree_one)} files (checkpoints, validation grids, "
           f"export) {'byte-identical' if same_tree and not differ else f'DIFFER: {differ}'}; "
           f"{nccl_s:.1f} s; {smi}", flush=True)
     if not (backend_nccl == ["nccl"] and nccl_losses == one["loss_by_step"] and same_tree
-            and not differ and same_records and int(nccl_reduce[0]) == DP_STEPS):
+            and not differ and same_records and nccl_calls == DP_STEPS
+            and nccl_replayed == DP_STEPS - WARMUP_STEPS == nccl["dp"]["all_reduce_replayed"]
+            and nccl["dp"]["all_reduce_calls"] == nccl_calls):
         raise AssertionError("NCCL at world 1 is not the run without a launcher")
 
     # b. two ranks on the card over gloo; their resume ---------------------------
     two_out, two = ranks("two", DP_RANKS)
-    if any(r["step_graph"]["step_graph"] != f"eager: {DP_RANKS} processes" for r in two):
+    if any(not r["step_graph"]["step_graph"].startswith(f"eager: {DP_RANKS} processes")
+           for r in two):
         raise AssertionError(f"the dp ranks' steps ran {[r['step_graph'] for r in two]}")
     backends = [(r["rank"], r["dp"].get("dp_backend"), r["dp"].get("dp_world")) for r in two]
-    # Each rank's all-reduce at the warm steps (rank 1's at step 3 waits for
+    # Each rank's all-reduce at the warm steps (rank 1's at step 4 waits for
     # rank 0's checkpoint).
     reduce_ms = [float(np.median([r["dp"]["all_reduce_ms_by_call"][s - 1]
                                   for s in DP_WARM_STEPS])) for r in two]
@@ -4616,10 +4888,12 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     if files_two != sorted(tree_one) or steps_logged != [0, DP_STEPS]:
         raise AssertionError(f"the 2-rank run left {files_two} and metrics at {steps_logged}, "
                              f"the one-process run {sorted(tree_one)}")
-    launches = [r["launches"] for r in two] + [one["launches"]]
-    if launches != [want_one, want_rank1, want_one] or [r["launches"] for r in resumed] != want_resumed:
+    launches = [r["launches"] for r in two] + [one["launches"], nccl["launches"]]
+    if launches != [want_one, want_rank1, want_one, want_one] or \
+            [r["launches"] for r in resumed] != want_resumed:
         raise AssertionError(f"launches {launches} / resumed {[r['launches'] for r in resumed]}, "
-                             f"expected {[want_one, want_rank1, want_one]} / {want_resumed}")
+                             f"expected {[want_one, want_rank1, want_one, want_one]} / "
+                             f"{want_resumed}")
 
     res_losses = resumed[0]["loss_by_step"]
     res_gap = max(abs(a - b) / abs(b) for a, b in zip(res_losses, losses[0][DP_CADENCE:]))
@@ -4646,7 +4920,8 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     local = 8 // DP_RANKS
     step_calls = train_step_calls("sd21base", unet_batch=local, encode_batch=local,
                                   checkpointing=False, cross_lora_rank=0)
-    val_calls = group_norm_calls("sd21base", **paper_validation_batches())
+    images = len(PAPER_PROMPTS) * DP_VALIDATION_IMAGES
+    val_calls = group_norm_calls("sd21base", unet_batch=2 * images, decode_batch=images)
     derived_rank1 = {k: collections.Counter({key: DP_STEPS * n for key, n in c.items()})
                      for k, c in step_calls.items()}
     derived_gn0 = collections.Counter(derived_rank1["gn"])
@@ -4710,7 +4985,12 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
         "backends": {"world_1": backend_nccl[0], "two_ranks": [b for _, b, _ in backends]},
         "all_reduce_values": int(reduce_line[0]), "all_reduce_bytes": int(reduce_line[1]),
         "embedding_grad_bytes": int(reduce_line[2]),
-        "all_reduce_ms_per_warm_step": {"world_1_nccl_median": float(nccl_reduce[2]),
+        "world_1_nccl": {"step_graph": nccl["step_graph"], "all_reduce_calls": nccl_calls,
+                         "all_reduce_replayed": nccl_replayed,
+                         "warm_step_ms": nccl["warm_step_ms"],
+                         "replay_step_ms": nccl_replay, "one_process_replay_step_ms": one_replay,
+                         "launches": nccl["launches"]},
+        "all_reduce_ms_per_warm_step": {"world_1_nccl_median": float(nccl_reduce[3]),
                                         "rank0_gloo": reduce_ms[0], "rank1_gloo": reduce_ms[1]},
         "warm_step_ms": {"one_process": one["warm_step_ms"],
                          **{f"rank{r['rank']}": r["warm_step_ms"] for r in two}},
@@ -4730,10 +5010,14 @@ def dp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     }
 
 
-# Tensor parallel at sd21base (`tp_phase`): the dp phase's run (DP_STEPS
-# steps, a checkpoint every DP_CADENCE, a validation round every
-# DP_VALIDATION) plus the
-# UNet's kv-LoRA, in one process and as TP_RANKS ranks of one tp group.
+# Tensor parallel at sd21base (`tp_phase`): the paper flags cut to TP_STEPS
+# steps, a checkpoint every TP_CADENCE and a validation round every
+# TP_VALIDATION, plus the UNet's kv-LoRA, in one process (its step captured
+# at step 4) and as TP_RANKS ranks of one tp group (eager).
+TP_STEPS = 4
+TP_CADENCE = 2
+TP_VALIDATION = 4
+TP_WARM_STEPS = (2, 4)  # step 3 carries step 2's checkpoint
 TP_RANKS = 2  # sharing the one card over gloo, as the dp phase's ranks
 TP_LEVEL1 = (8, 1024, 5, 64)  # UNet level 1 at tp 2: 10 heads, 5 a rank
 # One image per validation prompt (the runner's default is 4): at 4, a
@@ -4788,16 +5072,16 @@ def tp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
 
     spec = get_spec("sd21base")
     per_step, per_round = expected_train_launches(spec), expected_launches(spec, 25)
-    rounds = DP_STEPS // DP_VALIDATION
+    rounds = TP_STEPS // TP_VALIDATION
     instance_dir = os.path.join(work, "instance")
     os.makedirs(instance_dir)
     write_instance_image(os.path.join(instance_dir, "teapot.png"), seed=1)
     dirs = {name: os.path.join(work, name) for name in ("one", "two", "resumed")}
 
     def ranks(name, nproc, *extra):
-        flags = paper_flags(instance_dir, dirs[name], f"--max_train_steps={DP_STEPS}",
-                            f"--checkpointing_steps={DP_CADENCE}",
-                            f"--validation_steps={DP_VALIDATION}",
+        flags = paper_flags(instance_dir, dirs[name], f"--max_train_steps={TP_STEPS}",
+                            f"--checkpointing_steps={TP_CADENCE}",
+                            f"--validation_steps={TP_VALIDATION}",
                             f"--num_validation_images={TP_VALIDATION_IMAGES}",
                             "--unet_params_to_train=crossattn_kv", *extra)
         return launch_rank_program(work, name, nproc, flags,
@@ -4805,16 +5089,25 @@ def tp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
 
     _, (one,) = ranks("one", 0)
     two_out, two = ranks("two", TP_RANKS, f"--mesh_tp={TP_RANKS}")
-    # The UNet's kv-LoRA and tensor parallelism: outside the graphs' envelope,
-    # the validation round's sampling too (a tp rank's UNet reduces over the
-    # host in its forward).
-    if any(not r["step_graph"]["step_graph"].startswith("eager: --unet_params_to_train")
-           or r["step_graph"]["validation_graph"] != r["step_graph"]["step_graph"]
-           for r in [one, *two]):
+    # Warm steps by CUDA events: the ranks' TP_WARM_STEPS (eager); the one
+    # process's step 2 (its step 4 holds the capture).
+    for r, steps in [(one, (2,))] + [(r, TP_WARM_STEPS) for r in two]:
+        r["warm_step_ms"] = float(np.mean([r["steps_ms"][str(st)] for st in steps]))
+    # The one process's kv-LoRA step is captured (its one validation round
+    # too few to pay a sampler capture back); the tp ranks run eagerly with
+    # the --mesh_tp reason first, their rounds too (a tp rank's UNet reduces
+    # over the host in its forward).
+    one_graph = step_graph_check(one["step_graph"], TP_STEPS, "the tp phase's one process")
+    if not one["step_graph"]["validation_graph"].startswith("eager: 1 validation rounds") or any(
+            not r["step_graph"]["step_graph"].startswith(f"eager: --mesh_tp {TP_RANKS}")
+            or r["step_graph"]["validation_graph"] != r["step_graph"]["step_graph"]
+            for r in two):
         raise AssertionError(f"the tp phase's steps and rounds ran "
                              f"{[r['step_graph'] for r in [one, *two]]}")
-    shutil.copytree(os.path.join(dirs["two"], f"checkpoint-{DP_CADENCE}"),
-                    os.path.join(dirs["resumed"], f"checkpoint-{DP_CADENCE}"))
+    print(f"[tp one process] kv-LoRA at batch 8, {TP_STEPS} steps: {one_graph}; the tp ranks "
+          f"{[r['step_graph']['step_graph'] for r in two]}", flush=True)
+    shutil.copytree(os.path.join(dirs["two"], f"checkpoint-{TP_CADENCE}"),
+                    os.path.join(dirs["resumed"], f"checkpoint-{TP_CADENCE}"))
     _, resumed = ranks("resumed", TP_RANKS, f"--mesh_tp={TP_RANKS}",
                        "--resume_from_checkpoint=latest")
     with open(os.path.join(dirs["two"], "training.log")) as f:
@@ -4828,11 +5121,11 @@ def tp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
     # The collectives a step: counted by each rank, and on the meta device.
     want_tp = reports["sd21base"]["collectives"]
     tp_steps = [r["tp"] for r in two]
-    warm = [float(np.median([t["tp_ms_by_step"][s - 1] for s in DP_WARM_STEPS])) for t in tp_steps]
+    warm = [float(np.median([t["tp_ms_by_step"][s - 1] for s in TP_WARM_STEPS])) for t in tp_steps]
     print(f"[tp gloo] {TP_RANKS} ranks on the one card, python -m torch.distributed.run "
           f"--standalone --nproc_per_node {TP_RANKS} -m textboost_torch.train --mesh_tp "
           f"{TP_RANKS}: (rank, backend, world) {backends}; split {split_lines}; global batch 8 "
-          f"on both ranks, {DP_STEPS} steps in {two[0]['wall_s']:.1f} s (launch, set-up, "
+          f"on both ranks, {TP_STEPS} steps in {two[0]['wall_s']:.1f} s (launch, set-up, "
           f"{rounds} validation rounds of {len(PAPER_PROMPTS)} x {TP_VALIDATION_IMAGES} images "
           f"on both ranks and export included; one process "
           f"{one['wall_s']:.1f} s); losses by step rank 0 {losses[0]}, rank 1 "
@@ -4845,14 +5138,14 @@ def tp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
           f"to and from the host, gloo, the wait for the peer), by step "
           f"{[[round(x, 1) for x in t['tp_ms_by_step']] for t in tp_steps]}; warm step "
           f"{two[0]['warm_step_ms']:.1f} / {two[1]['warm_step_ms']:.1f} ms against "
-          f"{one['warm_step_ms']:.1f} ms in one process (steps {DP_WARM_STEPS}); peak "
+          f"{one['warm_step_ms']:.1f} ms in one process (steps {TP_WARM_STEPS}, its step 2); peak "
           f"{two[0]['peak_bytes'] / 2**30:.2f} / {two[1]['peak_bytes'] / 2**30:.2f} GiB against "
           f"{one['peak_bytes'] / 2**30:.2f}; launches {two[0]['launches']} / "
           f"{two[1]['launches']}, one process {one['launches']}; rank 0 wrote "
           f"{len(two[0]['writes'])} paths, rank 1 {two[1]['writes']}; {smi}", flush=True)
     if not (backends == [(0, "gloo", 1), (1, "gloo", 1)] and losses[0] == losses[1]
-            and len(losses[0]) == DP_STEPS and all(math.isfinite(x) for x in losses[0])
-            and len(two[0]["digests"]) == DP_STEPS and two[0]["digests"] == two[1]["digests"]
+            and len(losses[0]) == TP_STEPS and all(math.isfinite(x) for x in losses[0])
+            and len(two[0]["digests"]) == TP_STEPS and two[0]["digests"] == two[1]["digests"]
             and resumed[0]["digests"] == resumed[1]["digests"]):
         raise AssertionError("the two tp ranks disagree on the losses, the trainable weights "
                              "or the backend")
@@ -4870,11 +5163,11 @@ def tp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
         got = set(zip(t["tp_fwd_calls_by_step"], t["tp_bwd_calls_by_step"], t["tp_bytes_by_step"]))
         if got != {(want_tp["fwd"], want_tp["bwd"], want_tp["bytes"])}:
             raise AssertionError(f"the ranks' collectives a step {got}, derived {want_tp}")
-    want_one = {"flash": DP_STEPS * per_step[0] + rounds * per_round[0],
-                "flash_bwd": DP_STEPS * per_step[1],
-                "gn": DP_STEPS * per_step[2] + rounds * per_round[1],
-                "gn_bwd": DP_STEPS * per_step[3]}
-    rest = DP_STEPS - DP_CADENCE
+    want_one = {"flash": TP_STEPS * per_step[0] + rounds * per_round[0],
+                "flash_bwd": TP_STEPS * per_step[1],
+                "gn": TP_STEPS * per_step[2] + rounds * per_round[1],
+                "gn_bwd": TP_STEPS * per_step[3]}
+    rest = TP_STEPS - TP_CADENCE
     want_resumed = {"flash": rest * per_step[0] + per_round[0], "flash_bwd": rest * per_step[1],
                     "gn": rest * per_step[2] + per_round[1], "gn_bwd": rest * per_step[3]}
     launches = [r["launches"] for r in two] + [one["launches"]]
@@ -4883,12 +5176,12 @@ def tp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
                              f"expected {want_one} / {want_resumed}")
 
     res_losses = resumed[0]["loss_by_step"]
-    res_gap = max(abs(a - b) / abs(b) for a, b in zip(res_losses, losses[0][DP_CADENCE:]))
+    res_gap = max(abs(a - b) / abs(b) for a, b in zip(res_losses, losses[0][TP_CADENCE:]))
     res_exports = dp_export_gaps(dirs["two"], dirs["resumed"])
     one_gap = [abs(a - b) / abs(b) for a, b in zip(losses[0], one["loss_by_step"])]
     one_exports = dp_export_gaps(dirs["one"], dirs["two"])
-    print(f"[tp resume] 2 ranks from checkpoint-{DP_CADENCE} to step {DP_STEPS}: losses "
-          f"{res_losses} against {losses[0][DP_CADENCE:]}, largest relative gap {res_gap:.3g} "
+    print(f"[tp resume] 2 ranks from checkpoint-{TP_CADENCE} to step {TP_STEPS}: losses "
+          f"{res_losses} against {losses[0][TP_CADENCE:]}, largest relative gap {res_gap:.3g} "
           f"(limit {RESUME_LOSS_REL}); exports rel L2 {res_exports} (limit {RESUME_REL_L2}); "
           f"rank 1 wrote {resumed[1]['writes']}", flush=True)
     print(f"[tp vs one process] the 2 tp ranks against the one-process run at batch 8: loss "
@@ -4902,7 +5195,7 @@ def tp_phase(gen, card: dict, work: str, smi: str, held: dict) -> dict:
                                   cross_lora_rank=4, tp=TP_RANKS)
     images = len(PAPER_PROMPTS) * TP_VALIDATION_IMAGES
     val_calls = group_norm_calls("sd21base", unet_batch=2 * images, decode_batch=images)
-    derived = {k: collections.Counter({key: DP_STEPS * n for key, n in c.items()})
+    derived = {k: collections.Counter({key: TP_STEPS * n for key, n in c.items()})
                for k, c in step_calls.items()}
     derived_gn = collections.Counter(derived["gn"])
     for part, n in (("unet", rounds * 25), ("decode", rounds)):
@@ -5832,7 +6125,12 @@ def main() -> int:
                       "flash_sd15_fp32": fl["launches"]["fp32"][key],
                       "paper_sd21base": paper["launches"][key],
                       "paper_sd21base_resumed": paper["resumed_launches"][key],
+                      "paper_sd21base_accumulation": paper["accumulation"]["launches"][key],
+                      "paper_sd21base_accumulation_resumed":
+                          paper["accumulation"]["resumed_launches"][key],
                       "snapshot_sd21base": snap["launches"][key],
+                      "snapshot_sd21base_resumed": snap["resumed_launches"][key],
+                      "dp_sd21base_world_1_nccl": dp["world_1_nccl"]["launches"][key],
                       "benchmark_sd21base": bench["launches"][key],
                       "sd21_768": sd21["launches"][key],
                       **{f"dp_sd21base_{r}": n[key] for r, n in dp["launches"].items()},

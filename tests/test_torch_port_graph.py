@@ -86,17 +86,26 @@ class EagerGraph:
         return {"replays": self.replays}
 
 
-# -- the envelope and the validation signature against aot.py ----------------
+# -- the envelopes and the validation signature against aot.py ---------------
 ENVELOPE_CASES = {
-    "inside": ({}, "cuda", 1),
-    "kv_lora": ({"unet_params_to_train": "crossattn_kv"}, "cuda", 1),
+    # name: (config kwargs, device, world, torch.distributed backend)
+    "inside": ({}, "cuda", 1, None),
+    "kv_lora": ({"unet_params_to_train": "crossattn_kv"}, "cuda", 1, None),
     "image_prior": ({"with_image_prior": True, "class_data_dir": "/tmp/c",
-                     "class_token": "dog"}, "cuda", 1),
-    "tp_2": ({"mesh_tp": 2}, "cuda", 1),
-    "accumulation_2": ({"gradient_accumulation_steps": 2}, "cuda", 1),
-    "cpu": ({}, "cpu", 1),
-    "world_2": ({}, "cuda", 2),
+                     "class_token": "dog"}, "cuda", 1, None),
+    "tp_2": ({"mesh_tp": 2}, "cuda", 1, None),
+    "accumulation_2": ({"gradient_accumulation_steps": 2}, "cuda", 1, None),
+    "cpu": ({}, "cpu", 1, None),
+    "world_2": ({}, "cuda", 2, "nccl"),
+    "nccl_world_1": ({}, "cuda", 1, "nccl"),
+    "gloo_world_1": ({}, "cuda", 1, "gloo"),
 }
+# Where the step is captured: where the JAX trainer jits it (every config),
+# less tensor parallelism, more than one process, gloo and a device other
+# than CUDA.
+CAPTURED_CASES = {"inside", "kv_lora", "image_prior", "accumulation_2", "nccl_world_1"}
+# Where aot.py compiles ahead of time and keeps its memo.
+MEMO_CASES = {"inside", "cpu", "nccl_world_1", "gloo_world_1"}
 
 
 def _config_kwargs(**kw):
@@ -106,10 +115,11 @@ def _config_kwargs(**kw):
 
 @pytest.mark.parametrize("case", sorted(ENVELOPE_CASES))
 def test_envelope_matches_launch_step_aot(case, monkeypatch):
-    """The port captures exactly where `launch_step_aot` compiles: its
-    gating (aot.py:132-141) over tests/test_aot.py's cases, a CPU device
-    (the JAX package's non-TPU backend without allow_cpu) and 2 processes;
-    the compile itself is stubbed."""
+    """The memo's envelope (`envelope_reason`) is `launch_step_aot`'s gate
+    (aot.py:132-141) over tests/test_aot.py's cases and 2 processes; the
+    compile itself is stubbed.  The memo serves every device (aot.py with
+    allow_cpu), and a launch at world 1 is one JAX process; the port keeps
+    the memo out of any torch.distributed launch besides."""
     import jax
 
     from textboost_tpu.models import get_spec as jax_get_spec
@@ -117,27 +127,55 @@ def test_envelope_matches_launch_step_aot(case, monkeypatch):
     from textboost_tpu.train import aot
     from textboost_tpu.train.config import TrainConfig as JaxTrainConfig
 
-    kw, device, world = ENVELOPE_CASES[case]
+    kw, _, world, backend = ENVELOPE_CASES[case]
     monkeypatch.setattr(aot, "_AOT_MEMO", {})
     monkeypatch.setattr(aot, "_compile_step", lambda *a, **k: "compiled")
     monkeypatch.setattr(jax, "process_count", lambda: world)
     holder = aot.launch_step_aot(
         JaxTrainConfig(**_config_kwargs(**kw)), jax_get_spec("tiny"), vocab_size=1000,
         first_added_id=999, mesh=make_mesh(dp=1, tp=1, devices=jax.devices()[:1]), dtype=None,
-        allow_cpu=device == "cuda")
-    reason = graph.eager_reason(TrainConfig(**_config_kwargs(**kw)), torch.device(device), world)
+        allow_cpu=True)
+    cfg = TrainConfig(**_config_kwargs(**kw))
+    reason = graph.envelope_reason(cfg, world)
     assert (reason is None) == (holder is not None)
-    assert (reason is None) == (case == "inside")
+    assert (reason is None) == (case in MEMO_CASES)
+    launched = graph.envelope_reason(cfg, world, distributed=backend is not None)
+    assert (launched is None) == (case in MEMO_CASES and backend is None)
+
+
+@pytest.mark.parametrize("case", sorted(ENVELOPE_CASES))
+def test_capture_envelope_admits_what_one_card_holds(case):
+    """The step is captured where the JAX trainer jits it (trainer.py:728,
+    every config: the UNet's LoRA, the image prior, accumulation, an NCCL
+    launch at world 1) and refused under tp, across processes, over gloo
+    and on the CPU, each with its reason."""
+    kw, device, world, backend = ENVELOPE_CASES[case]
+    reason = graph.eager_reason(TrainConfig(**_config_kwargs(**kw)), torch.device(device), world,
+                                backend)
+    assert (reason is None) == (case in CAPTURED_CASES), reason
+    want = {"tp_2": "--mesh_tp 2", "cpu": "the device is cpu", "world_2": "2 processes",
+            "gloo_world_1": "the gloo backend"}
+    if case in want:
+        assert reason.startswith(want[case])
 
 
 def test_eager_reasons_name_the_cause():
     cfg = TrainConfig(**_config_kwargs())
+    kv = TrainConfig(**_config_kwargs(unet_params_to_train="crossattn_kv"))
     cuda = torch.device("cuda")
-    assert graph.eager_reason(cfg, cuda, 1, distributed=True).startswith("a torch.distributed")
-    assert "--mesh_tp 2" == graph.eager_reason(TrainConfig(**_config_kwargs(mesh_tp=2)), cuda)
+    assert graph.envelope_reason(cfg, 1, distributed=True).startswith("a torch.distributed")
+    assert graph.envelope_reason(kv) == "--unet_params_to_train crossattn_kv"
+    assert graph.eager_reason(kv, cuda) is None
+    assert graph.eager_reason(cfg, cuda, 1, backend="nccl") is None
+    assert graph.eager_reason(cfg, cuda, 1, backend="gloo").startswith("the gloo backend")
+    assert "check on two cards" in graph.eager_reason(cfg, cuda, 2, backend="nccl")
+    # The tp reason comes first: a tp rank is in a launch of 2 processes over gloo.
+    assert "--mesh_tp 2" == graph.eager_reason(TrainConfig(**_config_kwargs(mesh_tp=2)), cuda,
+                                               2, backend="gloo")
     graphs.set_capture(False)
     try:
         assert "set_capture(False)" in graph.eager_reason(cfg, cuda)
+        assert "set_capture(False)" in graph.eager_reason(kv, cuda, 1, backend="nccl")
     finally:
         graphs.set_capture(True)
     assert graph.eager_reason(cfg, cuda) is None
@@ -174,13 +212,17 @@ def test_validation_rounds_left():
 
 
 VALIDATION_CASES = {
-    # name: (config kwargs, device, world, distributed, rounds, captured)
-    "inside_enough_rounds": ({}, "cuda", 1, False, 6, True),
-    "inside_too_few_rounds": ({}, "cuda", 1, False, 5, False),
-    "tp_2": ({"mesh_tp": 2}, "cuda", 1, False, 100, False),
-    "distributed": ({}, "cuda", 1, True, 100, False),
-    "world_2": ({}, "cuda", 2, False, 100, False),
-    "cpu": ({}, "cpu", 1, False, 100, False),
+    # name: (config kwargs, device, world, torch.distributed backend, rounds, captured)
+    "inside_enough_rounds": ({}, "cuda", 1, None, 6, True),
+    "inside_too_few_rounds": ({}, "cuda", 1, None, 5, False),
+    "tp_2": ({"mesh_tp": 2}, "cuda", 1, None, 100, False),
+    "distributed": ({}, "cuda", 1, "gloo", 100, False),
+    "world_2": ({}, "cuda", 2, "nccl", 100, False),
+    "cpu": ({}, "cpu", 1, None, 100, False),
+    "nccl_world_1": ({}, "cuda", 1, "nccl", 100, True),
+    "kv_lora_prior": ({"unet_params_to_train": "crossattn_kv", "with_image_prior": True,
+                       "class_data_dir": "/tmp/c", "class_token": "dog"},
+                      "cuda", 1, None, 100, True),
 }
 
 
@@ -191,9 +233,9 @@ def test_validation_capture_follows_the_step_envelope(case, monkeypatch):
     only over enough rounds to pay the capture back; the reason names the
     cause."""
     monkeypatch.setattr(graphs, "VALIDATION_CAPTURE_ROUNDS", 6)
-    kw, device, world, distributed, rounds, captured = VALIDATION_CASES[case]
+    kw, device, world, backend, rounds, captured = VALIDATION_CASES[case]
     cfg = TrainConfig(**_config_kwargs(**kw))
-    step_reason = graph.eager_reason(cfg, torch.device(device), world, distributed)
+    step_reason = graph.eager_reason(cfg, torch.device(device), world, backend)
     reason = graph.validation_eager_reason(cfg, step_reason, rounds)
     assert (reason is None) == captured
     if step_reason is not None:
@@ -279,7 +321,7 @@ def test_static_buffer_step_equals_plain_step_and_jax(jax_step_side):
     plain_step, plain = ts._port_side(bundle, base, te_params, null_emb, target_norm)
     step, state = ts._port_side(bundle, base, te_params, null_emb, target_norm)
     fake = EagerGraph()
-    held = graph.CapturedStep(step, "cpu", warmup=1, graph=fake)
+    held = graph.CapturedStep(step, "cpu", warmup=1, new_graph=lambda: fake)
     for i in range(4):
         batch = ts._batch(np.random.default_rng(10 + i))
         draws = ts._jax_draws(jstate)
@@ -311,7 +353,7 @@ def test_captured_step_refuses_other_shapes():
         def finish(self, state):
             pass
 
-    held = graph.CapturedStep(Step(), "cpu", warmup=0, graph=EagerGraph())
+    held = graph.CapturedStep(Step(), "cpu", warmup=0, new_graph=EagerGraph)
     held(None, {"x": torch.ones(2)}, {"n": torch.zeros(1)})
     with pytest.raises(ValueError, match="captured at"):
         held(None, {"x": torch.ones(3)}, {"n": torch.zeros(1)})
@@ -341,7 +383,7 @@ def test_failed_capture_raises():
         def finish(self, state):
             calls["finish"] += 1
 
-    held = graph.CapturedStep(Step(), "cpu", warmup=2, graph=Failing())
+    held = graph.CapturedStep(Step(), "cpu", warmup=2, new_graph=Failing)
     for _ in range(2):
         held(None, {"x": torch.ones(1)}, {})
     with pytest.raises(RuntimeError, match="does not fall back") as err:
@@ -653,7 +695,7 @@ def test_captured_steps_equal_eager_steps_on_the_card(tmp_path):
             got = captured.run_step(batch, {k: v.clone() for k, v in draws.items()})
             for key in want:
                 assert torch.equal(got[key], want[key]), (i, key)
-        assert captured.train_step.captured and captured.train_step.graph.replays == 2
+        assert captured.train_step.captured and captured.train_step.replays == 2
         for a, b in zip(eager.text_encoder.parameters(), captured.text_encoder.parameters()):
             assert torch.equal(a, b)
     finally:

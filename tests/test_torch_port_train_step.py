@@ -71,8 +71,10 @@ def _to_torch(batch):
             for k, v in batch.items()}
 
 
-def _jax_side(rng):
-    bundle = jax_load_models("tiny", lora_rank=4, dtype=jnp.float32)
+def _jax_side(rng, accumulate_steps=1, bundle=None):
+    """The JAX step and its state over `bundle` (the JAX `tiny` init by
+    default; any object with its te/unet/vae params and modules)."""
+    bundle = bundle or jax_load_models("tiny", lora_rank=4, dtype=jnp.float32)
     params = jax.tree.map(np.asarray, bundle.te_params)
     # Nonzero LoRA B, so that A trains from the first step.
     for name, layer in params["params"].items():
@@ -89,7 +91,8 @@ def _jax_side(rng):
     target_norm = float(np.linalg.norm(grown, axis=-1).mean())
     te = JaxCLIP(SPEC.text_encoder, lora_rank=4, dtype=jnp.float32,
                  vocab_size_override=FIRST_ADDED + 1)
-    optimizer = jax_make_optimizer(1e-3, 1e-2, te_params, max_grad_norm=1.0)
+    optimizer = jax_make_optimizer(1e-3, 1e-2, te_params, max_grad_norm=1.0,
+                                   accumulate_steps=accumulate_steps)
     step = jax.jit(jax_make_train_step(
         text_encoder_apply=te.apply,
         frozen_text_encoder_apply=frozen_te.apply,

@@ -10,7 +10,10 @@ text_to_image.py holds when its caller asks for it) are built on `Graph`.
 * A replay makes no Python call, so the kernels' launch counters
   (ops/flash_attention.py, ops/group_norm.py) would miss it: each graph
   records the counters' delta over its capture, takes it back (a capture
-  launches nothing), and adds it at every replay (`LaunchDelta`).
+  launches nothing), and adds it at every replay (`LaunchDelta`).  Other
+  host-side bookkeeping of the captured work (the data-parallel
+  all-reduce's counts, parallel/mesh.py) goes through `per_replay`: run at
+  once outside a capture, at each replay of the capturing graph inside one.
 * Warm-ups and captures run on one side stream per device
   (`capture_stream`).
 * A graph reads its inputs at the addresses it was captured at (the flash
@@ -27,7 +30,7 @@ import collections
 import contextlib
 import math
 import time
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -106,6 +109,36 @@ class LaunchDelta:
         set_launch_counts({key: now[key] + self.delta[key] for key in now})
 
 
+# -- host work a replay repeats -------------------------------------------------
+_host_work: Optional[List[Callable[[], None]]] = None  # the capturing graph's
+
+
+def capturing() -> bool:
+    """Whether a graph is capturing: its host work is kept for its replays."""
+    return _host_work is not None
+
+
+def per_replay(fn: Callable[[], None]) -> None:
+    """Run `fn` (host-side bookkeeping of device work, such as a counter)
+    now, or, while a graph captures, at each of its replays instead: a
+    capture runs nothing on the card, and a replay makes no Python call."""
+    if _host_work is not None:
+        _host_work.append(fn)
+    else:
+        fn()
+
+
+@contextlib.contextmanager
+def recording_host_work(work: List[Callable[[], None]]):
+    """Inside the block, `per_replay` appends to `work` (a capture's)."""
+    global _host_work
+    outer, _host_work = _host_work, work
+    try:
+        yield work
+    finally:
+        _host_work = outer
+
+
 # -- graphs --------------------------------------------------------------------
 _streams: Dict[torch.device, "torch.cuda.Stream"] = {}
 
@@ -120,12 +153,30 @@ def capture_stream(device: torch.device) -> "torch.cuda.Stream":
     return _streams[device]
 
 
+def run_eager(device, fn: Callable):
+    """fn() on the capture stream of a CUDA `device` (a warm-up: the
+    workspaces and caches it makes are those the capture then finds), or
+    simply fn() elsewhere."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return fn()
+    stream = capture_stream(device)
+    current = torch.cuda.current_stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        out = fn()
+    current.wait_stream(stream)
+    return out
+
+
 class Graph:
-    """One CUDA graph.  `run_eager(fn)` runs fn on the capture stream (a
-    warm-up), `capture(fn)` records fn's kernels without running them,
-    `replay()` runs them and returns what fn returned at the capture (the
-    same tensors each time).  Keeps the capture's wall ms, the bytes it
-    reserved (its pool), the launches it counted and the replays."""
+    """One CUDA graph.  `capture(fn)` records fn's kernels without running
+    them, `replay()` runs them and returns what fn returned at the capture
+    (the same tensors each time); warm-ups go through `run_eager`.  Graphs
+    given one `pool` share its memory, and must then replay in the order
+    they were captured.  Keeps the capture's wall ms, the bytes it reserved
+    (its pool's growth), the launches it counted, the host work it
+    deferred (`per_replay`) and the replays."""
 
     def __init__(self, device, pool=None):
         self.device = torch.device(device)
@@ -133,18 +184,10 @@ class Graph:
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
         self.outputs = None
         self.launches = LaunchDelta()
+        self.host_work: List[Callable[[], None]] = []
         self.replays = 0
         self.capture_ms: Optional[float] = None
         self.pool_bytes: Optional[int] = None
-
-    def run_eager(self, fn: Callable):
-        stream = capture_stream(self.device)
-        current = torch.cuda.current_stream(self.device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            out = fn()
-        current.wait_stream(stream)
-        return out
 
     def capture(self, fn: Callable) -> None:
         torch.cuda.synchronize(self.device)
@@ -152,7 +195,8 @@ class Graph:
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
-        with self.launches.recording():
+        self.host_work = []
+        with self.launches.recording(), recording_host_work(self.host_work):
             with torch.cuda.graph(self.graph, pool=self.pool, stream=capture_stream(self.device),
                                   capture_error_mode="thread_local"):
                 self.outputs = fn()
@@ -162,6 +206,8 @@ class Graph:
     def replay(self):
         self.graph.replay()
         self.launches.add()
+        for fn in self.host_work:
+            fn()
         self.replays += 1
         return self.outputs
 
@@ -230,7 +276,7 @@ class CapturedSampler:
                 self.pool = torch.cuda.graph_pool_handle()
             entry = self.entries[key] = {"graph": Graph(device, self.pool), "guard": guard,
                                          "static": None}
-            return entry["graph"].run_eager(lambda: fn(inputs))
+            return run_eager(device, lambda: fn(inputs))
         graph = entry["graph"]
         if entry["static"] is None:
             static = entry["static"] = {k: v.clone() for k, v in inputs.items()}

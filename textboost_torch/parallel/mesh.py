@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import os
 import time
@@ -29,6 +30,8 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from .. import graphs
 
 logger = logging.getLogger("textboost_torch")
 
@@ -166,7 +169,11 @@ class GradReducer:
     are summed over the tp group and averaged over dp: the one world sum,
     divided by dp.  Under
     gloo a CUDA buffer goes through a pinned host copy.  `calls` and
-    `bytes` count the reduces, `milliseconds()` the time of each."""
+    `bytes` count the reduces, `replayed` those a CUDA graph of the step
+    ran (over NCCL at world 1, the all-reduce inside the graph: counted at
+    each replay through graphs.per_replay, as the kernels' launches are),
+    `milliseconds()` the time of each reduce that ran eagerly (a graph's
+    are not timed)."""
 
     SCALARS = ("den_loss", "kpl", "prior_loss")
 
@@ -183,6 +190,7 @@ class GradReducer:
                                         for p in self.params]
         self.calls = 0
         self.bytes = 0
+        self.replayed = 0
         self._host_ms: List[float] = []
         self._marks: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
         self._host: Optional[torch.Tensor] = None
@@ -209,10 +217,23 @@ class GradReducer:
         dist.all_reduce(flat)
         return flat
 
+    def prepare_capture(self) -> None:
+        """Before the step's capture: an eager reduce has run, so the
+        backend's communicator exists (NCCL makes it at the first
+        collective; a capture cannot)."""
+        if self.calls == 0:
+            raise RuntimeError("the all-reduce is captured before any ran eagerly: its "
+                               "communicator is made by the first, eager one")
+
+    def _count(self, nbytes: int, replayed: bool) -> None:
+        self.calls += 1
+        self.bytes += nbytes
+        self.replayed += replayed
+
     def milliseconds(self) -> List[float]:
-        """Each reduce's time: on a card, CUDA events on its stream around
-        the all_reduce (the wait for the other ranks and gloo's host copies
-        included); on the CPU, the host clock."""
+        """Each eager reduce's time: on a card, CUDA events on its stream
+        around the all_reduce (the wait for the other ranks and gloo's host
+        copies included); on the CPU, the host clock."""
         for _, end in self._marks:
             end.synchronize()
         return self._host_ms + [a.elapsed_time(b) for a, b in self._marks]
@@ -223,15 +244,17 @@ class GradReducer:
         scalars = [loss] + [aux[k] for k in self.SCALARS]
         flat = torch.cat([g.reshape(-1).float() for g in grads]
                          + [s.reshape(1).float() for s in scalars])
-        if flat.is_cuda:
+        captured = graphs.capturing()
+        timed = flat.is_cuda and not captured
+        if timed:
             marks = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             marks[0].record()
         t0 = time.perf_counter()
         flat = self._all_reduce(flat)
-        if flat.is_cuda:
+        if timed:
             marks[1].record()
             self._marks.append(marks)
-        else:
+        elif not captured:
             self._host_ms.append(1e3 * (time.perf_counter() - t0))
         offset = 0
         for g, divisor in zip(grads, self.divisors):
@@ -239,6 +262,6 @@ class GradReducer:
             offset += g.numel()
         flat[offset:].div_(self.world)
         loss, *rest = flat[offset:]
-        self.calls += 1
-        self.bytes += flat.numel() * flat.element_size()
+        graphs.per_replay(functools.partial(self._count, flat.numel() * flat.element_size(),
+                                            captured))
         return loss, {**aux, **dict(zip(self.SCALARS, rest))}

@@ -7,18 +7,32 @@ build_sample_program).  The port records each into a `torch.cuda.CUDAGraph`
 once and replays it (textboost_torch/graphs.py): one launch from the host
 where an eager step dispatches thousands of kernels from Python.
 
-* `eager_reason` is the envelope of the JAX package's compiled step, plus
-  a CUDA device and one process; outside it the step runs eagerly and the
-  trainer says why.
-* `CapturedStep` runs the trainer's step inside that envelope:
+* Two envelopes.  `eager_reason` is where the step is captured: where the
+  JAX trainer jits it (textboost_tpu/train/trainer.py:728: every config,
+  the UNet's LoRA, the image prior and accumulation included) less what
+  one card can neither hold nor check: tensor parallelism, more than one
+  process (capture across NCCL ranks waits for a check on two cards), the
+  gloo backend (its all-reduce goes through a host copy), a device other
+  than CUDA, and `graphs.set_capture(False)`.  An NCCL launch at world 1
+  is captured, its all-reduce inside the graph.  `envelope_reason` is the
+  memo's: textboost_tpu/train/aot.py:132-141's gate (no UNet LoRA, no
+  image prior, tp 1, no accumulation, one process, and no torch.distributed
+  launch), where aot.py compiles ahead of time and keeps its memo.
+* `CapturedStep` runs the trainer's step inside the capture envelope:
   WARMUP_STEPS eager steps on the capture stream (real steps of the run,
-  which also create AdamW's state, cuBLAS's workspaces, the GroupNorm
-  plans' occupancy cache and the loaded kernel libraries), then one
-  capture, then replays.  Each call copies the batch and the draws into
-  static buffers: the flash kernels take their TMA maps as kernel
-  parameters, which the graph keeps, so the inputs stay at fixed
-  addresses.  After each replay the learning-rate schedule and the
-  micro-step count move on the host (train/step.py::TrainStep.finish).
+  WARMUP_STEPS x --gradient_accumulation_steps micro-steps, which also
+  create AdamW's state, the accumulation buffers, cuBLAS's workspaces, the
+  GroupNorm plans' occupancy cache, the loaded kernel libraries and the
+  NCCL communicator), then one capture per micro-step position (train/
+  step.py::micro_step_position: "only" without accumulation, else "first",
+  "middle", "last": at most three graphs in one memory pool, captured and
+  replayed in that order), then replays; the host picks a micro-step's
+  graph by the micro-step count.  Each call copies the batch and the draws
+  into static buffers, which every position's graph reads: the flash
+  kernels take their TMA maps as kernel parameters, which the graph keeps,
+  so the inputs stay at fixed addresses.  After each replay the
+  learning-rate schedule and the micro-step count move on the host
+  (train/step.py::TrainStep.finish).
 * `validation_eager_reason` decides the validation rounds' sampling graph
   (graphs.py::CapturedSampler over `validation_signature`): inside the
   step's envelope (a tensor-parallel UNet reduces over the host in its
@@ -40,16 +54,18 @@ where an eager step dispatches thousands of kernels from Python.
   pool and the step's state on the card (about 10.7 GiB at sd21base, 512
   px, PERF.md), so a new key releases the old entry before its instance
   warms up and captures, and a sweep holds no more than the parent's one
-  instance at a time.  The memo serves the envelope of the JAX package's
-  compiled step on every device (on the CPU the entry holds the eager
-  step, so that the binding is tested there); an entry is taken by one
+  instance at a time.  The memo serves aot.py's envelope
+  (`envelope_reason`) on every device, and no config outside it, as
+  aot.py:144-150 looks its memo up only inside its gate (on the CPU the
+  entry holds the eager step, so that the binding is tested there); an
+  entry is taken by one
   trainer at a time and handed back when its run ends.  The validation
   rounds' sampling graph is not kept: the trainer releases it at the run's
   end.  Tests clear the memo with
   `monkeypatch.setattr(graph, "_AOT_MEMO", {})`.
 
-Inside the envelope a failed capture or replay raises: nothing falls back
-to eager.  Graphs need CUDA; on the CPU the trainer runs as it did, the
+Inside the capture envelope a failed capture or replay raises: nothing
+falls back to eager.  Graphs need CUDA; on the CPU the trainer runs the
 same static-buffer code eagerly.  `graphs.set_capture(False)` turns
 capture off (tests and chip_smoke take eager references with it); it is
 not a CLI flag, as the JAX package has none for its compiled step.
@@ -58,26 +74,30 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from .. import graphs
-from ..graphs import Graph, capture_enabled, static_copy
+from ..graphs import Graph, capture_enabled, run_eager, static_copy
+from .step import micro_step_position
 
 WARMUP_STEPS = 3
 
-def eager_reason(cfg, device, world: int = 1, distributed: bool = False) -> Optional[str]:
+def eager_reason(cfg, device, world: int = 1, backend: Optional[str] = None) -> Optional[str]:
     """Why the train step of `cfg` runs eagerly on `device` in a launch of
-    `world` processes (`distributed`: under torch.distributed), or None when
-    it is captured: the envelope of textboost_tpu/train/aot.py::
-    launch_step_aot (:132-141), a CUDA device, and the capture switch."""
+    `world` processes over `backend` (the torch.distributed backend, None
+    without a launch), or None when it is captured: the JAX trainer's
+    compiled step (every config) less what one card cannot hold or check."""
     device = torch.device(device)
     if device.type != "cuda":
         return f"the device is {device.type} (CUDA graphs need CUDA)"
-    reason = envelope_reason(cfg, world, distributed)
-    if reason is not None:
-        return reason
+    if cfg.mesh_tp > 1:
+        return f"--mesh_tp {cfg.mesh_tp}"
+    if world > 1:
+        return f"{world} processes (capture across NCCL ranks waits for a check on two cards)"
+    if backend is not None and backend != "nccl":
+        return f"the {backend} backend (its all-reduce goes through a host copy)"
     if not capture_enabled():
         return "capture turned off (graphs.set_capture(False))"
     return None
@@ -85,9 +105,8 @@ def eager_reason(cfg, device, world: int = 1, distributed: bool = False) -> Opti
 
 def envelope_reason(cfg, world: int = 1, distributed: bool = False) -> Optional[str]:
     """Why `cfg` in a launch of `world` processes is outside the envelope of
-    the JAX package's compiled step (aot.py:132-141, and no torch.distributed
-    launch), or None: where the step may be captured and where the memo
-    keeps its entries."""
+    the JAX package's ahead-of-time compile (aot.py:132-141, and no
+    torch.distributed launch), or None: where the memo keeps its entries."""
     if cfg.unet_params_to_train != "none":
         return f"--unet_params_to_train {cfg.unet_params_to_train}"
     if cfg.with_image_prior:
@@ -99,7 +118,7 @@ def envelope_reason(cfg, world: int = 1, distributed: bool = False) -> Optional[
     if world > 1:
         return f"{world} processes"
     if distributed:
-        return "a torch.distributed launch (its gradient all-reduce is not captured)"
+        return "a torch.distributed launch"
     return None
 
 
@@ -137,52 +156,89 @@ def validation_signature(cfg, spec) -> Optional[Tuple]:
 
 
 class CapturedStep:
-    """The train step (train/step.py::TrainStep) as a CUDA graph: `warmup`
-    eager calls on the capture stream, then the capture of `step.body` on
-    static copies of the batch and the draws, then replays; after each
-    replay `step.finish`.  Returns the step's metrics: after the capture,
-    the graph's output tensors, which every replay overwrites.  A failed
-    capture raises."""
+    """The train step (train/step.py::TrainStep) as CUDA graphs: `warmup`
+    whole steps (`warmup` x `accumulate` micro-steps) run eagerly on the
+    capture stream, then each micro-step position (step.py::
+    micro_step_position) is captured at its first call, `step.body` on
+    static copies of the batch and the draws, and replayed; after each
+    replay `step.finish`.  The positions' graphs share one memory pool.
+    Returns the step's metrics: after the capture, the position's graph's
+    output tensors, which its next replay overwrites.  A failed capture
+    raises.  `new_graph()` makes a position's graph (default: a
+    `graphs.Graph` on the shared pool; tests pass a stand-in)."""
 
-    def __init__(self, step, device, warmup: int = WARMUP_STEPS, graph: Optional[Graph] = None):
+    def __init__(self, step, device, warmup: int = WARMUP_STEPS, accumulate: int = 1,
+                 new_graph: Optional[Callable[[], Graph]] = None):
         self.step = step
         self.device = torch.device(device)
         self.warmup = warmup
-        self.graph = graph if graph is not None else Graph(self.device)
-        self.eager_steps = 0
-        self.captured = False
+        self.accumulate = max(accumulate, 1)
+        self.graphs: Dict[str, Graph] = {}  # by micro-step position, in capture order
+        self.eager_steps = 0  # micro-steps
+        self._new_graph = new_graph
+        self._pool = None
         self._static: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
 
+    @property
+    def captured(self) -> bool:
+        return bool(self.graphs)
+
+    @property
+    def replays(self) -> int:
+        """Micro-step replays, over every position's graph."""
+        return sum(g.replays for g in self.graphs.values())
+
+    def _make_graph(self) -> Graph:
+        if self._new_graph is not None:
+            return self._new_graph()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return Graph(self.device, self._pool)
+
     def __call__(self, state, batch: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor]):
-        if not self.captured and self.eager_steps < self.warmup:
+        if not self.graphs and self.eager_steps < self.warmup * self.accumulate:
             self.eager_steps += 1
-            return self.graph.run_eager(lambda: self.step(state, batch, draws))
-        if not self.captured:
-            static = self._static = {
-                "batch": {k: v.clone() for k, v in batch.items()},
-                "draws": {k: v.clone() for k, v in draws.items()}}
-            try:
-                self.graph.capture(lambda: self.step.body(state, static["batch"],
-                                                          static["draws"]))
-            except Exception as e:
-                raise RuntimeError("capturing the train step as a CUDA graph failed (inside "
-                                   "the envelope the step does not fall back to eager)") from e
-            self.captured = True
+            return run_eager(self.device, lambda: self.step(state, batch, draws))
+        if self._static is None:
+            self._static = {"batch": {k: v.clone() for k, v in batch.items()},
+                            "draws": {k: v.clone() for k, v in draws.items()}}
         else:
             static_copy(self._static["batch"], batch, "the captured train step's batch")
             static_copy(self._static["draws"], draws, "the captured train step's draws")
-        metrics = self.graph.replay()
+        position = micro_step_position(state.step, self.accumulate) if self.accumulate > 1 \
+            else "only"
+        graph = self.graphs.get(position)
+        if graph is None:
+            static = self._static
+            graph = self._make_graph()
+            try:
+                if hasattr(self.step, "prepare_capture"):
+                    self.step.prepare_capture()
+                graph.capture(lambda: self.step.body(state, static["batch"], static["draws"]))
+            except Exception as e:
+                raise RuntimeError(f"capturing the train step ({position} micro-step) as a CUDA "
+                                   f"graph failed (inside the envelope the step does not fall "
+                                   f"back to eager)") from e
+            self.graphs[position] = graph
+        metrics = graph.replay()
         self.step.finish(state)
         return metrics
 
     def stats(self) -> Dict[str, float]:
-        return {**self.graph.stats(), "eager_steps": self.eager_steps}
+        """The graphs' number, capture ms and pool bytes (summed over the
+        positions), micro-step replays and eager micro-steps."""
+        per = [g.stats() for g in self.graphs.values()]
+        out = {key: sum(s[key] for s in per) for key in ("capture_ms", "pool_bytes")
+               if per and all(s.get(key) is not None for s in per)}
+        return {**out, "graphs": len(per), "replays": self.replays,
+                "eager_steps": self.eager_steps}
 
     def release(self) -> None:
-        """Drop the graph, its pool and the static buffers; the next call
+        """Drop the graphs, their pool and the static buffers; the next call
         warms up again."""
-        self.graph = Graph(self.device)
-        self.eager_steps, self.captured, self._static = 0, False, None
+        self.graphs = {}
+        self._pool = None
+        self.eager_steps, self._static = 0, None
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
 

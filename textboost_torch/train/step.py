@@ -23,6 +23,11 @@ structure fixed by the config, so that a CUDA graph can hold it
 micro-step count).
 Accumulation follows optax's MultiSteps: gradients of `accumulate_steps`
 micro-batches are averaged, clipped once, and applied on the last one.
+The sum lives in buffers made once (`TrainState.accumulated`), so that
+each micro-step's position (`micro_step_position`: first, middle, last)
+has a body of fixed addresses that a graph can hold: the first copies its
+gradients in, a middle one adds them, the last adds, averages, clips and
+updates; the eager step runs the same code.
 Data parallel, `reduce` (parallel/mesh.py::GradReducer) averages each
 micro-step's trainable gradients and loss scalars over the ranks right
 after the backward: every rank then reports the global batch's metrics
@@ -98,7 +103,19 @@ class TrainState:
     # optimizer's LoRA group), else empty.
     unet_lora: List[nn.Parameter] = dataclasses.field(default_factory=list)
     step: int = 0  # micro-steps taken
+    # The gradient sum of an accumulation, one buffer per trainable tensor,
+    # made at the first micro-step and kept (graphs read it in place).
     accumulated: Optional[List[torch.Tensor]] = None
+
+
+def micro_step_position(step: int, accumulate_steps: int) -> str:
+    """Where micro-step `step` (0-based, counted from the run's start) falls
+    in its accumulation: "only" without one, else "first", "middle" or
+    "last" (which applies the update)."""
+    if accumulate_steps <= 1:
+        return "only"
+    i = step % accumulate_steps
+    return "first" if i == 0 else "last" if i == accumulate_steps - 1 else "middle"
 
 
 def sample_draws(
@@ -210,8 +227,9 @@ class TrainStep:
     aux)`, when given, runs right after the backward (data parallel).
 
     A call is `body` then `finish`: `body` is the device work, with a
-    Python structure fixed by the config and the micro-step count and no
-    host sync, which a CUDA graph can hold (train/graph.py); `finish` is
+    Python structure fixed by the config and the micro-step's position
+    (`micro_step_position`) and no host sync, which a CUDA graph can hold
+    (train/graph.py: one graph per position); `finish` is
     what stays on the host: the learning-rate schedule after an update and
     the micro-step count."""
 
@@ -222,8 +240,13 @@ class TrainStep:
     def updates(self, state: TrainState) -> bool:
         """Whether this micro-step applies the update (the last of an
         accumulation)."""
-        accum = self.config.accumulate_steps
-        return accum <= 1 or (state.step + 1) % accum == 0
+        return micro_step_position(state.step, self.config.accumulate_steps) in ("only", "last")
+
+    def prepare_capture(self) -> None:
+        """Before a graph captures `body`: what the capture needs to exist
+        already (the reduce's communicator)."""
+        if self.reduce is not None and hasattr(self.reduce, "prepare_capture"):
+            self.reduce.prepare_capture()
 
     def body(self, state: TrainState, batch: Dict, draws: Draws) -> Dict[str, torch.Tensor]:
         config, first_added = self.config, self.config.first_added_token_id
@@ -243,19 +266,10 @@ class TrainStep:
                 apply_mixing_mask(state.unet, config.augment_ops)
         grad_norm = encoder_grad_norm(lora)  # pre-clip, for the metrics
 
-        update = self.updates(state)
-        if config.accumulate_steps > 1:
-            with torch.no_grad():
-                if state.accumulated is None:
-                    state.accumulated = [p.grad.clone() for p in trainable]
-                else:
-                    for acc, p in zip(state.accumulated, trainable):
-                        acc.add_(p.grad)
-            for p, acc in zip(trainable, state.accumulated):
-                p.grad = acc.div_(config.accumulate_steps) if update else None
-            if update:
-                state.accumulated = None
-        if update:
+        position = micro_step_position(state.step, config.accumulate_steps)
+        if position != "only":
+            _accumulate(state, trainable, position, config.accumulate_steps)
+        if position in ("only", "last"):
             if config.max_grad_norm is not None:
                 clip_encoder_grads(lora, config.max_grad_norm)
             state.optimizer.step()
@@ -281,6 +295,24 @@ class TrainStep:
         metrics = self.body(state, batch, draws)
         self.finish(state)
         return metrics
+
+
+@torch.no_grad()
+def _accumulate(state: TrainState, trainable: List[nn.Parameter], position: str,
+                accumulate_steps: int) -> None:
+    """Gather a micro-step's gradients into `state.accumulated` (made at the
+    first micro-step of the run): the first copies them, the others add
+    them; the last leaves the mean in `.grad` (the buffers themselves), the
+    others no `.grad`."""
+    if state.accumulated is None:
+        state.accumulated = [torch.zeros_like(p.grad) for p in trainable]
+    for acc, p in zip(state.accumulated, trainable):
+        if position == "first":
+            acc.copy_(p.grad)
+        else:
+            acc.add_(p.grad)
+    for p, acc in zip(trainable, state.accumulated):
+        p.grad = acc.div_(accumulate_steps) if position == "last" else None
 
 
 def make_train_step(config: StepConfig, reduce: Optional[Reduce] = None) -> TrainStep:

@@ -14,13 +14,18 @@ compact checkpoint every --checkpointing_steps and a validation grid every
 and at the end the PEFT `text_encoder/` adapter (and `unet/`, with
 `--unet_params_to_train crossattn_kv`) and `{token}.bin` files that
 `textboost_torch.inference` and the JAX `load_textboost_pipeline` load.
-On a card, inside the envelope of the JAX package's compiled step
-(train/graph.py::eager_reason: no UNet LoRA, no image prior, no tensor
-parallelism, no accumulation, one process), the step runs as a CUDA graph
-after its warm-up steps (the counterpart of textboost_tpu/train/aot.py);
-the batch and the draws are made eagerly and copied into the graph's
-inputs.  The validation rounds' sampling runs as one from the second
-round when the run holds enough rounds to pay the capture back
+On a card the step runs as CUDA graphs after its warm-up steps, one per
+micro-step position (the counterpart of the JAX trainer's jitted step,
+textboost_tpu/train/trainer.py:728, and of aot.py): with the UNet's LoRA,
+the image prior, accumulation and under an NCCL launch at world 1 too
+(train/graph.py::eager_reason).  It runs eagerly under tensor parallelism,
+in more than one process (capture across NCCL ranks waits for a check on
+two cards) and over gloo (whose all-reduce goes through a host copy).  The
+batch and the draws are made eagerly and copied into the graphs' inputs.
+The cross-instance memo keeps a captured step only inside aot.py's own
+envelope (train/graph.py::envelope_reason).  The validation rounds'
+sampling runs as a graph from the second round when the step is captured
+and the run holds enough rounds to pay the capture back
 (train/graph.py::validation_eager_reason).  Elsewhere each runs eagerly,
 and the result and the log say why.
 `--gradient_checkpointing` recomputes the UNet's blocks in the backward;
@@ -283,9 +288,11 @@ class Trainer:
         )
         spec = bundle.spec
         world = dist.get_world_size() if dist.is_initialized() else 1
-        self.eager_reason = graph.eager_reason(cfg, dev, world, distributed=dist.is_initialized())
-        # The cross-instance memo (train/graph.py): inside the JAX package's
-        # envelope, keyed as its step memo; taken by this trainer alone.
+        self.eager_reason = graph.eager_reason(
+            cfg, dev, world, backend=dist.get_backend() if dist.is_initialized() else None)
+        # The cross-instance memo (train/graph.py): inside aot.py's envelope
+        # (`envelope_reason`), keyed as its step memo; taken by this trainer
+        # alone.
         self._memo_key = None
         memo = None
         if graph.envelope_reason(cfg, world, dist.is_initialized()) is None:
@@ -501,14 +508,15 @@ class Trainer:
             target_norm, original_rows = memo.target_norm, memo.original_rows
         else:
             step = make_train_step(self.step_config, reduce=self.reducer)
-            self.train_step = (step if self.eager_reason is not None
-                               else graph.CapturedStep(step, dev))
+            self.train_step = (step if self.eager_reason is not None else graph.CapturedStep(
+                step, dev, accumulate=self.step_config.accumulate_steps))
             target_norm = torch.tensor(self.mean_norm, dtype=torch.float32, device=dev)
             original_rows = grown[:first_added_id].clone()
         captured = isinstance(self.train_step, graph.CapturedStep) and self.train_step.captured
         logger.info("train step: %s", f"eager: {self.eager_reason}" if self.eager_reason else
                     "the memo's CUDA graph, replayed from the first step" if captured else
-                    f"a CUDA graph, captured after {graph.WARMUP_STEPS} eager steps")
+                    f"a CUDA graph per micro-step position, captured after "
+                    f"{graph.WARMUP_STEPS} eager steps")
         self.state = TrainState(
             text_encoder=te, frozen_text_encoder=self.frozen_te, unet=unet, vae=vae,
             optimizer=optimizer, lr_scheduler=scheduler, schedule=self.schedule,
@@ -563,7 +571,7 @@ class Trainer:
         # the instances before it.
         held = isinstance(self.train_step, graph.CapturedStep)
         self._step_from_memo = held and self.train_step.captured
-        self._step_counts = ((self.train_step.eager_steps, self.train_step.graph.replays)
+        self._step_counts = ((self.train_step.eager_steps, self.train_step.replays)
                              if held else (0, 0))
 
     # ------------------------------------------------------------------
@@ -647,8 +655,9 @@ class Trainer:
 
     def graph_stats(self) -> Dict[str, object]:
         """`step_graph`: "captured" or "eager: <reason>"; with the graphs'
-        capture ms, pool bytes and this run's replays and eager steps, and
-        `step_graph_from_memo`: whether an earlier instance captured it."""
+        number, capture ms and pool bytes, this run's micro-step replays and
+        eager micro-steps, and `step_graph_from_memo`: whether an earlier
+        instance captured it."""
         out: Dict[str, object] = {}
         if isinstance(self.train_step, graph.CapturedStep):
             if self.train_step.captured:
@@ -756,10 +765,13 @@ class Trainer:
         if self.reducer is not None and self.reducer.calls:
             r, ms = self.reducer, self.reducer.milliseconds()
             result.update({"dp_backend": dist.get_backend(), "dp_world": self.mesh.dp,
+                           "all_reduce_calls": r.calls, "all_reduce_replayed": r.replayed,
                            "all_reduce_bytes_per_call": r.bytes / r.calls,
                            "all_reduce_ms_by_call": ms})
-            logger.info("all-reduce: %d calls, %d bytes each, median %.3f ms (%.3f-%.3f)",
-                        r.calls, r.bytes // r.calls, float(np.median(ms)), min(ms), max(ms))
+            logger.info("all-reduce: %d calls, %d bytes each; %d eager, timed: median %.3f ms "
+                        "(%.3f-%.3f); %d replayed in the step's CUDA graphs, untimed", r.calls,
+                        r.bytes // r.calls, r.calls - r.replayed, float(np.median(ms)), min(ms),
+                        max(ms), r.replayed)
         if tp_steps:
             result.update(self._tp_by_step(tp_steps))
         # The writers' time overlapped the loop; they land before the run
