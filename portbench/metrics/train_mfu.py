@@ -1,0 +1,9 @@
+"""The step layer: the model FLOPs of the traced steps (counts/flops.py) over
+the traced span and the card's dense bf16 peak, in percent."""
+from portbench.counts import readings
+
+
+def read(r):
+    if r["kind"] != "train":
+        return None
+    return readings.mfu_percent(r["flops"], r["trace"]["window_us"] / 1e6)
